@@ -39,7 +39,8 @@ def card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,bins", [(1 << 22, 4096), (1 << 22, 64),
-                                    (777, 4096), (5, 64)])
+                                    (777, 4096), (5, 64),
+                                    (100_000, sh_ops.MAX_BINS), (3000, 1)])
 def test_score_hist_kernel_matches_plain(card, n, bins):
     s = torch.from_numpy(_scores(n, 7)).to(card)
     got = sh_ops.score_hist(s, bins)

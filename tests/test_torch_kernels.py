@@ -158,6 +158,14 @@ def test_cuda_tensor_launches_or_raises(monkeypatch, call):
         call(_CudaLooking())
 
 
+@pytest.mark.parametrize("bins", [0, sh_ops.MAX_BINS + 1])
+def test_score_hist_kernel_refuses_bins_beyond_shared_memory(bins):
+    """The kernel takes any bin count whose 20 B/bin fit a CTA's shared
+    memory and raises above it, before any build or launch."""
+    with pytest.raises(ValueError, match="num_bins"):
+        sh_ops.score_hist(_CudaLooking(), bins)
+
+
 @pytest.mark.parametrize("call", [
     lambda t: sh_ops.score_hist(t, 64),
     lambda t: ts_ops.threshold_select(t, 0.5)])
