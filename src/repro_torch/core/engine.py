@@ -176,7 +176,7 @@ class ShardedSelection:
 
 @dataclasses.dataclass
 class _ShardChunkState:
-    """One shard's hierarchical draw state for one (scheme, kappa)."""
+    """One shard's hierarchical draw state for one weight scheme."""
     mass: float            # shard total defensive mass (unnormalized)
     cdf: np.ndarray        # (n_chunks,) float64 normalized chunk-mass CDF
 
@@ -199,9 +199,8 @@ class CorpusState:
     chunk_masses: List[sampling.ChunkMasses]   # per-shard raw chunk masses
     z: Dict[str, float]                 # global weight normalizers
     flat: Optional[torch.Tensor]        # the device corpus (or None)
-    sampling_cache: Dict[Tuple[str, float],
-                         List[_ShardChunkState]] = dataclasses.field(
-                             default_factory=dict)
+    sampling_cache: Dict[str, List[_ShardChunkState]] = \
+        dataclasses.field(default_factory=dict)   # by weight scheme
     pins: int = 0                       # live references (engine._gc_lock)
 
 
@@ -299,13 +298,11 @@ class SelectionEngine:
     """
 
     def __init__(self, shards: Sequence, num_bins: int = 4096,
-                 weight_schemes: Sequence[str] = ("sqrt",),
-                 kappa: float = sampling.DEFENSIVE_KAPPA,
                  chunk_records: Optional[int] = None,
                  workers: Optional[int] = None,
                  clamp_workers: bool = True,
                  device=None):
-        self._setup(device, kappa, chunk_records, workers, clamp_workers)
+        self._setup(device, chunk_records, workers, clamp_workers)
         self.num_bins = int(num_bins)
         views, flat = _residency(_host_shards(shards), self.device)
         sizes = [int(s.shape[0]) for s in views]
@@ -320,12 +317,10 @@ class SelectionEngine:
             plan=plan, shard_sketches=shard_sketches, sketch=sketch,
             chunk_masses=chunk_masses,
             z={"sqrt": float(z_sqrt), "prop": float(z_prop)}, flat=flat)
-        for scheme in weight_schemes:        # pre-warm hint only
-            self._sampling_state(scheme, self.kappa)
+        self._sampling_state("sqrt")
 
-    def _setup(self, device, kappa, chunk_records, workers, clamp_workers):
+    def _setup(self, device, chunk_records, workers, clamp_workers):
         self.device = resolve_device(device)
-        self.kappa = float(kappa)
         self.chunk_records = int(chunk_records or pipeline.CHUNK_RECORDS)
         self.workers = _effective_workers(workers, clamp_workers)
         self.pool = pipeline.WorkerPool(self.workers)
@@ -333,15 +328,12 @@ class SelectionEngine:
 
     @classmethod
     def from_state(cls, state: CorpusState, *, device=None,
-                   weight_schemes: Sequence[str] = ("sqrt",),
-                   kappa: float = sampling.DEFENSIVE_KAPPA,
                    workers: Optional[int] = None,
                    clamp_workers: bool = True) -> "SelectionEngine":
         """An engine serving queries from an existing corpus state (e.g.
         `state_from_reference`), placed on `device` without re-sketching."""
         eng = cls.__new__(cls)
-        eng._setup(device, kappa, state.plan.chunk_records, workers,
-                   clamp_workers)
+        eng._setup(device, state.plan.chunk_records, workers, clamp_workers)
         eng.num_bins = state.sketch.num_bins
         views, flat = _residency(list(state.shards), eng.device)
 
@@ -352,8 +344,7 @@ class SelectionEngine:
             state, shards=views, flat=flat, sketch=place(state.sketch),
             shard_sketches=[place(sk) for sk in state.shard_sketches],
             sampling_cache={}, pins=0)
-        for scheme in weight_schemes:
-            eng._sampling_state(scheme, eng.kappa)
+        eng._sampling_state("sqrt")
         return eng
 
     def _span(self, shard, start: int, stop: int) -> torch.Tensor:
@@ -456,12 +447,11 @@ class SelectionEngine:
         """Per-shard ScoreSketches."""
         return self._state.shard_sketches
 
-    def _sampling_state(self, scheme: str, kappa: float,
+    def _sampling_state(self, scheme: str,
                         state: Optional[CorpusState] = None) \
             -> List[_ShardChunkState]:
         st = self._state if state is None else state
-        cache_key = (scheme, float(kappa))
-        if cache_key not in st.sampling_cache:
+        if scheme not in st.sampling_cache:
             states = []
             for cm in st.chunk_masses:
                 if cm.sizes.size == 0:   # empty shard: zero mass, no draws
@@ -469,15 +459,15 @@ class SelectionEngine:
                         mass=0.0, cdf=np.empty(0, np.float64)))
                     continue
                 total, cdf = sampling.chunk_mass_cdf(
-                    cm.raw(scheme), cm.sizes, st.z[scheme], kappa,
-                    st.n_total)
+                    cm.raw(scheme), cm.sizes, st.z[scheme],
+                    sampling.DEFENSIVE_KAPPA, st.n_total)
                 states.append(_ShardChunkState(mass=total, cdf=cdf))
-            st.sampling_cache[cache_key] = states
-        return st.sampling_cache[cache_key]
+            st.sampling_cache[scheme] = states
+        return st.sampling_cache[scheme]
 
-    def _shard_masses(self, scheme: str, kappa: float,
+    def _shard_masses(self, scheme: str,
                       state: Optional[CorpusState] = None) -> np.ndarray:
-        states = self._sampling_state(scheme, kappa, state=state)
+        states = self._sampling_state(scheme, state=state)
         mass = np.asarray([st.mass for st in states], np.float64)
         return mass / mass.sum()
 
@@ -495,7 +485,6 @@ class SelectionEngine:
             yield int(values[grp[0]]), grp
 
     def draw_sample(self, key, s: int, scheme: str = "sqrt",
-                    kappa: Optional[float] = None,
                     state: Optional[CorpusState] = None):
         """Global with-replacement draws; returns host (global_idx, m).
 
@@ -509,9 +498,8 @@ class SelectionEngine:
         if scheme == "uniform":
             idx = random.randint(key, (s,), 0, st.n_total)
             return idx.astype(np.int64), np.ones(s, np.float32)
-        kappa = self.kappa if kappa is None else kappa
-        states = self._sampling_state(scheme, kappa, state=st)
-        mass = self._shard_masses(scheme, kappa, state=st)
+        states = self._sampling_state(scheme, state=st)
+        mass = self._shard_masses(scheme, state=st)
         k_alloc, k_chunk, k_rec = random.split(key, 3)
         alloc = random.categorical(k_alloc, random.log32(mass), (s,))
         u_chunk = random.uniform(k_chunk, (s,)).astype(np.float64)
@@ -535,7 +523,7 @@ class SelectionEngine:
             start = ci * chunk
             p = sampling.defensive_probs(
                 self._span(st.shards[sh], start, start + chunk), scheme,
-                st.z[scheme], kappa, st.n_total)
+                st.z[scheme], sampling.DEFENSIVE_KAPPA, st.n_total)
             local = sampling.draw_from_cdf(sampling.normalized_cdf(p),
                                            u_rec[pos])
             m = torch.div(torch.full_like(local, inv_n, dtype=torch.float32),

@@ -34,6 +34,9 @@
 namespace {
 
 constexpr int kThreads = 512;
+// Shared memory a bin takes: a uint32 count and two uint64 sums (the
+// wrapper's MAX_BINS, in score_hist/ops.py, is 232448 / kBinBytes).
+constexpr int kBinBytes = 20;
 constexpr float kScale = 4294967296.0f;   // 2^32
 constexpr double kInvScale = 1.0 / 4294967296.0;
 
@@ -138,18 +141,13 @@ __global__ void hist_finish(const unsigned long long* g_c,
 
 extern "C" {
 
-// Shared memory one CTA needs for `num_bins` bins.
-long long score_hist_smem_bytes(int num_bins) {
-  return 20LL * num_bins;
-}
-
 // scores: n float32 on the device. scratch: 3 * num_bins uint64 (zeroed
 // here). out: (3, num_bins) float32 = counts, sum_w, sum_a. Launches on
 // `stream` and returns cudaGetLastError().
 int score_hist_launch(const float* scores, long long n, int num_bins,
                       unsigned long long* scratch, float* out, int grid,
                       cudaStream_t stream) {
-  const int smem = static_cast<int>(score_hist_smem_bytes(num_bins));
+  const int smem = kBinBytes * num_bins;
   cudaError_t err = cudaFuncSetAttribute(
       hist_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

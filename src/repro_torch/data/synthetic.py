@@ -15,6 +15,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
+# Records `make_beta_on_device` draws at a time (bounds its float64 scratch).
+DEVICE_BLOCK = 1 << 24
+
 
 @dataclasses.dataclass
 class BetaDataset:
@@ -50,20 +53,19 @@ def make_beta(n=1_000_000, alpha=0.01, beta=1.0, seed=0,
 
 
 def make_beta_on_device(n: int, alpha: float = 0.01, beta: float = 1.0,
-                        seed: int = 0, device="cuda",
-                        block: int = 1 << 24) -> Tuple[torch.Tensor,
-                                                       np.ndarray]:
+                        seed: int = 0, device="cuda") \
+        -> Tuple[torch.Tensor, np.ndarray]:
     """The Beta corpus of `make_beta`, drawn on `device` from `seed`:
     float32 scores A ~ Beta(alpha, beta) on the device, and host float32
     labels O ~ Bernoulli(A). Beta is drawn as X / (X + Y) from float64
-    Gamma(alpha), Gamma(beta) draws, `block` records at a time. The stream
-    differs from numpy's, so the corpus matches `make_beta` in law, not in
-    value."""
+    Gamma(alpha), Gamma(beta) draws, `DEVICE_BLOCK` records at a time. The
+    stream differs from numpy's, so the corpus matches `make_beta` in law,
+    not in value."""
     g = torch.Generator(device=device).manual_seed(int(seed))
     scores = torch.empty(n, dtype=torch.float32, device=device)
     labels = torch.empty(n, dtype=torch.bool, device=device)
-    for start in range(0, n, block):
-        m = min(block, n - start)
+    for start in range(0, n, DEVICE_BLOCK):
+        m = min(DEVICE_BLOCK, n - start)
         x = torch._standard_gamma(torch.full(
             (m,), float(alpha), dtype=torch.float64, device=device),
             generator=g)

@@ -2,12 +2,14 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library, loaded with
-`ctypes`. Nothing is built when a module is imported: the first launch of a
-kernel builds its library (`load`), and `build_all` builds every source at
-once, one ``nvcc`` process each, all started together. Libraries are named
-by a hash of their source and flags, so an edited source is rebuilt and an
-unchanged one is reused. Every C entry point returns ``cudaGetLastError()``
-after its launches; `check` raises on a non-zero status.
+`ctypes`. Nothing is built when a module is imported: the first `load` of a
+source builds its library. Each source has its own lock, so `load` called
+from several threads runs one ``nvcc`` per source, all at once. Libraries
+are named by a hash of their source and flags, so an edited source is
+rebuilt and an unchanged one is reused; `build_log` reads the compiler's
+report (registers, shared memory) of the built library. Every C entry
+point returns ``cudaGetLastError()`` after its launches; `check` raises on
+a non-zero status.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
+_locks_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -75,48 +78,36 @@ def _lib_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def _start(name: str):
-    out = _lib_path(name)
+def _compile(name: str, out: pathlib.Path) -> None:
     tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
-
-
-def _finish(name: str, job) -> str:
-    proc, tmp, out = job
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
-    out.with_suffix(".log").write_text(log)
+    done = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, check=False)
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{done.stdout}")
+    out.with_suffix(".log").write_text(done.stdout)
     os.replace(tmp, out)
-    return log
-
-
-def build_all() -> Dict[str, str]:
-    """Build every kernel source not built yet, all ``nvcc`` processes at
-    once; returns each source's compiler log (registers, shared memory)."""
-    with _lock:
-        jobs = {n: _start(n) for n in sources() if not _lib_path(n).exists()}
-        logs = {n: _finish(n, job) for n, job in jobs.items()}
-    for n in sources():
-        logs.setdefault(n, _lib_path(n).with_suffix(".log").read_text())
-    return logs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
             path = _lib_path(name)
             if not path.exists():
-                _finish(name, _start(name))
+                _compile(name, path)
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib
+
+
+def build_log(name: str) -> str:
+    """The compiler's report for the built library of ``csrc/<name>.cu``."""
+    return _lib_path(name).with_suffix(".log").read_text()
 
 
 def check(status: int, error_string, what: str) -> None:

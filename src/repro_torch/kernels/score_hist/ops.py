@@ -9,6 +9,7 @@ for a CUDA tensor, the plain version (`ref.score_hist_ref`) for a CPU one.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -16,14 +17,17 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.score_hist import ref
 
-# Shared memory a CTA may use on Hopper, at 20 bytes a bin.
+# Shared memory a CTA may use on Hopper, at kBinBytes = 20 bytes a bin
+# (csrc/score_hist.cu: an int32 count and two uint64 fixed-point sums).
 MAX_BINS = 232_448 // 20
 _THREADS = 512
 
 launches = _build.LaunchCounter()
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The built kernel library, its C signatures bound once."""
     lib = _build.load("score_hist")
     lib.score_hist_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,

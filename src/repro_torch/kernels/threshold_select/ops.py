@@ -9,6 +9,8 @@
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
@@ -18,7 +20,10 @@ from repro_torch.kernels.threshold_select import ref
 launches = _build.LaunchCounter()
 
 
-def _lib() -> ctypes.CDLL:
+@functools.lru_cache(maxsize=None)
+def _lib() -> Tuple[ctypes.CDLL, int]:
+    """The built kernel library, its C signatures bound once, and its
+    tile (records a CTA of either pass takes)."""
     lib = _build.load("threshold_select")
     for fn in (lib.threshold_select_count, lib.threshold_select_scatter):
         fn.restype = ctypes.c_int
@@ -31,7 +36,7 @@ def _lib() -> ctypes.CDLL:
     lib.threshold_select_tile.restype = ctypes.c_int
     lib.threshold_select_error_string.argtypes = [ctypes.c_int]
     lib.threshold_select_error_string.restype = ctypes.c_char_p
-    return lib
+    return lib, lib.threshold_select_tile()
 
 
 def threshold_select(scores: torch.Tensor, tau: float) -> torch.Tensor:
@@ -52,11 +57,11 @@ def threshold_select(scores: torch.Tensor, tau: float) -> torch.Tensor:
     n = scores.numel()
     if n == 0:
         return torch.empty(0, dtype=torch.int64, device=dev)
-    lib = _lib()
+    lib, tile = _lib()
     thr = ref.threshold32(tau)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        tiles = -(-n // lib.threshold_select_tile())
+        tiles = -(-n // tile)
         counts = torch.empty(tiles, dtype=torch.int64, device=dev)
         status = lib.threshold_select_count(scores.data_ptr(), n, thr,
                                             counts.data_ptr(), stream)

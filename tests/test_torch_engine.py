@@ -169,15 +169,19 @@ def test_end_to_end_matches_reference(seed):
         for k in ("sqrt", "prop"):
             assert eng._state.z[k] == pytest.approx(ref._state.z[k],
                                                     rel=1e-6)
-        z_equal = eng._state.z == ref._state.z
-        if not z_equal:
+        if eng._state.z == ref._state.z:
+            _assert_same_queries(ref, eng, seed, oracle)
+        else:
             state = E.state_from_reference(export_state(ref._state), shards)
-            eng = E.SelectionEngine.from_state(state, device="cpu")
-        for name, spec in QUERIES[:3]:
-            ref_q, q = _queries(name, spec)
-            _assert_same(_run(ref, jax.random.PRNGKey(seed), oracle, name,
-                              ref_q),
-                         _run(eng, R.PRNGKey(seed), oracle, name, q))
+            with E.SelectionEngine.from_state(state, device="cpu") as given:
+                _assert_same_queries(ref, given, seed, oracle)
+
+
+def _assert_same_queries(ref, eng, seed, oracle):
+    for name, spec in QUERIES[:3]:
+        ref_q, q = _queries(name, spec)
+        _assert_same(_run(ref, jax.random.PRNGKey(seed), oracle, name, ref_q),
+                     _run(eng, R.PRNGKey(seed), oracle, name, q))
 
 
 def test_memmap_shards_stay_on_the_host(tmp_path):
