@@ -31,6 +31,34 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    from one corpus state: tau, counts and indices must agree.
 4. Times: kernel, plain and library times at a 2^22-record chunk beside
    the card's bound; engine build and query wall times.
+5. flash_attention against its plain version on the card, in bf16 at
+   atol = rtol = 2e-2 and in float32 at 2e-5 (the JAX package's own
+   tolerances, tests/test_kernels.py): smollm-360m's prefill shape (B=4,
+   S=4096, H=15, KV=5, dh=64) causal, a ragged S=1000 causal and
+   non-causal, a dh=128 MQA case both ways and the scoring shape (B=256,
+   S=128); bitwise identical across two launches.
+6. The full smollm-360m model (32 layers, d 960, bf16, weights drawn from
+   --seed by `model.init`): one prefill at (4, 4096) through
+   `make_serve_prefill`, with exactly 32 flash_attention launches; then
+   the same tokens through a float32 copy of the weights, once with the
+   kernel and once with attention by the plain version: the last
+   position's logits must agree within `F32_LOGIT_TOL` of their largest
+   magnitude.
+7. Score, then select: a 2^15-record `make_token_corpus` (128 tokens a
+   record, vocab 49152, 2% planted positives) scored by the full model in
+   batches of 256 records (32,768 tokens a call, prefill_32k's sequence),
+   the scores kept on the card as shards of a `SelectionEngine`, and one
+   RT query (gamma 0.9, delta 0.05, budget 3000) labeled by
+   `contains_marker`. Its counts must equal a plain count on the card, and
+   flash_attention, score_hist and threshold_select must all have launched
+   on this path. Prints records/s, tokens/s, the query's wall time, recall
+   and the prefill's mfu (model FLOPs over time over 989 TFLOP/s bf16).
+   Then one scoring call under torch.profiler: device time by kernel and
+   group (flash_attention, matmul, the rest) and the device's busy share.
+8. Times of flash_attention at the prefill shape (its row in the kernels
+   line) and at the scoring shape (a line of its own), beside its bound,
+   its plain version and `scaled_dot_product_attention` (the yardstick;
+   the port never calls it).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -40,29 +68,41 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import copy
+import dataclasses
 import json
 import pathlib
 import subprocess
 import sys
 import time
+from unittest import mock
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import random as R  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import queries  # noqa: E402
 from repro_torch.core.engine import SelectionEngine  # noqa: E402
 from repro_torch.core.oracle import array_oracle  # noqa: E402
 from repro_torch.core.queries import JointSUPGQuery, SUPGQuery  # noqa: E402
-from repro_torch.data.synthetic import make_beta_on_device  # noqa: E402
+from repro_torch.data.synthetic import (contains_marker,  # noqa: E402
+                                        make_beta_on_device,
+                                        make_token_corpus)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.score_hist import ops as sh_ops  # noqa: E402
 from repro_torch.kernels.score_hist import ref as sh_ref  # noqa: E402
 from repro_torch.kernels.threshold_select import ops as ts_ops  # noqa: E402
 from repro_torch.kernels.threshold_select import ref as ts_ref  # noqa: E402
+from repro_torch.launch.serve import make_serve_prefill  # noqa: E402
+from repro_torch.models import attention  # noqa: E402
+from repro_torch.models import model as modellib  # noqa: E402
 
 DEVICE = "cuda"
 CHUNK = 1 << 22
@@ -70,6 +110,18 @@ N_RECORDS = 1 << 27
 N_SHARDS = 16
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM, bf16 dense on the tensor cores
+ARCH = "smollm-360m"
+FA_PREFILL = (4, 4096, 15, 5, 64)     # B, S, H, KV, dh: smollm-360m prefill
+FA_SCORING = (256, 128, 15, 5, 64)    # the scoring batch
+N_CORPUS = 1 << 15                    # token records scored and selected
+SEQ_LEN = 128
+SCORE_BATCH = 256                     # records a prefill call: 32,768 tokens
+N_SCORE_SHARDS = 8
+# Largest |kernel - plain| of the float32 model's last-position logits, as
+# a share of their largest magnitude (phase 6); see the note in
+# model_phase.
+F32_LOGIT_TOL = 1e-5
 # Operations each kernel does per record, counted from its source:
 # score_hist compares, clips, scales, converts and takes a square root
 # (8); threshold_select compares once.
@@ -265,6 +317,259 @@ def engine_phase(scores, labels, seed):
     return results, walls
 
 
+# -- phase 5 -------------------------------------------------------------------
+
+def plain_attention(q, k, v, causal=True):
+    """flash_attention's plain version in the kernel's (B,S,H,dh) layout."""
+    return fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal).transpose(1, 2)
+
+
+def attention_inputs(shape, dtype, g):
+    """Standard normal q (B,S,H,dh), k and v (B,S,KV,dh) on the card."""
+    b, s, h, kv, dh = shape
+    return tuple(torch.randn(b, s, n, dh, generator=g, device=DEVICE)
+                 .to(dtype) for n in (h, kv, kv))
+
+
+def check_flash(seed: int) -> float:
+    """Phase 5: the kernel against its plain version; returns the largest
+    |kernel - plain| at the prefill shape in bf16."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 11)
+    cases = [(FA_PREFILL, True), ((2, 1000, 15, 5, 64), True),
+             ((2, 1000, 15, 5, 64), False), ((2, 512, 8, 1, 128), True),
+             ((2, 512, 8, 1, 128), False), (FA_SCORING, True)]
+    err_prefill = 0.0
+    for shape, causal in cases:
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+            q, k, v = attention_inputs(shape, dtype, g)
+            got = fa_ops.flash_attention(q, k, v, causal=causal)
+            again = fa_ops.flash_attention(q, k, v, causal=causal)
+            plain = plain_attention(q, k, v, causal).float()
+            torch.cuda.synchronize()
+            err = (got.float() - plain).abs()
+            what = f"flash_attention {shape} {dtype} causal={causal}"
+            check(bool((err <= tol + tol * plain.abs()).all()), what)
+            check(torch.equal(got, again), f"{what}: repeat launches differ")
+            print(f"{what}: max |kernel - plain| {float(err.max()):.6g} "
+                  f"(tol {tol} abs + rel), repeat bitwise")
+            if shape == FA_PREFILL and dtype == torch.bfloat16:
+                err_prefill = float(err.max())
+            del q, k, v, got, again, plain, err
+    return err_prefill
+
+
+# -- phase 6 -------------------------------------------------------------------
+
+def model_flops(cfg, batch: int, seq: int) -> float:
+    """Prefill model FLOPs: 2 · non-embedding params · tokens plus causal
+    attention, 2 · B · H · S² · dh per layer."""
+    non_embedding = modellib.count_params_analytic(cfg) \
+        - cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    return (2.0 * non_embedding * batch * seq
+            + 2.0 * batch * cfg.num_heads * seq * seq * cfg.head_dim
+            * cfg.num_layers)
+
+
+def init_model(cfg, seed: int):
+    """The full-width model, its weights drawn on the card from `seed`."""
+    t0 = time.perf_counter()
+    model = modellib.init(cfg, generator=torch.Generator(device=DEVICE)
+                          .manual_seed(seed))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, {n_params} parameters "
+          f"({cfg.dtype}) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def model_phase(model, cfg, seed: int) -> None:
+    """Phase 6: one full-width prefill through `make_serve_prefill`, then
+    the float32 model with the kernel against the plain attention."""
+    b, s = FA_PREFILL[:2]
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=DEVICE,
+                           generator=torch.Generator(device=DEVICE)
+                           .manual_seed(seed + 1))
+    serve_prefill = make_serve_prefill(cfg)
+    serve_prefill(model, {"tokens": tokens[:, :128]})      # warm-up
+    torch.cuda.synchronize()
+
+    fa_ops.launches.reset()
+    t0 = time.perf_counter()
+    scores = serve_prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa_ops.launches.count
+    check(launches == cfg.num_layers,
+          f"flash_attention launched {launches} times in one prefill of "
+          f"{cfg.num_layers} layers")
+    check(scores.shape == (b,) and bool(torch.isfinite(scores).all())
+          and bool(((scores >= 0) & (scores <= 1)).all()),
+          f"prefill scores {scores}")
+    mfu = model_flops(cfg, b, s) / wall / BF16_OPS_PER_S
+    print(f"prefill ({b}, {s}) through make_serve_prefill: {wall:.4f} s, "
+          f"{b * s / wall:.1f} tokens/s, mfu {mfu:.4f}, flash_attention "
+          f"launches {launches}, scores {scores.tolist()}")
+
+    # F32_LOGIT_TOL: both runs are float32 throughout (no TF32), so they
+    # differ only in the order of the attention sums (the kernel's online
+    # softmax against the plain softmax) and in exp2 against exp: about
+    # 1e-6 of the output a layer. Through 32 layers the logits measured
+    # 9.65e-7 of their largest magnitude on the H100; the tolerance is ten
+    # times that.
+    f32 = copy.deepcopy(model).float()
+    f32.cfg = dataclasses.replace(cfg, dtype="float32")
+    with_kernel = modellib.last_logits(f32, tokens)
+    before = fa_ops.launches.count
+    with mock.patch.object(attention, "flash_attention", plain_attention):
+        with_plain = modellib.last_logits(f32, tokens)
+    torch.cuda.synchronize()
+    check(fa_ops.launches.count == before,
+          "the plain run launched the kernel")
+    diff = float((with_kernel - with_plain).abs().max())
+    scale = float(with_plain.abs().max())
+    check(bool(torch.isfinite(with_kernel).all()) and diff <= F32_LOGIT_TOL
+          * scale, f"float32 logits: kernel vs plain attention differ by "
+          f"{diff} (largest |logit| {scale})")
+    print(f"float32 copy, last-position logits ({b}, {cfg.vocab_size}): "
+          f"max |kernel - plain attention| {diff:.6g}, largest |logit| "
+          f"{scale:.6g}, ratio {diff / scale:.3g} (tol {F32_LOGIT_TOL})")
+    del f32, with_kernel, with_plain
+
+
+# -- phase 7 -------------------------------------------------------------------
+
+def score_select_phase(model, cfg, seed: int) -> dict:
+    """Phase 7: score a token corpus with the full model, select on the
+    card; returns the path's launch counts."""
+    tokens_np, labels = make_token_corpus(N_CORPUS, SEQ_LEN, cfg.vocab_size,
+                                          0.02, seed)
+    check(np.array_equal(labels > 0.5, contains_marker(tokens_np)),
+          "corpus labels are not the marker oracle")
+    tokens = torch.from_numpy(tokens_np).to(DEVICE)
+    serve_prefill = make_serve_prefill(cfg)
+    serve_prefill(model, {"tokens": tokens[:SCORE_BATCH]})   # warm-up
+    torch.cuda.synchronize()
+
+    for counter in (fa_ops.launches, sh_ops.launches, ts_ops.launches):
+        counter.reset()
+    t0 = time.perf_counter()
+    scores = torch.cat([serve_prefill(model,
+                                      {"tokens": tokens[i:i + SCORE_BATCH]})
+                        for i in range(0, N_CORPUS, SCORE_BATCH)])
+    torch.cuda.synchronize()
+    t_score = time.perf_counter() - t0
+    check(scores.shape == (N_CORPUS,) and bool(torch.isfinite(scores).all())
+          and bool(((scores >= 0) & (scores <= 1)).all()),
+          "corpus scores are not finite probabilities")
+    t0 = time.perf_counter()
+    name, q = QUERIES[0]
+    with SelectionEngine(list(scores.tensor_split(N_SCORE_SHARDS)),
+                         num_bins=4096, device=DEVICE) as eng:
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        sel, t_query = run_query(eng, R.PRNGKey(seed), array_oracle(labels),
+                                 name, q)
+        launches = {"flash_attention": fa_ops.launches.count,
+                    "score_hist": sh_ops.launches.count,
+                    "threshold_select": ts_ops.launches.count}
+        check(np.array_equal(sel.shard_counts,
+                             plain_counts(eng, sel, name, labels)),
+              "scored corpus: RT counts differ from the plain count")
+        sel_idx = np.concatenate([eng.offsets[i] + sel.indices(i)
+                                  for i in range(sel.num_shards)])
+    n_calls = N_CORPUS // SCORE_BATCH
+    check(launches["flash_attention"] == n_calls * cfg.num_layers,
+          f"flash_attention launched {launches['flash_attention']} times "
+          f"for {n_calls} prefills of {cfg.num_layers} layers")
+    check(launches["score_hist"] >= N_SCORE_SHARDS
+          and launches["threshold_select"] >= N_SCORE_SHARDS,
+          f"engine kernels did not launch on the scored corpus: {launches}")
+    truth = labels > 0.5
+    mfu = model_flops(cfg, N_CORPUS, SEQ_LEN) / t_score / BF16_OPS_PER_S
+    print(f"scored {N_CORPUS} records x {SEQ_LEN} tokens in {t_score:.3f} s:"
+          f" {N_CORPUS / t_score:.1f} records/s, "
+          f"{N_CORPUS * SEQ_LEN / t_score:.1f} tokens/s, mfu {mfu:.4f}; "
+          f"scores in [{float(scores.min()):.4g}, {float(scores.max()):.4g}]")
+    print(f"RT over the scores: build {t_build:.4f} s, query {t_query:.4f} s,"
+          f" tau {sel.tau:.6g}, selected {sel.total_selected} of {N_CORPUS}"
+          f" ({int(truth.sum())} positive), oracle calls {sel.oracle_calls},"
+          f" recall {queries.recall_of(sel_idx, truth):.4f}, precision "
+          f"{queries.precision_of(sel_idx, truth):.4f}")
+    print(f"score-then-select path launches: {launches}")
+    return launches
+
+
+def profile_scoring_call(model, cfg, seed: int) -> None:
+    """Device time by kernel over one scoring call (torch.profiler), and
+    the device's busy share of the call's wall time."""
+    tokens = torch.randint(0, cfg.vocab_size, (SCORE_BATCH, SEQ_LEN),
+                           device=DEVICE, generator=torch.Generator(
+                               device=DEVICE).manual_seed(seed + 2))
+    serve_prefill = make_serve_prefill(cfg)
+    serve_prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        serve_prefill(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [(e.key, e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_us = sum(t for _, t, _ in kernels)
+    if not kernels:
+        print("profile of one scoring call: the profiler recorded no device "
+              "time")
+        return
+    groups = {}
+    for name, t, _ in kernels:
+        low = name.lower()
+        group = ("flash_attention" if "flash_bf16" in low else
+                 "matmul" if any(w in low for w in
+                                 ("gemm", "cutlass", "xmma", "nvjet"))
+                 else "other (elementwise, norms, softmax, copies)")
+        groups[group] = groups.get(group, 0.0) + t
+    print(f"profile of one scoring call ({SCORE_BATCH} x {SEQ_LEN} tokens): "
+          f"wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+          f"({busy_us / wall_us:.3f} of the wall), by group: " + ", ".join(
+              f"{g} {t / 1e3:.3f} ms ({t / busy_us:.3f})"
+              for g, t in sorted(groups.items(), key=lambda kv: -kv[1])))
+    for name, t, n in sorted(kernels, key=lambda k: -k[1])[:10]:
+        print(f"  {t / 1e3:9.3f} ms  x{n:<4d} {name[:100]}")
+
+
+# -- phase 8 -------------------------------------------------------------------
+
+def flash_row(shape, seed: int) -> dict:
+    """flash_attention's times at `shape`, bf16 causal, with its bound."""
+    b, s, h, kv, dh = shape
+    q, k, v = attention_inputs(shape, torch.bfloat16,
+                               torch.Generator(device=DEVICE)
+                               .manual_seed(seed + 13))
+    group = h // kv
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in
+                  (q, k.repeat_interleave(group, dim=2),
+                   v.repeat_interleave(group, dim=2)))
+    ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v), 20)
+    plain_ms = cuda_ms(lambda: plain_attention(q, k, v), 3)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 20)
+    ops = 2 * 2 * b * h * (s * s / 2) * dh
+    moved = 2 * (2 * q.numel() + 2 * k.numel())        # q, o, k, v in bf16
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes \
+        else (t_bytes, "bytes")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
 # -- phase 4 -------------------------------------------------------------------
 
 def kernel_times(flat, tau_rt):
@@ -310,6 +615,8 @@ def main() -> None:
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
     check(torch.cuda.is_available(), "no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
+    torch.backends.cudnn.allow_tf32 = False
     print(device_line())
     kind = torch.cuda.get_device_name(0)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -362,6 +669,21 @@ def main() -> None:
                    "src/repro_torch/csrc/threshold_select.cu",
                    "src/repro/kernels/threshold_select/"
                    "threshold_select.py:78")}
+    del results, scores, chunk
+
+    fa_err = check_flash(args.seed)
+    cfg = get_config(ARCH)
+    model = init_model(cfg, args.seed)
+    model_phase(model, cfg, args.seed)
+    fa_launches = score_select_phase(model, cfg, args.seed)[
+        "flash_attention"]
+    profile_scoring_call(model, cfg, args.seed)
+    del model
+    fa_rows = {shape: flash_row(shape, args.seed)
+               for shape in (FA_PREFILL, FA_SCORING)}
+    print("flash_attention at the scoring shape (B, S, H, KV, dh) = "
+          f"{FA_SCORING}, bf16 causal: {json.dumps(fa_rows[FA_SCORING])}")
+
     rows = []
     for name in ("score_hist", "threshold_select"):
         ms, plain_ms, lib_ms = times[name]
@@ -373,6 +695,12 @@ def main() -> None:
                      "max_abs_err": errs[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": lib_ms})
+    rows.append({"name": "flash_attention", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention/"
+                             "flash_attention.py:94",
+                 "launches": fa_launches, "max_abs_err": fa_err,
+                 **fa_rows[FA_PREFILL]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

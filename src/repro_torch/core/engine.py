@@ -58,22 +58,12 @@ from repro_torch.core.oracle import (BudgetLedger, OracleClient,
                                      OracleRequest, as_oracle_client)
 from repro_torch.core.queries import JointSUPGQuery, SUPGQuery
 from repro_torch.data import pipeline
+from repro_torch.device import resolve_device
 from repro_torch.kernels.threshold_select import ops as select_ops
 
 logger = logging.getLogger(__name__)
 
 _clamp_logged = False
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``cuda`` unless the caller names
-    another. Raises if CUDA is asked for (or defaulted to) and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available: the engine runs on cuda unless "
-            "the caller passes device='cpu'")
-    return dev
 
 
 def _effective_workers(requested: Optional[int], clamp: bool) -> int:

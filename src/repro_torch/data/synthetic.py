@@ -6,6 +6,11 @@ rate are set by (alpha, beta). The paper's pairs: (0.01, 1) with TPR
 ~0.5-1% and (0.01, 2) with TPR ~1%. `make_beta` draws on the host with
 numpy (the JAX package's generator, value for value); `make_beta_on_device`
 draws the same law on a device.
+
+Token corpora for the model plane: `make_token_corpus` plants the
+`MARKER` tri-gram in a subset of random token records, and
+`contains_marker` is the exact oracle (both value for value the JAX
+package's).
 """
 from __future__ import annotations
 
@@ -77,3 +82,40 @@ def make_beta_on_device(n: int, alpha: float = 0.01, beta: float = 1.0,
         labels[start:start + m] = torch.rand(
             m, generator=g, device=device) < a
     return scores, labels.cpu().numpy().astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Token corpora for the LM planes
+# ---------------------------------------------------------------------------
+
+MARKER = (7, 13, 42)   # planted n-gram; sequences containing it match
+
+
+def make_token_corpus(num_records=4096, seq_len=128, vocab=128,
+                      positive_rate=0.05, seed=0):
+    """Deterministic synthetic corpus with planted positives.
+
+    Returns (tokens (N, S) int32, labels (N,) float32). A record is positive
+    iff the marker tri-gram occurs; the oracle is exact marker matching (the
+    ground truth), the proxy is a model's confidence.
+    """
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, (num_records, seq_len), dtype=np.int32)
+    # stamp the marker into a random subset at random offsets
+    n_pos = int(num_records * positive_rate)
+    pos_idx = rng.choice(num_records, n_pos, replace=False)
+    offs = rng.integers(0, seq_len - len(MARKER), n_pos)
+    for i, off in zip(pos_idx, offs):
+        tokens[i, off:off + len(MARKER)] = MARKER
+    labels = contains_marker(tokens).astype(np.float32)
+    return tokens, labels
+
+
+def contains_marker(tokens) -> np.ndarray:
+    """Exact oracle predicate: does the marker tri-gram occur?"""
+    t = np.asarray(tokens)
+    hits = np.zeros(t.shape[0], bool)
+    for off in range(t.shape[1] - len(MARKER) + 1):
+        window = t[:, off:off + len(MARKER)]
+        hits |= (window == np.asarray(MARKER)).all(axis=1)
+    return hits

@@ -1,0 +1,159 @@
+"""Foundational layers: norms, embeddings, MLPs, RoPE, initializers (the
+JAX package's ``models/layers.py``).
+
+Parameters live in plain `torch.nn.Module`s built by `params`, one per
+dict of the JAX package's parameter pytree, with the same names: an
+``init_*`` function returns the module and an apply function takes it, so
+the two packages' weights map name for name. Weights carry no gradients:
+this slice only scores.
+
+dtype policy, as in the reference: parameters are stored in cfg.dtype (bf16
+in production configs); matmuls accumulate in float32 and return x's
+dtype; norms, activations and softmax run in float32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def dtype_of(cfg) -> torch.dtype:
+    """The torch dtype of cfg.dtype."""
+    return _DTYPES[cfg.dtype]
+
+
+def params(**members) -> nn.Module:
+    """A module holding `members` under their names: tensors as parameters
+    without gradients, modules as submodules."""
+    m = nn.Module()
+    for name, value in members.items():
+        if isinstance(value, torch.Tensor):
+            value = nn.Parameter(value, requires_grad=False)
+        setattr(m, name, value)
+    return m
+
+
+def truncated_normal(generator, shape, scale, dtype, device):
+    """Standard normal truncated to [-2, 2], times `scale` (the law of the
+    reference's ``jax.random.truncated_normal(key, -2, 2)``; the numbers
+    come from `generator`, so they differ from the reference's)."""
+    x = torch.empty(shape, dtype=torch.float32, device=device)
+    nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (x * scale).to(dtype)
+
+
+def dense_init(generator, d_in, d_out, dtype, device):
+    """A (d_in, d_out) projection at scale 1/sqrt(d_in)."""
+    return truncated_normal(generator, (d_in, d_out), 1.0 / np.sqrt(d_in),
+                            dtype, device)
+
+
+def matmul(x, w):
+    """x @ w over the last dim of x, in x's dtype (cuBLAS accumulates bf16
+    products in float32)."""
+    return torch.matmul(x, w)
+
+
+# --------------------------------------------------------------------------
+# RMSNorm
+# --------------------------------------------------------------------------
+
+def init_rmsnorm(d, device):
+    """An RMSNorm's float32 scale, all ones."""
+    return params(scale=torch.ones(d, dtype=torch.float32, device=device))
+
+
+def rms_norm(p, x, eps=1e-5):
+    """x · rsqrt(mean(x²) + eps) · scale, in float32, cast back."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * p.scale
+    return y.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Embedding + output head
+# --------------------------------------------------------------------------
+
+def init_embedding(generator, vocab, d, dtype, device):
+    """A (vocab, d) table of unit-scale truncated normals."""
+    return params(table=truncated_normal(generator, (vocab, d), 1.0, dtype,
+                                         device))
+
+
+def embed(p, tokens):
+    """Rows of the table at `tokens`."""
+    return p.table[tokens]
+
+
+def unembed(p, x):
+    """Logits through the (optionally tied) embedding table, float32."""
+    return torch.matmul(x.float(), p.table.float().t())
+
+
+def init_lm_head(generator, d, vocab, dtype, device):
+    """An untied (d, vocab) output head."""
+    return params(w=dense_init(generator, d, vocab, dtype, device))
+
+
+def lm_head(p, x):
+    """Logits through an untied head, float32."""
+    return torch.matmul(x.float(), p.w.float())
+
+
+# --------------------------------------------------------------------------
+# Gated MLP (SwiGLU family)
+# --------------------------------------------------------------------------
+
+def init_mlp(generator, d, d_ff, dtype, device):
+    """Gate, up and down projections of a gated MLP."""
+    return params(w_gate=dense_init(generator, d, d_ff, dtype, device),
+                  w_up=dense_init(generator, d, d_ff, dtype, device),
+                  w_down=dense_init(generator, d_ff, d, dtype, device))
+
+
+def mlp(p, x, act="silu"):
+    """down(act(gate(x)) · up(x)); the activation in float32, cast back.
+    gelu is the tanh form, as ``jax.nn.gelu``'s default."""
+    g = matmul(x, p.w_gate)
+    u = matmul(x, p.w_up)
+    if act == "silu":
+        h = F.silu(g.float()).to(x.dtype) * u
+    elif act == "gelu":
+        h = F.gelu(g.float(), approximate="tanh").to(x.dtype) * u
+    else:
+        raise ValueError(act)
+    return matmul(h, p.w_down)
+
+
+# --------------------------------------------------------------------------
+# Rotary position embeddings
+# --------------------------------------------------------------------------
+
+def rope_frequencies(head_dim, theta):
+    """(head_dim/2,) float32 inverse frequencies, the reference's numpy."""
+    exponents = np.arange(0, head_dim, 2, dtype=np.float32) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def rope_angles(positions, head_dim, theta):
+    """positions: (...,) int -> (..., head_dim/2) angles, float32."""
+    freqs = torch.from_numpy(rope_frequencies(head_dim, theta))
+    freqs = freqs.to(positions.device)
+    return positions.float()[..., None] * freqs
+
+
+def apply_rope(x, positions, theta):
+    """x: (..., seq, heads, head_dim); positions: (..., seq). Rotate-half
+    layout: the first and second halves of head_dim are the pairs."""
+    half = x.shape[-1] // 2
+    ang = rope_angles(positions, x.shape[-1], theta)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)

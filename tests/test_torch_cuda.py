@@ -5,22 +5,30 @@ that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The CUDA kernels are held against their plain versions on the card, and
-the card's engine against a CPU engine serving the same corpus state.
+The CUDA kernels are held against their plain versions on the card, the
+card's engine against a CPU engine serving the same corpus state, and a
+narrow model's scores through the flash_attention kernel against the same
+model with attention by the plain version.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch import random as R
 from repro_torch.core.engine import SelectionEngine
 from repro_torch.core.oracle import array_oracle
 from repro_torch.core.queries import JointSUPGQuery, SUPGQuery
 from repro_torch.data.synthetic import make_beta
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.score_hist import ops as sh_ops
 from repro_torch.kernels.score_hist import ref as sh_ref
 from repro_torch.kernels.threshold_select import ops as ts_ops
 from repro_torch.kernels.threshold_select import ref as ts_ref
+from repro_torch.models import attention, model
 
 
 def _scores(n, seed, sentinel_frac=0.01):
@@ -85,3 +93,59 @@ def test_card_engine_matches_cpu_engine(card):
             np.testing.assert_array_equal(a.shard_counts, b.shard_counts)
             for i in range(3):
                 np.testing.assert_array_equal(a.indices(i), b.indices(i))
+
+
+def _plain_attention(q, k, v, causal=True):
+    """flash_attention's plain version in the kernel's (B,S,H,dh) layout."""
+    return fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kv,dh", [(2, 256, 8, 2, 64),
+                                         (1, 128, 6, 1, 128),
+                                         (2, 1000, 15, 5, 64),
+                                         (3, 77, 6, 3, 128),
+                                         (1, 1, 2, 1, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 2e-5)])
+def test_flash_attention_kernel_matches_plain(card, b, s, h, kv, dh, causal,
+                                              dtype, tol):
+    """Within the reference's own kernel-vs-ref tolerances
+    (tests/test_kernels.py), and bitwise identical across launches."""
+    g = torch.Generator(device=card).manual_seed(s + h)
+    q = torch.randn(b, s, h, dh, generator=g, device=card).to(dtype)
+    k = torch.randn(b, s, kv, dh, generator=g, device=card).to(dtype)
+    v = torch.randn(b, s, kv, dh, generator=g, device=card).to(dtype)
+    before = fa_ops.launches.count
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    again = fa_ops.flash_attention(q, k, v, causal=causal)
+    plain = _plain_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa_ops.launches.count == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), plain.float(), atol=tol,
+                               rtol=tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_narrow_model_scores_through_the_kernel_match_plain(card,
+                                                            monkeypatch):
+    """A two-layer float32 model at head_dim 64: one kernel launch a layer,
+    and scores within rtol 1e-4 of attention by the plain version (the
+    tolerance of the CPU parity tests against the JAX package)."""
+    cfg = dataclasses.replace(configs.get_smoke_config("smollm-360m"),
+                              d_model=192, num_heads=3, num_kv_heads=1,
+                              head_dim=64, d_ff=256, vocab_size=512)
+    g = torch.Generator(device=card).manual_seed(0)
+    m = model.init(cfg, generator=g, device=card)
+    tokens = np.random.default_rng(0).integers(0, 512, (8, 100))
+    before = fa_ops.launches.count
+    got = model.proxy_scores(m, tokens)
+    assert fa_ops.launches.count == before + cfg.num_layers
+    monkeypatch.setattr(attention, "flash_attention", _plain_attention)
+    want = model.proxy_scores(m, tokens)
+    assert fa_ops.launches.count == before + cfg.num_layers
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0)

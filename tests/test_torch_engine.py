@@ -263,6 +263,7 @@ PORT_DOC_MODULES = [
     "repro_torch.data.pipeline",
     "repro_torch.durable.atomic",
     "repro_torch.kernels.score_hist.ops",
+    "repro_torch.kernels.flash_attention.ops",
     "repro_torch.kernels.threshold_select.ops",
 ]
 

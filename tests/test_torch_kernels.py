@@ -1,15 +1,25 @@
 """The port's kernel wrappers: plain versions against the JAX package on
-the CPU, and dispatch by tensor device. The CUDA kernels themselves are
+the CPU, and dispatch by tensor device.
+
+flash_attention's plain version is held against the JAX package's kernel in
+interpret mode and against its ``backend="ref"`` at the reference's own
+tolerances (tests/test_kernels.py): atol = rtol = 2e-5 in float32, 2e-2 in
+bf16. The CUDA kernels themselves are
 held against their plain versions on the card (tests/test_torch_cuda.py)."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention import ops as jfa_ops
+from repro.kernels.flash_attention.ref import attention_ref as jattention_ref
 from repro.kernels.score_hist import ops as jsh_ops
 from repro.kernels.score_hist.ref import score_hist_ref as jscore_hist_ref
 from repro.kernels.threshold_select import ops as jts_ops
 from repro.kernels.threshold_select.ref import threshold_select_ref as jts_ref
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.score_hist import ops as sh_ops
 from repro_torch.kernels.score_hist import ref as sh_ref
 from repro_torch.kernels.threshold_select import ops as ts_ops
@@ -171,3 +181,150 @@ def test_score_hist_kernel_refuses_bins_beyond_shared_memory(bins):
 def test_other_devices_and_layouts_raise(call):
     with pytest.raises(ValueError):
         call(torch.zeros(8, device="meta"))
+
+
+# -- flash_attention, plain version vs the JAX package -----------------------
+
+def _qkv(b, s, h, kv, dh, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, h, dh)).astype(np.float32),
+            rng.standard_normal((b, s, kv, dh)).astype(np.float32),
+            rng.standard_normal((b, s, kv, dh)).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,h,kv,s,dh", [
+    (1, 4, 4, 128, 64),     # MHA
+    (2, 8, 2, 256, 64),     # GQA group 4
+    (1, 6, 1, 128, 128),    # MQA
+    (1, 15, 5, 128, 64),    # GQA group 3 at smollm-360m's head_dim
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_matches_reference(b, h, kv, s, dh, causal):
+    q, k, v = _qkv(b, s, h, kv, dh, s + h)
+    got = fa_ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                 causal=causal)
+    assert got.shape == (b, s, h, dh) and got.dtype == torch.float32
+    for backend in ("interpret", "ref"):
+        want = jfa_ops.flash_attention(q, k, v, causal=causal,
+                                       backend=backend, block_q=64,
+                                       block_k=64)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("kv", [1, 2])
+def test_flash_attention_plain_bf16_matches_reference(kv):
+    """Both packages round the same float32 draws to bf16, compute in
+    float32 and round the output to bf16."""
+    q, k, v = _qkv(1, 128, 4, kv, 64, kv)
+    got = fa_ops.flash_attention(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    for backend in ("interpret", "ref"):
+        want = jfa_ops.flash_attention(
+            *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+            backend=backend, block_q=64, block_k=64)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("s", [1, 77, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_ragged_matches_reference(s, causal):
+    """Sequence lengths the Pallas kernel refuses (S % block != 0), against
+    the reference's ref.attention_ref in its (B,H,S,dh) layout."""
+    q, k, v = _qkv(2, s, 6, 2, 64, s)
+    got = fa_ref.attention_ref(
+        *(torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)), causal)
+    want = jattention_ref(*(x.transpose(0, 2, 1, 3) for x in (q, k, v)),
+                          causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+    via_ops = fa_ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                     causal=causal)
+    np.testing.assert_array_equal(via_ops.numpy(),
+                                  got.transpose(1, 2).numpy())
+
+
+def test_flash_attention_cpu_never_touches_the_build(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"CPU path loaded the {name} kernel")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    before = fa_ops.launches.count
+    fa_ops.flash_attention(*map(torch.from_numpy, _qkv(1, 16, 2, 1, 64, 0)))
+    assert fa_ops.launches.count == before
+
+
+class _CudaLookingQKV:
+    """A stand-in for a (B,S,H,dh) CUDA tensor on a machine without a
+    card."""
+
+    device = torch.device("cuda", 0)
+
+    def __init__(self, shape, dtype=torch.bfloat16, contiguous=True,
+                 ptr=1 << 20):
+        self.shape, self.dtype = torch.Size(shape), dtype
+        self._contiguous, self._ptr = contiguous, ptr
+
+    def dim(self):
+        return len(self.shape)
+
+    def is_contiguous(self):
+        return self._contiguous
+
+    def data_ptr(self):
+        return self._ptr
+
+
+def test_flash_attention_cuda_tensor_launches_or_raises(monkeypatch):
+    """CUDA tensors go to the kernel and nowhere else: with no kernel to
+    load the wrapper raises instead of computing the plain version."""
+    def no_kernel(name):
+        raise RuntimeError(f"no {name} kernel here")
+
+    monkeypatch.setattr(_build, "load", no_kernel)
+    monkeypatch.setattr(fa_ops, "_lib", fa_ops._lib.__wrapped__)
+    monkeypatch.setattr(fa_ref, "attention_ref", None)
+    q = _CudaLookingQKV((2, 100, 15, 64))
+    kv = _CudaLookingQKV((2, 100, 5, 64))
+    with pytest.raises(RuntimeError, match="kernel here"):
+        fa_ops.flash_attention(q, kv, kv)
+
+
+@pytest.mark.parametrize("q,kv", [
+    (_CudaLookingQKV((1, 8, 4, 96)), _CudaLookingQKV((1, 8, 4, 96))),
+    (_CudaLookingQKV((1, 8, 4, 64), torch.float16),
+     _CudaLookingQKV((1, 8, 4, 64), torch.float16)),
+    (_CudaLookingQKV((1, 8, 4, 64)), _CudaLookingQKV((1, 8, 3, 64))),
+    (_CudaLookingQKV((1, 8, 4, 64)), _CudaLookingQKV((1, 9, 4, 64))),
+    (_CudaLookingQKV((1, 8, 4, 64)),
+     _CudaLookingQKV((1, 8, 4, 64), torch.float32)),
+    (_CudaLookingQKV((1, 8, 4, 64), contiguous=False),
+     _CudaLookingQKV((1, 8, 4, 64))),
+    (_CudaLookingQKV((1, 8, 4, 64), ptr=(1 << 20) + 2),
+     _CudaLookingQKV((1, 8, 4, 64))),
+    (_CudaLookingQKV((1, 0, 4, 64)), _CudaLookingQKV((1, 0, 4, 64))),
+    (_CudaLookingQKV((8, 4, 64)), _CudaLookingQKV((8, 4, 64))),
+])
+def test_flash_attention_refuses_what_the_kernel_does_not_take(
+        monkeypatch, q, kv):
+    """Head dims other than 64/128, other dtypes, H % KV != 0, mismatched
+    shapes or dtypes, non-contiguous or misaligned tensors and an empty
+    sequence raise before any build or launch."""
+    def refuse(name):
+        raise AssertionError("built a kernel for a refused input")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(fa_ops, "_lib", fa_ops._lib.__wrapped__)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, kv, kv)
+
+
+def test_flash_attention_other_devices_raise():
+    q = torch.zeros(1, 8, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="cpu or on one cuda"):
+        fa_ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="cpu or on one cuda"):
+        fa_ops.flash_attention(torch.zeros(1, 8, 2, 64), q, q)
