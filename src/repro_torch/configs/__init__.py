@@ -3,14 +3,11 @@ port runs. Only ``smollm-360m`` is ported so far; the JAX package's other
 architectures wait for their slices (ROADMAP §1)."""
 from __future__ import annotations
 
-import importlib
-
+from repro_torch.configs import smollm_360m
 from repro_torch.configs.base import (SHAPES, SHAPES_BY_NAME, ModelConfig,
                                       ShapeConfig, shape_applicable)
 
-_MODULES = {
-    "smollm-360m": "repro_torch.configs.smollm_360m",
-}
+_MODULES = {"smollm-360m": smollm_360m}
 
 ARCH_IDS = tuple(_MODULES)
 
@@ -18,7 +15,7 @@ ARCH_IDS = tuple(_MODULES)
 def _module(arch_id: str):
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
-    return importlib.import_module(_MODULES[arch_id])
+    return _MODULES[arch_id]
 
 
 def get_config(arch_id: str) -> ModelConfig:

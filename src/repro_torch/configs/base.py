@@ -104,14 +104,9 @@ class ModelConfig:
         return self.ssm_expand * self.d_model
 
     def param_count(self) -> int:
-        """Analytic parameter count (total, incl. all experts)."""
+        """Analytic parameter count."""
         from repro_torch.models.model import count_params_analytic
         return count_params_analytic(self)
-
-    def active_param_count(self) -> int:
-        """Analytic count of the parameters a token activates."""
-        from repro_torch.models.model import count_params_analytic
-        return count_params_analytic(self, active_only=True)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -134,62 +134,13 @@ def proxy_scores(model, tokens, target_token=1) -> torch.Tensor:
 # Analytic parameter counts (roofline denominators)
 # --------------------------------------------------------------------------
 
-def count_params_analytic(cfg, active_only=False):
-    """Parameter count from the config alone (total, incl. all experts; or
-    the experts a token activates) — the reference's formula, every
-    family."""
-    d, L, V = cfg.d_model, cfg.num_layers, cfg.vocab_size
-    total = V * d * cfg.num_codebooks          # embedding
-    if not cfg.tie_embeddings:
-        total += d * V * cfg.num_codebooks     # head
-
-    if cfg.block == "rwkv":
-        per = 5 * d * d + d * cfg.d_ff * 2 + d * d   # tm + cm projections
-        per += 5 * cfg.rwkv_lora_dim * d * 2 + 2 * cfg.rwkv_lora_dim * d * 2
-        return total + L * per
-
-    if cfg.block == "mamba":
-        d_in = cfg.ssm_expand * d
-        n = cfg.ssm_state_dim
-        h = d_in // cfg.ssm_head_dim
-        per = d * (2 * d_in + 2 * n + h) + d_in * d
-        shared = 0
-        if cfg.shared_attn_every:
-            hd = cfg.head_dim
-            shared = d * hd * (cfg.num_heads + 2 * cfg.num_kv_heads) \
-                + cfg.num_heads * hd * d + 3 * d * cfg.d_ff
-        return total + L * per + shared
-
-    # attention params
-    if cfg.use_mla:
-        attn = d * (cfg.q_lora_rank or 0)
-        q_in = cfg.q_lora_rank if cfg.q_lora_rank else d
-        attn += q_in * cfg.num_heads * (cfg.qk_nope_head_dim
-                                        + cfg.qk_rope_head_dim)
-        attn += d * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)
-        attn += cfg.kv_lora_rank * cfg.num_heads * (
-            cfg.qk_nope_head_dim + cfg.v_head_dim)
-        attn += cfg.num_heads * cfg.v_head_dim * d
-    else:
-        hd = cfg.head_dim
-        attn = d * hd * (cfg.num_heads + 2 * cfg.num_kv_heads) \
-            + cfg.num_heads * hd * d
-
-    mlp_dense = 3 * d * (cfg.dense_d_ff or cfg.d_ff)
-
-    if cfg.moe:
-        expert = 3 * d * cfg.moe_d_ff
-        shared = 3 * d * cfg.moe_d_ff * cfg.num_shared_experts
-        router = d * cfg.num_experts
-        if cfg.moe_layer_step > 1:
-            n_moe = L // cfg.moe_layer_step
-            n_dense = L - n_moe
-        else:
-            n_moe = L - cfg.first_k_dense
-            n_dense = cfg.first_k_dense
-        e_count = (cfg.num_experts_per_tok if active_only
-                   else cfg.num_experts)
-        return total + L * attn + n_dense * mlp_dense \
-            + n_moe * (expert * e_count + shared + router)
-
-    return total + L * (attn + mlp_dense)
+def count_params_analytic(cfg):
+    """Parameter count from the config alone, by the reference's formula
+    for the families the port runs (dense attention)."""
+    transformer.check_supported(cfg)
+    d, hd = cfg.d_model, cfg.head_dim
+    total = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    attn = d * hd * (cfg.num_heads + 2 * cfg.num_kv_heads) \
+        + cfg.num_heads * hd * d
+    mlp = 3 * d * (cfg.dense_d_ff or cfg.d_ff)
+    return total + cfg.num_layers * (attn + mlp)

@@ -7,8 +7,9 @@ that has only the port's dependencies:
 
 The CUDA kernels are held against their plain versions on the card, the
 card's engine against a CPU engine serving the same corpus state, and a
-narrow model's scores through the flash_attention kernel against the same
-model with attention by the plain version.
+narrow model's scores (float32) and logits (bf16) through the
+flash_attention kernel against the same model with attention by the plain
+version.
 """
 import dataclasses
 
@@ -101,6 +102,14 @@ def _plain_attention(q, k, v, causal=True):
                                 v.transpose(1, 2), causal).transpose(1, 2)
 
 
+# bf16 bar of flash_attention against its plain version, chip_smoke.py's
+# (whose note gives the reason and the measurement): each output within
+# 5e-3 + 2^-7 |plain| (one bf16 ulp for the two roundings of the output,
+# plus p's rounding to bf16 before p·v, where the products cancel), and
+# the whole within 5e-3 of ||plain||.
+BF16_RTOL, BF16_ATOL, BF16_FRO_TOL = 2.0 ** -7, 5e-3, 5e-3
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,kv,dh", [(2, 256, 8, 2, 64),
                                          (1, 128, 6, 1, 128),
@@ -108,12 +117,12 @@ def _plain_attention(q, k, v, causal=True):
                                          (3, 77, 6, 3, 128),
                                          (1, 1, 2, 1, 64)])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
-                                       (torch.float32, 2e-5)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_kernel_matches_plain(card, b, s, h, kv, dh, causal,
-                                              dtype, tol):
-    """Within the reference's own kernel-vs-ref tolerances
-    (tests/test_kernels.py), and bitwise identical across launches."""
+                                              dtype):
+    """Within the bf16 bar above, or in float32 within the reference's own
+    kernel-vs-ref tolerance (tests/test_kernels.py, 2e-5); bitwise
+    identical across launches."""
     g = torch.Generator(device=card).manual_seed(s + h)
     q = torch.randn(b, s, h, dh, generator=g, device=card).to(dtype)
     k = torch.randn(b, s, kv, dh, generator=g, device=card).to(dtype)
@@ -125,8 +134,14 @@ def test_flash_attention_kernel_matches_plain(card, b, s, h, kv, dh, causal,
     torch.cuda.synchronize()
     assert fa_ops.launches.count == before + 2
     assert got.dtype == dtype and got.shape == q.shape
-    torch.testing.assert_close(got.float(), plain.float(), atol=tol,
-                               rtol=tol)
+    if dtype == torch.bfloat16:
+        plain = plain.float()
+        torch.testing.assert_close(got.float(), plain, atol=BF16_ATOL,
+                                   rtol=BF16_RTOL)
+        assert float((got.float() - plain).norm()) \
+            <= BF16_FRO_TOL * float(plain.norm())
+    else:
+        torch.testing.assert_close(got, plain, atol=2e-5, rtol=2e-5)
     assert torch.equal(got, again)
 
 
@@ -149,3 +164,31 @@ def test_narrow_model_scores_through_the_kernel_match_plain(card,
     want = model.proxy_scores(m, tokens)
     assert fa_ops.launches.count == before + cfg.num_layers
     torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(6))
+def test_narrow_bf16_model_logits_through_the_kernel_match_plain(
+        card, monkeypatch, seed):
+    """The same narrow model in bf16: last-position logits within 6e-3 of
+    their largest magnitude of attention by the plain version. bf16 rounds
+    each layer's output, and the kernel's roundings differ from the plain
+    version's at a few outputs; over these seeds this model measured 1.3e-3
+    to 2.1e-3 on an H100, as far as the same model with plain attention
+    lies from its float32 copy. The tolerance is three times the largest."""
+    cfg = dataclasses.replace(configs.get_smoke_config("smollm-360m"),
+                              d_model=192, num_heads=3, num_kv_heads=1,
+                              head_dim=64, d_ff=256, vocab_size=512,
+                              dtype="bfloat16")
+    g = torch.Generator(device=card).manual_seed(seed)
+    m = model.init(cfg, generator=g, device=card)
+    tokens = np.random.default_rng(seed).integers(0, 512, (8, 100))
+    before = fa_ops.launches.count
+    got = model.last_logits(m, tokens)
+    assert fa_ops.launches.count == before + cfg.num_layers
+    monkeypatch.setattr(attention, "flash_attention", _plain_attention)
+    want = model.last_logits(m, tokens)
+    assert fa_ops.launches.count == before + cfg.num_layers
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) \
+        <= 6e-3 * float(want.abs().max())

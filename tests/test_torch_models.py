@@ -274,19 +274,23 @@ def test_unported_families_raise(change):
     cfg = dataclasses.replace(SMOKE, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.init(cfg, generator=torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.count_params_analytic(cfg)
 
 
 # -- configs --------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
-def test_count_params_analytic_matches_reference(arch):
-    """The copied formula counts every family as the reference does (its
-    ModelConfig takes the reference config's fields unchanged)."""
-    jcfg = jconfigs.get_config(arch)
-    cfg = configs.ModelConfig(**dataclasses.asdict(jcfg))
-    for active in (False, True):
-        assert model.count_params_analytic(cfg, active) \
-            == jmodel.count_params_analytic(jcfg, active)
+_COUNTED = {"smollm-360m": (configs.get_config("smollm-360m"),
+                            jconfigs.get_config("smollm-360m")), **CASES}
+
+
+@pytest.mark.parametrize("case", list(_COUNTED))
+def test_count_params_analytic_matches_reference(case):
+    """The dense count equals the reference's formula, on smollm-360m and
+    on the variants the parity tests run."""
+    cfg, jcfg = _COUNTED[case]
+    assert model.count_params_analytic(cfg) \
+        == jmodel.count_params_analytic(jcfg)
 
 
 def test_registry_holds_the_ported_arch():
