@@ -1,13 +1,14 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: kernels, engine, times.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: kernels, engine, models.
 
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
-1. Device: prints ``nvidia-smi --query-gpu=name,power.limit``.
-2. Kernels: builds every CUDA kernel from ``src/repro_torch/csrc`` (one
-   ``nvcc`` each, all at once) and holds each against its plain PyTorch
-   version on the card, at the main path's shapes: a 2^22-record chunk
+1. Device: prints ``nvidia-smi --query-gpu=name,power.limit``; then
+   builds every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
+   each, all at once) and prints each one's registers and shared memory.
+2. Kernels: holds the engine's two CUDA kernels against their plain
+   PyTorch versions on the card, at the main path's shapes: a 2^22-record chunk
    with 1% -1 sentinels, 4096 and 64 bins.
    * score_hist: counts exact; sums within |k - p| <= 4e-3 |p| + 1e-3 of
      the plain version, whose float32 scatter-add drifts by up to ~1e-3
@@ -37,8 +38,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    float32 at atol = rtol = 2e-5 (the JAX package's own tolerance,
    tests/test_kernels.py): smollm-360m's prefill shape (B=4,
    S=4096, H=15, KV=5, dh=64) causal, a ragged S=1000 causal and
-   non-causal, a dh=128 MQA case both ways and the scoring shape (B=256,
-   S=128); bitwise identical across two launches.
+   non-causal, a dh=128 MQA case both ways, the scoring shape (B=256,
+   S=128), and zamba2-1.2b's shared block at both (H = KV = 32);
+   bitwise identical across two launches.
 6. The full smollm-360m model (32 layers, d 960, bf16, weights drawn from
    --seed by `model.init`): one prefill at (4, 4096) through
    `make_serve_prefill`, with exactly 32 flash_attention launches; then
@@ -60,9 +62,44 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    Then one scoring call under torch.profiler: device time by kernel and
    group (flash_attention, matmul, the rest) and the device's busy share.
 8. Times of flash_attention at the prefill shape (its row in the kernels
-   line) and at the scoring shape (a line of its own), beside its bound,
-   its plain version and `scaled_dot_product_attention` (the yardstick;
-   the port never calls it).
+   line) and at the scoring shape and zamba2's prefill shape (a line
+   each), beside its bound, its plain version and
+   `scaled_dot_product_attention` (the yardstick; the port never calls
+   it).
+9. linear_scan against its plain version on the card: zamba2-1.2b's
+   prefill shape (B=4, H=64, S=4096, dk=dv=64) and scoring shape (B=256,
+   S=128) in Mamba2 mode with Zamba2's decay law and layout (B and C
+   shared by the heads, the scalar decay per head, as stride-0 views);
+   RWKV6 mode (bonus u) at (2, 64, 1024, 64, 64); the reference's
+   (2, 2, 128, 16, 24) in both modes; a ragged S = 1000, S = 1 and decays
+   w = 0.05 (below the Pallas kernel's log-decay floor) in both modes. o
+   and the final state within SCAN_REF_ATOL (the reference's) at the
+   reference's shape and SCAN_REL of the largest |output| elsewhere, of
+   the plain version, or of the plain recurrence in float64 where
+   S >= 1024 (see the note at the constants); bitwise identical across
+   two launches.
+10. The full zamba2-1.2b model (38 Mamba2 blocks in 6 super-blocks of 6
+    and a tail of 2, one shared attention block run 6 times, d 2048, bf16,
+    weights drawn from --seed by `model.init`): one prefill at (4, 4096)
+    through `make_serve_prefill` with exactly 38 linear_scan and 6
+    flash_attention launches, its mfu (`model_flops`); the bf16 model's
+    and its float32 copy's last-position logits with both kernels against
+    both plain versions (`LOGIT_TOL`); where the bf16 gap comes from:
+    each kernel alone by its plain version, and, with no kernel, the plain
+    scan computed in float64 and in bf16.
+11. Score, then select with zamba2-1.2b: a 2^13-record token corpus
+    (vocab 32000) in calls of 256 records, one RT query as in phase 7;
+    records/s, mfu, the scores' range and quantiles, and the path's
+    launches (38 linear_scan and 6 flash_attention a call); a profile of
+    one scoring call by group (linear_scan, flash_attention, matmul, the
+    rest).
+12. Times of linear_scan at the prefill shape (its row in the kernels
+    line) and at the scoring shape (a line), beside its bound and its
+    plain version; no single PyTorch call computes the scan, so its
+    library time is null.
+
+Each phase prints its wall time as it ends, and the line before the
+kernels line sums them.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -72,9 +109,12 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
+import functools
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -100,12 +140,14 @@ from repro_torch.data.synthetic import (contains_marker,  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.linear_scan import ops as ls_ops  # noqa: E402
+from repro_torch.kernels.linear_scan import ref as ls_ref  # noqa: E402
 from repro_torch.kernels.score_hist import ops as sh_ops  # noqa: E402
 from repro_torch.kernels.score_hist import ref as sh_ref  # noqa: E402
 from repro_torch.kernels.threshold_select import ops as ts_ops  # noqa: E402
 from repro_torch.kernels.threshold_select import ref as ts_ref  # noqa: E402
 from repro_torch.launch.serve import make_serve_prefill  # noqa: E402
-from repro_torch.models import attention  # noqa: E402
+from repro_torch.models import attention, mamba, transformer  # noqa: E402
 from repro_torch.models import model as modellib  # noqa: E402
 
 DEVICE = "cuda"
@@ -116,6 +158,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM, bf16 dense on the tensor cores
 ARCH = "smollm-360m"
+ZAMBA = "zamba2-1.2b"
 FA_PREFILL = (4, 4096, 15, 5, 64)     # B, S, H, KV, dh: smollm-360m prefill
 FA_SCORING = (256, 128, 15, 5, 64)    # the scoring batch
 N_CORPUS = 1 << 15                    # token records scored and selected
@@ -140,8 +183,12 @@ BF16_ATOL = 5e-3
 BF16_FRO_TOL = 5e-3
 F32_TOL = 2e-5                 # atol = rtol, the JAX package's own
 # Largest |kernel - plain| of the float32 model's last-position logits, as
-# a share of their largest magnitude (phase 6); see the note in
-# model_phase.
+# a share of their largest magnitude (phase 6). Both runs are float32
+# throughout (no TF32), so they differ only in the order of the attention
+# sums (the kernel's online softmax against the plain softmax) and in exp2
+# against exp: about 1e-6 of the output a layer. Through 32 layers the
+# logits measured 9.65e-7 of their largest magnitude on the H100; the
+# tolerance is ten times that.
 F32_LOGIT_TOL = 1e-5
 # The same for the bf16 model (phase 6). bf16 rounds every layer's output,
 # so the kernel's and the plain version's roundings differ at a few
@@ -151,10 +198,55 @@ F32_LOGIT_TOL = 1e-5
 # plain attention from its float32 copy (8.3e-3 to 9.5e-3). The tolerance
 # is three times the largest.
 BF16_LOGIT_TOL = 3e-2
+# The same two bars for zamba2-1.2b (phase 10), kernels (linear_scan and
+# flash_attention) against the plain versions, measured at --seed 0, 1 and
+# 2 on an H100 80GB HBM3 at 700 W. bf16: 2.38e-2 to 2.86e-2 of the largest
+# |logit|. The kernels do not set that gap: with only linear_scan by its
+# plain version it is 2.39e-2 to 2.77e-2, with only flash_attention
+# 2.18e-2 to 2.60e-2, and the plain model with its scan computed in
+# float64 (no kernel; a change of float32 rounding alone) moves 2.40e-2 to
+# 3.26e-2 from the plain model. bf16 rounds the hidden state at every
+# block, and 44 blocks carry any change at float32 rounding up to such
+# roundings, a large share of logits near 4 (the untied head at
+# 1/sqrt(d)). No bar below that floor passes a correct path; the bar is
+# 1.4 times its largest reading. It cannot tell a scan computed in bf16
+# (3.52e-2 to 4.27e-2 from the plain model): phase 9 holds the main path's
+# own scan (bf16 B and C, float32 v) at SCAN_REL, and the float32 copy
+# holds the model at ZAMBA_F32_LOGIT_TOL. float32: 5.53e-6 to 6.16e-6,
+# through 38 Mamba2 blocks and 6 attention runs; the bar is three times
+# the largest.
+ZAMBA_BF16_LOGIT_TOL = 4.5e-2
+ZAMBA_F32_LOGIT_TOL = 2e-5
+LOGIT_TOL = {ARCH: (BF16_LOGIT_TOL, F32_LOGIT_TOL),
+             ZAMBA: (ZAMBA_BF16_LOGIT_TOL, ZAMBA_F32_LOGIT_TOL)}
 # Operations each kernel does per record, counted from its source:
 # score_hist compares, clips, scales, converts and takes a square root
 # (8); threshold_select compares once.
 OPS_PER_RECORD = {"score_hist": 8, "threshold_select": 1}
+LS_PREFILL = (4, 64, 4096, 64, 64)    # B, H, S, dk, dv: zamba2-1.2b prefill
+LS_SCORING = (256, 64, 128, 64, 64)   # the scoring batch
+FA_ZAMBA = (4, 4096, 32, 32, 64)      # zamba2's shared attention block
+FA_ZAMBA_SCORING = (256, 128, 32, 32, 64)
+N_ZAMBA_CORPUS = 1 << 13              # token records zamba2 scores
+# linear_scan against its plain version (phase 9). At the reference's
+# shapes (dk 16 or 8), the reference's own atol = 1e-4
+# (tests/test_kernels.py). At dk = dv = 64 both compute the same float32
+# recurrence step by step and differ only in the order of each step's q·S
+# sum; the bar is SCAN_REL of the largest |output| (o or the state),
+# against the plain version, or, where S >= 1024, against the plain
+# recurrence in float64 on the card (the float32 plain version drifts
+# there as much as the kernel does: 2.1e-7 of the largest |o| at the
+# prefill shape, the kernel 1.4e-7). Over every case below at --seed 0, 1
+# and 2 the largest error measured 2.73e-7 of the largest |output| (o at
+# the scoring shape) on an H100 80GB HBM3 at 700 W; SCAN_REL is 3.7 times
+# that. A step dropped or read twice moves o by far more.
+SCAN_REF_ATOL = 1e-4
+SCAN_REL = 1e-6
+# Every kernel's launch counter, by name.
+COUNTERS = {"flash_attention": fa_ops.launches,
+            "linear_scan": ls_ops.launches,
+            "score_hist": sh_ops.launches,
+            "threshold_select": ts_ops.launches}
 
 
 def check(ok: bool, what: str) -> None:
@@ -367,7 +459,8 @@ def check_flash(seed: int) -> float:
     g = torch.Generator(device=DEVICE).manual_seed(seed + 11)
     cases = [(FA_PREFILL, True), ((2, 1000, 15, 5, 64), True),
              ((2, 1000, 15, 5, 64), False), ((2, 512, 8, 1, 128), True),
-             ((2, 512, 8, 1, 128), False), (FA_SCORING, True)]
+             ((2, 512, 8, 1, 128), False), (FA_SCORING, True),
+             (FA_ZAMBA, True), (FA_ZAMBA_SCORING, True)]
     err_prefill = 0.0
     for shape, causal in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -404,13 +497,36 @@ def check_flash(seed: int) -> float:
 # -- phase 6 -------------------------------------------------------------------
 
 def model_flops(cfg, batch: int, seq: int) -> float:
-    """Prefill model FLOPs: 2 · non-embedding params · tokens plus causal
-    attention, 2 · B · H · S² · dh per layer."""
+    """Prefill model FLOPs, for the mfu of a prefill.
+
+    Dense: 2 · non-embedding params · tokens, plus causal attention,
+    2 · B · H · S² · dh a layer.
+    Hybrid (Zamba2): the shared block's weights work at each of its n_super
+    runs, so 2 · (L · P_mamba + n_super · P_shared) · tokens; attention
+    runs n_super times, 2 · B · H · S² · dh each; and each Mamba2 block's
+    scan counts the operations of the step form the port runs, per token
+    and head 5 · N · hd (k·v, the decay's multiply-add, q·S's
+    multiply-add; the count of linear_scan's bound), float32 operations
+    on the CUDA cores counted at the bf16 peak like the rest.
+    """
     non_embedding = modellib.count_params_analytic(cfg) \
         - cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-    return (2.0 * non_embedding * batch * seq
+    tokens = batch * seq
+    attention_runs = cfg.num_layers
+    scan = 0.0
+    if cfg.block == "mamba":
+        attention_runs = cfg.num_layers // cfg.shared_attn_every \
+            if cfg.shared_attn_every else 0
+        shared = cfg.d_model * cfg.head_dim * (
+            2 * cfg.num_heads + 2 * cfg.num_kv_heads) \
+            + 3 * cfg.d_model * cfg.d_ff if attention_runs else 0
+        non_embedding += (attention_runs - 1) * shared
+        n, hd = cfg.ssm_state_dim, cfg.ssm_head_dim
+        heads = cfg.d_inner // hd
+        scan = 5.0 * n * hd * heads * tokens * cfg.num_layers
+    return (2.0 * non_embedding * tokens
             + 2.0 * batch * cfg.num_heads * seq * seq * cfg.head_dim
-            * cfg.num_layers)
+            * attention_runs + scan)
 
 
 def init_model(cfg, seed: int):
@@ -427,10 +543,60 @@ def init_model(cfg, seed: int):
     return model
 
 
-def model_phase(model, cfg, seed: int) -> None:
-    """Phase 6: one full-width prefill through `make_serve_prefill`, then
-    the bf16 model and its float32 copy, each with the kernel against the
-    plain attention."""
+# The model's kernels: where each is looked up, and its plain version.
+PLAIN = {"flash_attention": (attention, plain_attention),
+         "linear_scan": (mamba, ls_ref.linear_scan_ref)}
+
+
+@contextlib.contextmanager
+def plain_paths(names=tuple(PLAIN), scan=ls_ref.linear_scan_ref):
+    """The model's kernels of `names` swapped for their plain versions
+    (linear_scan for `scan`); fails if one of them launches meanwhile."""
+    before = {name: COUNTERS[name].count for name in names}
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            module, plain = PLAIN[name]
+            stack.enter_context(mock.patch.object(
+                module, name, scan if name == "linear_scan" else plain))
+        yield
+    torch.cuda.synchronize()
+    check(all(COUNTERS[name].count == n for name, n in before.items()),
+          f"a plain run of {names} launched its kernel")
+
+
+def bf16_gap_sources(model, tokens, names, kernels, plain, scale) -> None:
+    """Where the bf16 model's kernels-vs-plain gap comes from, as shares
+    of the largest |logit|: each kernel alone swapped for its plain
+    version, against the kernels; then, with no kernel at all, the plain
+    model with its scan computed in float64 (a change of float32 rounding
+    alone, the size of the scan kernel's: how far bf16 carries any such
+    change) and in bf16 (a scan computed in bf16), against the plain
+    model."""
+    for name in names:
+        with plain_paths((name,)):
+            got = modellib.last_logits(model, tokens)
+        print(f"bf16 model, only {name} by its plain version: max "
+              f"|difference from the kernels| "
+              f"{float((got - kernels).abs().max()) / scale:.3g} of the "
+              f"largest |logit|")
+    for label, dtype in (("float64", torch.float64),
+                         ("bf16", torch.bfloat16)):
+        with plain_paths(scan=functools.partial(ls_ref.linear_scan_ref,
+                                                compute_dtype=dtype)):
+            got = modellib.last_logits(model, tokens)
+        check(bool(torch.isfinite(got).all()), f"{label} scan logits")
+        print(f"bf16 model, plain versions with the scan computed in "
+              f"{label}: max |difference from the plain model| "
+              f"{float((got - plain).abs().max()) / scale:.3g} of the "
+              f"largest |logit|")
+
+
+def model_phase(model, cfg, seed: int, per_prefill: dict) -> None:
+    """Phases 6 and 10: one full-width prefill through
+    `make_serve_prefill`, launching each kernel of `per_prefill` exactly
+    that often; then the bf16 model and its float32 copy, each with the
+    kernels against the plain versions."""
+    bf16_tol, f32_tol = LOGIT_TOL[cfg.name]
     b, s = FA_PREFILL[:2]
     tokens = torch.randint(0, cfg.vocab_size, (b, s), device=DEVICE,
                            generator=torch.Generator(device=DEVICE)
@@ -439,78 +605,70 @@ def model_phase(model, cfg, seed: int) -> None:
     serve_prefill(model, {"tokens": tokens[:, :128]})      # warm-up
     torch.cuda.synchronize()
 
-    fa_ops.launches.reset()
+    for name in per_prefill:
+        COUNTERS[name].reset()
     t0 = time.perf_counter()
     scores = serve_prefill(model, {"tokens": tokens})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa_ops.launches.count
-    check(launches == cfg.num_layers,
-          f"flash_attention launched {launches} times in one prefill of "
-          f"{cfg.num_layers} layers")
+    launches = {name: COUNTERS[name].count for name in per_prefill}
+    check(launches == per_prefill,
+          f"one prefill of {cfg.name} launched {launches}, expected "
+          f"{per_prefill}")
     check(scores.shape == (b,) and bool(torch.isfinite(scores).all())
           and bool(((scores >= 0) & (scores <= 1)).all()),
           f"prefill scores {scores}")
     mfu = model_flops(cfg, b, s) / wall / BF16_OPS_PER_S
-    print(f"prefill ({b}, {s}) through make_serve_prefill: {wall:.4f} s, "
-          f"{b * s / wall:.1f} tokens/s, mfu {mfu:.4f}, flash_attention "
+    print(f"{cfg.name} prefill ({b}, {s}) through make_serve_prefill: "
+          f"{wall:.4f} s, {b * s / wall:.1f} tokens/s, mfu {mfu:.4f}, "
           f"launches {launches}, scores {scores.tolist()}")
 
-    # The bf16 model itself: its last-position logits with the kernel
-    # against the same model with attention by the plain version.
+    # The bf16 model itself: its last-position logits with the kernels
+    # against the same model with the plain versions.
     bf16_kernel = modellib.last_logits(model, tokens)
-    before = fa_ops.launches.count
-    with mock.patch.object(attention, "flash_attention", plain_attention):
+    with plain_paths():
         bf16_plain = modellib.last_logits(model, tokens)
-    torch.cuda.synchronize()
-    check(fa_ops.launches.count == before,
-          "the plain run launched the kernel")
     bf16_diff = float((bf16_kernel - bf16_plain).abs().max())
     bf16_scale = float(bf16_plain.abs().max())
     check(bool(torch.isfinite(bf16_kernel).all())
-          and bf16_diff <= BF16_LOGIT_TOL * bf16_scale,
-          f"bf16 logits: kernel vs plain attention differ by {bf16_diff} "
+          and bf16_diff <= bf16_tol * bf16_scale,
+          f"{cfg.name} bf16 logits: kernels vs plain differ by {bf16_diff} "
           f"(largest |logit| {bf16_scale})")
     print(f"bf16 model, last-position logits ({b}, {cfg.vocab_size}): "
-          f"max |kernel - plain attention| {bf16_diff:.6g}, largest |logit| "
+          f"max |kernels - plain| {bf16_diff:.6g}, largest |logit| "
           f"{bf16_scale:.6g}, ratio {bf16_diff / bf16_scale:.3g} "
-          f"(tol {BF16_LOGIT_TOL})")
+          f"(tol {bf16_tol})")
+    if len(per_prefill) > 1:
+        bf16_gap_sources(model, tokens, per_prefill, bf16_kernel,
+                         bf16_plain, bf16_scale)
 
-    # F32_LOGIT_TOL: both runs are float32 throughout (no TF32), so they
-    # differ only in the order of the attention sums (the kernel's online
-    # softmax against the plain softmax) and in exp2 against exp: about
-    # 1e-6 of the output a layer. Through 32 layers the logits measured
-    # 9.65e-7 of their largest magnitude on the H100; the tolerance is ten
-    # times that.
     f32 = copy.deepcopy(model).float()
     f32.cfg = dataclasses.replace(cfg, dtype="float32")
     with_kernel = modellib.last_logits(f32, tokens)
-    before = fa_ops.launches.count
-    with mock.patch.object(attention, "flash_attention", plain_attention):
+    with plain_paths():
         with_plain = modellib.last_logits(f32, tokens)
-    torch.cuda.synchronize()
-    check(fa_ops.launches.count == before,
-          "the plain run launched the kernel")
     diff = float((with_kernel - with_plain).abs().max())
     scale = float(with_plain.abs().max())
-    check(bool(torch.isfinite(with_kernel).all()) and diff <= F32_LOGIT_TOL
-          * scale, f"float32 logits: kernel vs plain attention differ by "
+    check(bool(torch.isfinite(with_kernel).all()) and diff <= f32_tol
+          * scale, f"{cfg.name} float32 logits: kernels vs plain differ by "
           f"{diff} (largest |logit| {scale})")
     print(f"float32 copy, last-position logits ({b}, {cfg.vocab_size}): "
-          f"max |kernel - plain attention| {diff:.6g}, largest |logit| "
-          f"{scale:.6g}, ratio {diff / scale:.3g} (tol {F32_LOGIT_TOL})")
+          f"max |kernels - plain| {diff:.6g}, largest |logit| "
+          f"{scale:.6g}, ratio {diff / scale:.3g} (tol {f32_tol})")
     rounding = float((bf16_plain - with_plain).abs().max()) / scale
-    print(f"bf16 model with plain attention against its float32 copy: "
+    print(f"bf16 model with the plain versions against its float32 copy: "
           f"max |difference| {rounding:.3g} of the largest |logit|")
     del f32, with_kernel, with_plain, bf16_kernel, bf16_plain
 
 
 # -- phase 7 -------------------------------------------------------------------
 
-def score_select_phase(model, cfg, seed: int) -> dict:
-    """Phase 7: score a token corpus with the full model, select on the
-    card; returns the path's launch counts."""
-    tokens_np, labels = make_token_corpus(N_CORPUS, SEQ_LEN, cfg.vocab_size,
+def score_select_phase(model, cfg, seed: int, n_corpus: int,
+                       per_call: dict) -> dict:
+    """Phases 7 and 11: score a token corpus of `n_corpus` records with
+    the full model, launching each kernel of `per_call` that often a
+    call, and select on the card; returns the path's launch counts."""
+    tokens_np, labels = make_token_corpus(n_corpus, SEQ_LEN, cfg.vocab_size,
                                           0.02, seed)
     check(np.array_equal(labels > 0.5, contains_marker(tokens_np)),
           "corpus labels are not the marker oracle")
@@ -519,15 +677,16 @@ def score_select_phase(model, cfg, seed: int) -> dict:
     serve_prefill(model, {"tokens": tokens[:SCORE_BATCH]})   # warm-up
     torch.cuda.synchronize()
 
-    for counter in (fa_ops.launches, sh_ops.launches, ts_ops.launches):
-        counter.reset()
+    path = (*per_call, "score_hist", "threshold_select")
+    for name in path:
+        COUNTERS[name].reset()
     t0 = time.perf_counter()
     scores = torch.cat([serve_prefill(model,
                                       {"tokens": tokens[i:i + SCORE_BATCH]})
-                        for i in range(0, N_CORPUS, SCORE_BATCH)])
+                        for i in range(0, n_corpus, SCORE_BATCH)])
     torch.cuda.synchronize()
     t_score = time.perf_counter() - t0
-    check(scores.shape == (N_CORPUS,) and bool(torch.isfinite(scores).all())
+    check(scores.shape == (n_corpus,) and bool(torch.isfinite(scores).all())
           and bool(((scores >= 0) & (scores <= 1)).all()),
           "corpus scores are not finite probabilities")
     t0 = time.perf_counter()
@@ -538,29 +697,32 @@ def score_select_phase(model, cfg, seed: int) -> dict:
         t_build = time.perf_counter() - t0
         sel, t_query = run_query(eng, R.PRNGKey(seed), array_oracle(labels),
                                  name, q)
-        launches = {"flash_attention": fa_ops.launches.count,
-                    "score_hist": sh_ops.launches.count,
-                    "threshold_select": ts_ops.launches.count}
+        launches = {k: COUNTERS[k].count for k in path}
         check(np.array_equal(sel.shard_counts,
                              plain_counts(eng, sel, name, labels)),
               "scored corpus: RT counts differ from the plain count")
         sel_idx = np.concatenate([eng.offsets[i] + sel.indices(i)
                                   for i in range(sel.num_shards)])
-    n_calls = N_CORPUS // SCORE_BATCH
-    check(launches["flash_attention"] == n_calls * cfg.num_layers,
-          f"flash_attention launched {launches['flash_attention']} times "
-          f"for {n_calls} prefills of {cfg.num_layers} layers")
+    n_calls = n_corpus // SCORE_BATCH
+    for k, n in per_call.items():
+        check(launches[k] == n_calls * n,
+              f"{k} launched {launches[k]} times for {n_calls} prefills of "
+              f"{cfg.name}, expected {n} each")
     check(launches["score_hist"] >= N_SCORE_SHARDS
           and launches["threshold_select"] >= N_SCORE_SHARDS,
           f"engine kernels did not launch on the scored corpus: {launches}")
     truth = labels > 0.5
-    mfu = model_flops(cfg, N_CORPUS, SEQ_LEN) / t_score / BF16_OPS_PER_S
-    print(f"scored {N_CORPUS} records x {SEQ_LEN} tokens in {t_score:.3f} s:"
-          f" {N_CORPUS / t_score:.1f} records/s, "
-          f"{N_CORPUS * SEQ_LEN / t_score:.1f} tokens/s, mfu {mfu:.4f}; "
-          f"scores in [{float(scores.min()):.4g}, {float(scores.max()):.4g}]")
+    mfu = model_flops(cfg, n_corpus, SEQ_LEN) / t_score / BF16_OPS_PER_S
+    quantiles = torch.quantile(scores.double(), torch.tensor(
+        [0.01, 0.5, 0.99], dtype=torch.float64, device=DEVICE)).tolist()
+    print(f"{cfg.name} scored {n_corpus} records x {SEQ_LEN} tokens in "
+          f"{t_score:.3f} s: {n_corpus / t_score:.1f} records/s, "
+          f"{n_corpus * SEQ_LEN / t_score:.1f} tokens/s, mfu {mfu:.4f}; "
+          f"scores in [{float(scores.min()):.4g}, {float(scores.max()):.4g}]"
+          f", quantiles 1/50/99% "
+          f"{', '.join(f'{x:.4g}' for x in quantiles)}")
     print(f"RT over the scores: build {t_build:.4f} s, query {t_query:.4f} s,"
-          f" tau {sel.tau:.6g}, selected {sel.total_selected} of {N_CORPUS}"
+          f" tau {sel.tau:.6g}, selected {sel.total_selected} of {n_corpus}"
           f" ({int(truth.sum())} positive), oracle calls {sel.oracle_calls},"
           f" recall {queries.recall_of(sel_idx, truth):.4f}, precision "
           f"{queries.precision_of(sel_idx, truth):.4f}")
@@ -568,9 +730,10 @@ def score_select_phase(model, cfg, seed: int) -> dict:
     return launches
 
 
-def profile_scoring_call(model, cfg, seed: int) -> None:
-    """Device time by kernel over one scoring call (torch.profiler), and
-    the device's busy share of the call's wall time."""
+def profile_scoring_call(model, cfg, seed: int, groups: dict) -> None:
+    """Device time by kernel over one scoring call (torch.profiler), in
+    `groups` (a name for each substring of a kernel's name) and matmuls
+    and the rest, and the device's busy share of the call's wall time."""
     tokens = torch.randint(0, cfg.vocab_size, (SCORE_BATCH, SEQ_LEN),
                            device=DEVICE, generator=torch.Generator(
                                device=DEVICE).manual_seed(seed + 2))
@@ -593,19 +756,21 @@ def profile_scoring_call(model, cfg, seed: int) -> None:
         print("profile of one scoring call: the profiler recorded no device "
               "time")
         return
-    groups = {}
+    by_group = {}
     for name, t, _ in kernels:
         low = name.lower()
-        group = ("flash_attention" if "flash_bf16" in low else
-                 "matmul" if any(w in low for w in
-                                 ("gemm", "cutlass", "xmma", "nvjet"))
-                 else "other (elementwise, norms, softmax, copies)")
-        groups[group] = groups.get(group, 0.0) + t
-    print(f"profile of one scoring call ({SCORE_BATCH} x {SEQ_LEN} tokens): "
-          f"wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-          f"({busy_us / wall_us:.3f} of the wall), by group: " + ", ".join(
+        group = next((g for key, g in groups.items() if key in low), None)
+        if group is None:
+            group = ("matmul" if any(w in low for w in
+                                     ("gemm", "cutlass", "xmma", "nvjet"))
+                     else "other (elementwise, norms, softmax, copies)")
+        by_group[group] = by_group.get(group, 0.0) + t
+    print(f"profile of one {cfg.name} scoring call ({SCORE_BATCH} x "
+          f"{SEQ_LEN} tokens): wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.3f} of the wall), by "
+          "group: " + ", ".join(
               f"{g} {t / 1e3:.3f} ms ({t / busy_us:.3f})"
-              for g, t in sorted(groups.items(), key=lambda kv: -kv[1])))
+              for g, t in sorted(by_group.items(), key=lambda kv: -kv[1])))
     for name, t, n in sorted(kernels, key=lambda k: -k[1])[:10]:
         print(f"  {t / 1e3:9.3f} ms  x{n:<4d} {name[:100]}")
 
@@ -634,6 +799,123 @@ def flash_row(shape, seed: int) -> dict:
         else (t_bytes, "bytes")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms}
+
+
+# -- phase 9 -------------------------------------------------------------------
+
+def scan_inputs(shape, g, *, layout="mamba", bonus=False, w_const=None):
+    """linear_scan's inputs on the card. ``mamba``: Zamba2's layout and
+    law, as `mamba_block` hands them over: B and C (B,S,N) bf16 normal,
+    shared by the heads as stride-0 views; dt = softplus(normal · 0.88)
+    per (b, s, head) (x · W at W's 1/sqrt(d) init after an RMSNorm), the
+    decay w = exp(-dt) (A = -1) as a stride-0 view over N, or `w_const`;
+    v = x · dt, a (B,S,H,hd) float32 tensor seen as (B,H,S,hd).
+    ``plain``: the reference test's law, contiguous float32: q, k, v
+    normal at scale 0.5, w = sigmoid(normal + 2.5) or `w_const`, and with
+    `bonus` u normal at scale 0.3."""
+    b, h, s, dk, dv = shape
+
+    def normal(*size):
+        return torch.randn(*size, generator=g, device=DEVICE)
+    if layout == "mamba":
+        bc = normal(b, s, 2 * dk).bfloat16()
+        dt = F.softplus(normal(b, s, h) * 0.88)
+        a = torch.exp(-dt) if w_const is None else torch.full_like(dt,
+                                                                   w_const)
+        v = (normal(b, s, h, dv) * dt[..., None]).transpose(1, 2)
+        return (bc[..., dk:][:, None].expand(b, h, s, dk),
+                bc[..., :dk][:, None].expand(b, h, s, dk), v,
+                a.transpose(1, 2)[..., None].expand(b, h, s, dk), None)
+    q, k = normal(b, h, s, dk) * 0.5, normal(b, h, s, dk) * 0.5
+    w = (torch.sigmoid(normal(b, h, s, dk) + 2.5) if w_const is None
+         else torch.full((b, h, s, dk), w_const, device=DEVICE))
+    u = normal(h, dk) * 0.3 if bonus else None
+    return q, k, normal(b, h, s, dv) * 0.5, w, u
+
+
+def check_scan(seed: int) -> float:
+    """Phase 9: linear_scan against its plain version; returns the largest
+    |kernel - plain| of o at the prefill shape."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 17)
+    cases = [("zamba2 prefill", LS_PREFILL, {}),
+             ("zamba2 scoring", LS_SCORING, {}),
+             ("rwkv6 mode", (2, 64, 1024, 64, 64),
+              dict(layout="plain", bonus=True)),
+             ("reference shape", (2, 2, 128, 16, 24), dict(layout="plain")),
+             ("reference shape", (2, 2, 128, 16, 24),
+              dict(layout="plain", bonus=True)),
+             ("ragged S", (2, 16, 1000, 64, 64), {}),
+             ("ragged S", (2, 16, 1000, 64, 64),
+              dict(layout="plain", bonus=True)),
+             ("S = 1", (3, 16, 1, 64, 64), {}),
+             ("S = 1", (3, 16, 1, 64, 64), dict(layout="plain", bonus=True)),
+             ("w = 0.05", (2, 16, 512, 64, 64), dict(w_const=0.05)),
+             ("w = 0.05", (2, 16, 512, 64, 64),
+              dict(layout="plain", bonus=True, w_const=0.05))]
+    err_prefill = 0.0
+    for label, shape, kw in cases:
+        q, k, v, w, u = scan_inputs(shape, g, **kw)
+        got = ls_ops.linear_scan(q, k, v, w, u)
+        again = ls_ops.linear_scan(q, k, v, w, u)
+        plain = ls_ref.linear_scan_ref(q, k, v, w, u)
+        long = shape[2] >= 1024
+        arbiter = ls_ref.linear_scan_ref(q, k, v, w, u,
+                                         compute_dtype=torch.float64) \
+            if long else plain
+        torch.cuda.synchronize()
+        what = (f"linear_scan {label} {shape} "
+                f"{'rwkv6 (u)' if u is not None else 'mamba2'} "
+                f"{kw.get('layout', 'mamba')} layout")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"{what}: repeat launches differ")
+        parts = []
+        for part, kern, pl, arb in zip(("o", "state"), got, plain, arbiter):
+            err = float((kern.double() - arb.double()).abs().max())
+            scale = float(arb.abs().max())
+            bar = SCAN_REF_ATOL if shape[3] < 64 else SCAN_REL * scale
+            check(bool(torch.isfinite(kern).all()) and err <= bar,
+                  f"{what}: {part} differs from the "
+                  f"{'float64 ' if long else ''}plain version by {err:.4g} "
+                  f"(bar {bar:.4g})")
+            line = (f"{part}: max |kernel - plain| "
+                    f"{float((kern - pl).abs().max()):.4g}")
+            if long:
+                line += (f", |kernel - float64| {err:.4g}, |plain - float64|"
+                         f" {float((pl.double() - arb).abs().max()):.4g}")
+            parts.append(f"{line}, largest |{part}| {scale:.4g}, bar "
+                         f"{bar:.4g}")
+        print(f"{what}: {'; '.join(parts)}; repeat bitwise")
+        if shape == LS_PREFILL:
+            err_prefill = float((got[0] - plain[0]).abs().max())
+        del q, k, v, w, got, again, plain, arbiter
+    return err_prefill
+
+
+def distinct_bytes(t: torch.Tensor) -> int:
+    """Bytes of the distinct elements a (possibly broadcast) view reads."""
+    return math.prod(n for n, st in zip(t.shape, t.stride()) if st) \
+        * t.element_size()
+
+
+def scan_row(shape, seed: int) -> dict:
+    """linear_scan's times at `shape` in Zamba2's layout, with its bound:
+    the larger of the bytes (each distinct input element read once, o and
+    the float32 state written once) over the HBM rate and the
+    recurrence's 5 float32 operations per state element a step (k·v, the
+    decay's multiply-add, q·S's multiply-add) over the float32 rate."""
+    b, h, s, dk, dv = shape
+    q, k, v, w, _ = scan_inputs(shape, torch.Generator(device=DEVICE)
+                                .manual_seed(seed + 19))
+    ms = cuda_ms(lambda: ls_ops.linear_scan(q, k, v, w), 20)
+    plain_ms = cuda_ms(lambda: ls_ref.linear_scan_ref(q, k, v, w), 1)
+    moved = sum(distinct_bytes(t) for t in (q, k, v, w)) \
+        + distinct_bytes(v) + 4 * b * h * dk * dv
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 5 * b * h * s * dk * dv / FP32_OPS_PER_S * 1e3
+    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes \
+        else (t_bytes, "bytes")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -675,6 +957,26 @@ def kernel_times(flat, tau_rt):
     return t, byts
 
 
+class Phases:
+    """Wall time of each phase, printed as it ends and summed at the end."""
+
+    def __init__(self):
+        self.walls = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        self.walls[name] = time.perf_counter() - t0
+        print(f"-- phase {name}: {self.walls[name]:.1f} s")
+
+    def total(self) -> str:
+        return ("phase wall s: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in self.walls.items())
+            + f"; total {sum(self.walls.values()):.1f}")
+
+
 def main() -> None:
     """Run every phase; exits non-zero on the first failure."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -687,76 +989,107 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
+    phase = Phases()
 
-    t0 = time.perf_counter()
-    names = _build.sources()
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        list(pool.map(_build.load, names))      # one nvcc each, all at once
-    print(f"built {names} in {time.perf_counter() - t0:.2f} s")
-    for name in names:
-        regs = [ln.strip() for ln in _build.build_log(name).splitlines()
-                if "Used" in ln]
-        print(f"  {name}: {'; '.join(regs)}")
+    with phase("build"):
+        names = _build.sources()
+        with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+            list(pool.map(_build.load, names))  # one nvcc each, all at once
+        print(f"built {names}")
+        for name in names:
+            regs = [ln.strip() for ln in _build.build_log(name).splitlines()
+                    if "Used" in ln]
+            print(f"  {name}: {'; '.join(regs)}")
 
-    t0 = time.perf_counter()
-    scores, labels = make_beta_on_device(N_RECORDS, 0.01, 1.0,
-                                         seed=args.seed, device=DEVICE)
-    torch.cuda.synchronize()
-    print(f"corpus: {N_RECORDS} Beta(0.01, 1) scores drawn on the card in "
-          f"{time.perf_counter() - t0:.2f} s, positive rate "
-          f"{labels.mean():.5f}")
+    with phase("2-4 engine kernels, engine, times"):
+        t0 = time.perf_counter()
+        scores, labels = make_beta_on_device(N_RECORDS, 0.01, 1.0,
+                                             seed=args.seed, device=DEVICE)
+        torch.cuda.synchronize()
+        print(f"corpus: {N_RECORDS} Beta(0.01, 1) scores drawn on the card "
+              f"in {time.perf_counter() - t0:.2f} s, positive rate "
+              f"{labels.mean():.5f}")
 
-    g = torch.Generator(device=DEVICE).manual_seed(args.seed + 7)
-    chunk = scores[:CHUNK].clone()
-    chunk[torch.rand(CHUNK, device=DEVICE, generator=g) < 0.01] = -1.0
-    errs = check_kernels(chunk)
-    small_agreement(args.seed)
+        g = torch.Generator(device=DEVICE).manual_seed(args.seed + 7)
+        chunk = scores[:CHUNK].clone()
+        chunk[torch.rand(CHUNK, device=DEVICE, generator=g) < 0.01] = -1.0
+        errs = check_kernels(chunk)
+        small_agreement(args.seed)
 
-    sh_ops.launches.reset()
-    ts_ops.launches.reset()
-    results, walls = engine_phase(scores, labels, args.seed)
-    launches = {"score_hist": sh_ops.launches.count,
-                "threshold_select": ts_ops.launches.count}
-    n_chunks = results[1]["engine"].plan.total_chunks
-    check(launches["score_hist"] >= 2 * n_chunks,
-          f"score_hist launched {launches['score_hist']} times for two "
-          f"builds of {n_chunks} chunks")
-    check(launches["threshold_select"] >= 2 * len(QUERIES) * n_chunks,
-          f"threshold_select launched {launches['threshold_select']} times")
-    print(f"main path launches: {launches}")
-    print("wall s: " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+        sh_ops.launches.reset()
+        ts_ops.launches.reset()
+        results, walls = engine_phase(scores, labels, args.seed)
+        launches = {"score_hist": sh_ops.launches.count,
+                    "threshold_select": ts_ops.launches.count}
+        n_chunks = results[1]["engine"].plan.total_chunks
+        check(launches["score_hist"] >= 2 * n_chunks,
+              f"score_hist launched {launches['score_hist']} times for two "
+              f"builds of {n_chunks} chunks")
+        check(launches["threshold_select"] >= 2 * len(QUERIES) * n_chunks,
+              f"threshold_select launched {launches['threshold_select']} "
+              "times")
+        print(f"main path launches: {launches}")
+        print("wall s: " + ", ".join(f"{k} {v:.3f}"
+                                     for k, v in walls.items()))
 
-    tau_rt = results[1]["RT"].tau
-    times, byts = kernel_times(results[1]["engine"]._state.flat, tau_rt)
-    sources = {"score_hist": ("src/repro_torch/csrc/score_hist.cu",
-                              "src/repro/kernels/score_hist/"
-                              "score_hist.py:74"),
-               "threshold_select": (
-                   "src/repro_torch/csrc/threshold_select.cu",
-                   "src/repro/kernels/threshold_select/"
-                   "threshold_select.py:78")}
-    del results, scores, chunk
+        tau_rt = results[1]["RT"].tau
+        times, byts = kernel_times(results[1]["engine"]._state.flat, tau_rt)
+        del results, scores, chunk
 
-    fa_err = check_flash(args.seed)
-    cfg = get_config(ARCH)
-    model = init_model(cfg, args.seed)
-    model_phase(model, cfg, args.seed)
-    fa_launches = score_select_phase(model, cfg, args.seed)[
-        "flash_attention"]
-    profile_scoring_call(model, cfg, args.seed)
-    del model
-    fa_rows = {shape: flash_row(shape, args.seed)
-               for shape in (FA_PREFILL, FA_SCORING)}
-    print("flash_attention at the scoring shape (B, S, H, KV, dh) = "
-          f"{FA_SCORING}, bf16 causal: {json.dumps(fa_rows[FA_SCORING])}")
+    with phase("5 flash_attention"):
+        fa_err = check_flash(args.seed)
+    with phase("6-7 smollm-360m prefill, score and select"):
+        cfg = get_config(ARCH)
+        model = init_model(cfg, args.seed)
+        model_phase(model, cfg, args.seed,
+                    {"flash_attention": cfg.num_layers})
+        fa_launches = score_select_phase(
+            model, cfg, args.seed, N_CORPUS,
+            {"flash_attention": cfg.num_layers})["flash_attention"]
+        profile_scoring_call(model, cfg, args.seed,
+                             {"flash_bf16": "flash_attention"})
+        del model
+    with phase("8 flash_attention times"):
+        fa_rows = {shape: flash_row(shape, args.seed)
+                   for shape in (FA_PREFILL, FA_SCORING, FA_ZAMBA)}
+        for shape in (FA_SCORING, FA_ZAMBA):
+            print(f"flash_attention at (B, S, H, KV, dh) = {shape}, bf16 "
+                  f"causal: {json.dumps(fa_rows[shape])}")
+
+    with phase("9 linear_scan"):
+        ls_err = check_scan(args.seed)
+    with phase("10-11 zamba2-1.2b prefill, score and select"):
+        cfg = get_config(ZAMBA)
+        n_super = transformer.zamba_layout(cfg)[0]
+        per_prefill = {"linear_scan": cfg.num_layers,
+                       "flash_attention": n_super}
+        model = init_model(cfg, args.seed)
+        model_phase(model, cfg, args.seed, per_prefill)
+        ls_launches = score_select_phase(model, cfg, args.seed,
+                                         N_ZAMBA_CORPUS, per_prefill)[
+            "linear_scan"]
+        profile_scoring_call(model, cfg, args.seed,
+                             {"scan_kernel": "linear_scan",
+                              "flash_bf16": "flash_attention"})
+        del model
+    with phase("12 linear_scan times"):
+        ls_rows = {shape: scan_row(shape, args.seed)
+                   for shape in (LS_PREFILL, LS_SCORING)}
+        print(f"linear_scan at the scoring shape (B, H, S, dk, dv) = "
+              f"{LS_SCORING}, zamba2 layout: "
+              f"{json.dumps(ls_rows[LS_SCORING])}")
+    print(phase.total())
 
     rows = []
-    for name in ("score_hist", "threshold_select"):
+    for name, source, replaces in (
+            ("score_hist", "score_hist.cu", "score_hist/score_hist.py:74"),
+            ("threshold_select", "threshold_select.cu",
+             "threshold_select/threshold_select.py:78")):
         ms, plain_ms, lib_ms = times[name]
         b_ms, b_by = bound(name, CHUNK, byts[name])
         rows.append({"name": name, "route": "cuda",
-                     "source": sources[name][0],
-                     "replaces": sources[name][1],
+                     "source": f"src/repro_torch/csrc/{source}",
+                     "replaces": f"src/repro/kernels/{replaces}",
                      "launches": launches[name],
                      "max_abs_err": errs[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -767,6 +1100,12 @@ def main() -> None:
                              "flash_attention.py:94",
                  "launches": fa_launches, "max_abs_err": fa_err,
                  **fa_rows[FA_PREFILL]})
+    rows.append({"name": "linear_scan", "route": "cuda",
+                 "source": "src/repro_torch/csrc/linear_scan.cu",
+                 "replaces": "src/repro/kernels/linear_scan/"
+                             "linear_scan.py:108",
+                 "launches": ls_launches, "max_abs_err": ls_err,
+                 **ls_rows[LS_PREFILL]})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,13 +1,14 @@
 """Architecture registry of the port: the configurations whose model the
-port runs. Only ``smollm-360m`` is ported so far; the JAX package's other
+port runs. ``smollm-360m`` (dense) and ``zamba2-1.2b`` (hybrid Mamba2 with
+a shared attention block) are ported so far; the JAX package's other
 architectures wait for their slices (ROADMAP §1)."""
 from __future__ import annotations
 
-from repro_torch.configs import smollm_360m
+from repro_torch.configs import smollm_360m, zamba2_1_2b
 from repro_torch.configs.base import (SHAPES, SHAPES_BY_NAME, ModelConfig,
                                       ShapeConfig, shape_applicable)
 
-_MODULES = {"smollm-360m": smollm_360m}
+_MODULES = {"smollm-360m": smollm_360m, "zamba2-1.2b": zamba2_1_2b}
 
 ARCH_IDS = tuple(_MODULES)
 

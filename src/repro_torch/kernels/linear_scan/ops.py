@@ -1,0 +1,112 @@
+"""Wrapper of the linear scan kernel: the CUDA kernel
+``csrc/linear_scan.cu`` for CUDA tensors, the plain version
+(`ref.linear_scan_ref`) for CPU ones.
+
+Tensors are in the JAX package's (B,H,S,d) layout (``kernels/linear_scan``).
+The kernel reads q, k, w and v through their strides, so broadcast views
+cost nothing: Mamba2 passes its B and C, shared by all heads, as
+``(B,S,N)[:, None].expand(B,H,S,N)`` and its scalar decay per head as
+``(B,H,S)[..., None].expand(B,H,S,N)`` (stride 0 over the state dim), and
+neither is materialized. o is allocated in v's memory layout. On the card
+q and k share a dtype (bf16 or float32), and v and w are float32 (Mamba2's
+v = dt·x is float32 in either model dtype); a bf16 v waits for a model
+that makes one.
+
+>>> import torch
+>>> one = torch.ones(1, 1, 3, 1)
+>>> o, state = linear_scan(one, one, one, 0.5 * one)
+>>> o.flatten().tolist(), state.flatten().tolist()
+([1.0, 1.5, 1.75], [1.75])
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.linear_scan import ref
+
+MAX_DIM = 64               # dk and dv a block's state holds
+DTYPES = (torch.bfloat16, torch.float32)
+
+launches = _build.LaunchCounter()
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The built kernel library, its C signatures bound once."""
+    lib = _build.load("linear_scan")
+    lib.linear_scan_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.linear_scan_launch.restype = ctypes.c_int
+    lib.linear_scan_error_string.argtypes = [ctypes.c_int]
+    lib.linear_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q, k, v, w, u) -> None:
+    """Raise on what the CUDA kernel does not take."""
+    if q.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"linear_scan takes q, k, w (B,H,S,dk) and v "
+                         f"(B,H,S,dv), got {tuple(q.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, h, s, dk = q.shape
+    dv = v.shape[-1]
+    if k.shape != q.shape or w.shape != q.shape or v.shape[:3] != (b, h, s):
+        raise ValueError(f"q, k, w must share a shape (B,H,S,dk) and v be "
+                         f"(B,H,S,dv), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not (1 <= dk <= MAX_DIM and 1 <= dv <= MAX_DIM) or min(b, h, s) < 1:
+        raise ValueError(f"need 1 <= dk, dv <= {MAX_DIM} and B, H, S >= 1, "
+                         f"got {tuple(q.shape)}, dv={dv}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype:
+        raise ValueError(f"q and k must share a dtype of {DTYPES}, got "
+                         f"{q.dtype}, {k.dtype}")
+    if v.dtype != torch.float32 or w.dtype != torch.float32:
+        raise ValueError(f"v and w must be float32, got {v.dtype}, "
+                         f"{w.dtype}")
+    if u is not None and u.shape != (h, dk):
+        raise ValueError(f"u must be (H,dk) = {(h, dk)}, got "
+                         f"{tuple(u.shape)}")
+
+
+def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                w: torch.Tensor, u: torch.Tensor | None = None):
+    """q, k, w: (B,H,S,dk); v: (B,H,S,dv); u: (H,dk) or None ->
+    (o (B,H,S,dv) in v's dtype, final state (B,H,dk,dv) float32): the
+    exact recurrence S_t = diag(w_t) S_{t-1} + k_tᵀ v_t from a zero state,
+    on w clipped to [1e-6, 1], read after the update (u None, Mamba2) or
+    before it with the bonus u (RWKV6)."""
+    tensors = (q, k, v, w) + (() if u is None else (u,))
+    devices = {t.device.type for t in tensors}
+    if devices == {"cpu"}:
+        return ref.linear_scan_ref(q, k, v, w, u)
+    if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"linear_scan runs on cpu or on one cuda device, "
+                         f"got {[str(t.device) for t in tensors]}")
+    _check(q, k, v, w, u)
+    b, h, s, dk = q.shape
+    dv = v.shape[-1]
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        o = torch.empty_like(v)            # v's layout when v is dense
+        state = torch.empty(b, h, dk, dv, dtype=torch.float32,
+                            device=q.device)
+        uf = None if u is None else u.float().contiguous()
+        strides = (ctypes.c_longlong * 20)(
+            *(x for t in (q, k, v, w, o) for x in t.stride()))
+        status = lib.linear_scan_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            None if uf is None else uf.data_ptr(), o.data_ptr(),
+            state.data_ptr(), b, h, s, dk, dv,
+            int(q.dtype == torch.bfloat16), ctypes.addressof(strides),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, lib.linear_scan_error_string, "linear_scan")
+    launches.bump()
+    return o, state

@@ -10,8 +10,9 @@ The proxy-score head is how the SUPG plane consumes a model: the score of a
 record is the model's probability mass on a designated predicate token at
 the last position, the A(x) the paper assumes (Sec 4.1: "executes the
 proxy model over the complete set of records"). The model carries its
-config as ``model.cfg``. Dense attention models only so far; decode, the
-loss and the other families wait for their slices (ROADMAP §1).
+config as ``model.cfg``. Dense attention and hybrid Mamba2 (Zamba2) models
+so far; decode, the loss and the other families wait for their slices
+(ROADMAP §1).
 """
 from __future__ import annotations
 
@@ -55,8 +56,11 @@ def params_from_reference(arrays, cfg, *, device=None) -> nn.Module:
     (bf16 arrays become bf16 tensors): projections stay (d_in, d_out) and
     the port computes ``x @ w`` as the reference does, so nothing is
     transposed. The one change of layout: the reference stacks the blocks'
-    weights on a leading L axis (``transformer._split_stack``); block i
-    here holds slice i of each. ``device=None`` means ``cuda``."""
+    weights on leading axes (``transformer._split_stack``); block i here
+    holds slice i of each. A dense body's ``blocks`` are stacked on L; a
+    hybrid's ``mamba_super`` on (super-blocks, blocks a super-block), its
+    ``mamba_tail`` on the tail's blocks, and its ``shared_attn`` is not
+    stacked. ``device=None`` means ``cuda``."""
     dev = resolve_device(device)
     transformer.check_supported(cfg)
 
@@ -72,17 +76,26 @@ def params_from_reference(arrays, cfg, *, device=None) -> nn.Module:
             name: tree(v) if isinstance(v, dict) else tensor(v)
             for name, v in d.items()})
 
-    stacked = arrays["body"]["blocks"]
+    def take(d, i):
+        return {k: take(v, i) if isinstance(v, dict) else v[i]
+                for k, v in d.items()}
 
-    def block(i):
-        def take(d):
-            return {k: take(v) if isinstance(v, dict) else v[i]
-                    for k, v in d.items()}
-        return tree(take(stacked))
+    def blocks(d, n):
+        return nn.ModuleList(tree(take(d, i)) for i in range(n))
 
+    body = arrays["body"]
+    if cfg.block == "mamba":
+        n_super, per_super, tail = transformer.zamba_layout(cfg)
+        parts = {"mamba_super": nn.ModuleList(
+            blocks(take(body["mamba_super"], i), per_super)
+            for i in range(n_super)),
+            "shared_attn": tree(body["shared_attn"])}
+        if tail:
+            parts["mamba_tail"] = blocks(body["mamba_tail"], tail)
+    else:
+        parts = {"blocks": blocks(body["blocks"], cfg.num_layers)}
     members = {name: tree(v) for name, v in arrays.items() if name != "body"}
-    members["body"] = layers.params(blocks=nn.ModuleList(
-        block(i) for i in range(cfg.num_layers)))
+    members["body"] = layers.params(**parts)
     model = layers.params(**members)
     model.cfg = cfg
     return model
@@ -136,11 +149,18 @@ def proxy_scores(model, tokens, target_token=1) -> torch.Tensor:
 
 def count_params_analytic(cfg):
     """Parameter count from the config alone, by the reference's formula
-    for the families the port runs (dense attention)."""
+    for the families the port runs (dense attention, hybrid Mamba2). The
+    hybrid's shared block counts once, however often it runs."""
     transformer.check_supported(cfg)
     d, hd = cfg.d_model, cfg.head_dim
     total = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
     attn = d * hd * (cfg.num_heads + 2 * cfg.num_kv_heads) \
         + cfg.num_heads * hd * d
     mlp = 3 * d * (cfg.dense_d_ff or cfg.d_ff)
+    if cfg.block == "mamba":
+        d_in = cfg.ssm_expand * d
+        n = cfg.ssm_state_dim
+        h = d_in // cfg.ssm_head_dim
+        per = d * (2 * d_in + 2 * n + h) + d_in * d
+        return total + cfg.num_layers * per + attn + mlp
     return total + cfg.num_layers * (attn + mlp)

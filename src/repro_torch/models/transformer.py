@@ -1,28 +1,34 @@
-"""Block composition and the prefill forward pass of the dense family (the
-JAX package's ``models/transformer.py``).
+"""Block composition and the prefill forward pass of the dense and hybrid
+families (the JAX package's ``models/transformer.py``).
 
 A dense body is a Python loop over an `nn.ModuleList` of identical
 (attention + MLP) blocks, where the reference scans over parameters stacked
-on a leading L axis. The MoE, RWKV and Mamba bodies, decode and activation
+on a leading L axis. A hybrid (Zamba2) body is a loop over super-blocks,
+each an `nn.ModuleList` of Mamba2 blocks followed by the one shared
+attention + MLP block (one module, run at every super-block), then a tail
+of Mamba2 blocks. The MoE and RWKV bodies, MLA, decode and activation
 checkpointing are not ported yet (ROADMAP §1).
 """
 from __future__ import annotations
 
 from torch import nn
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, mamba
 
 
 def check_supported(cfg) -> None:
     """Raise NotImplementedError for a family this slice does not run."""
     missing = [name for name, on in (
         ("MoE", cfg.moe), ("MLA", cfg.use_mla),
-        (f"{cfg.block} blocks", cfg.block != "attn"),
+        (f"{cfg.block} blocks", cfg.block not in ("attn", "mamba")),
+        ("Mamba2 bodies without the shared block",
+         cfg.block == "mamba" and not cfg.shared_attn_every),
         ("multi-codebook heads", cfg.num_codebooks > 1)) if on]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention models only; "
-            f"{', '.join(missing)} wait for later slices (ROADMAP §1)")
+            f"{cfg.name}: the port runs dense attention and hybrid Mamba2 "
+            f"models only; {', '.join(missing)} wait for later slices "
+            f"(ROADMAP §1)")
 
 
 def init_attn_block(cfg, *, generator, device):
@@ -44,16 +50,57 @@ def attn_block_prefill(p, cfg, x, positions):
     return x + layers.mlp(p.mlp, xn, cfg.act)
 
 
+def zamba_layout(cfg):
+    """(super-blocks, Mamba2 blocks a super-block, tail blocks), as the
+    reference stacks them."""
+    every = cfg.shared_attn_every
+    n_super = cfg.num_layers // every
+    return n_super, every, cfg.num_layers - n_super * every
+
+
+def _init_zamba_body(cfg, *, generator, device):
+    n_super, per_super, tail = zamba_layout(cfg)
+
+    def blocks(n):
+        return nn.ModuleList(
+            mamba.init_mamba_block(cfg, generator=generator, device=device)
+            for _ in range(n))
+    # drawn in the reference's order: super-blocks, tail, shared block
+    members = {"mamba_super": nn.ModuleList(blocks(per_super)
+                                            for _ in range(n_super))}
+    if tail:
+        members["mamba_tail"] = blocks(tail)
+    members["shared_attn"] = init_attn_block(cfg, generator=generator,
+                                             device=device)
+    return layers.params(**members)
+
+
 def init_body(cfg, *, generator, device):
-    """cfg.num_layers blocks in an `nn.ModuleList` named ``blocks``."""
+    """Dense: cfg.num_layers blocks in an `nn.ModuleList` named
+    ``blocks``. Hybrid: ``mamba_super`` (a list of lists of Mamba2 blocks),
+    ``mamba_tail`` and the one ``shared_attn`` block."""
     check_supported(cfg)
+    if cfg.block == "mamba":
+        return _init_zamba_body(cfg, generator=generator, device=device)
     return layers.params(blocks=nn.ModuleList(
         init_attn_block(cfg, generator=generator, device=device)
         for _ in range(cfg.num_layers)))
 
 
+def _zamba_prefill(p, cfg, x, positions):
+    for super_blks in p.mamba_super:
+        for blk in super_blks:
+            x = mamba.mamba_block(blk, cfg, x)
+        x = attn_block_prefill(p.shared_attn, cfg, x, positions)
+    for blk in getattr(p, "mamba_tail", ()):
+        x = mamba.mamba_block(blk, cfg, x)
+    return x
+
+
 def body_prefill(p, cfg, x, positions):
     """x: (B,S,d) -> (B,S,d) through every block in order."""
+    if cfg.block == "mamba":
+        return _zamba_prefill(p, cfg, x, positions)
     for blk in p.blocks:
         x = attn_block_prefill(blk, cfg, x, positions)
     return x

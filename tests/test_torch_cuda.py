@@ -6,10 +6,10 @@ that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The CUDA kernels are held against their plain versions on the card, the
-card's engine against a CPU engine serving the same corpus state, and a
-narrow model's scores (float32) and logits (bf16) through the
-flash_attention kernel against the same model with attention by the plain
-version.
+card's engine against a CPU engine serving the same corpus state, and
+narrow models' scores (float32) and logits (bf16) through the kernels
+(flash_attention; linear_scan and flash_attention for the hybrid) against
+the same models with the plain versions.
 """
 import dataclasses
 
@@ -25,11 +25,13 @@ from repro_torch.core.queries import JointSUPGQuery, SUPGQuery
 from repro_torch.data.synthetic import make_beta
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.linear_scan import ops as ls_ops
+from repro_torch.kernels.linear_scan import ref as ls_ref
 from repro_torch.kernels.score_hist import ops as sh_ops
 from repro_torch.kernels.score_hist import ref as sh_ref
 from repro_torch.kernels.threshold_select import ops as ts_ops
 from repro_torch.kernels.threshold_select import ref as ts_ref
-from repro_torch.models import attention, model
+from repro_torch.models import attention, mamba, model
 
 
 def _scores(n, seed, sentinel_frac=0.01):
@@ -192,3 +194,135 @@ def test_narrow_bf16_model_logits_through_the_kernel_match_plain(
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) \
         <= 6e-3 * float(want.abs().max())
+
+
+def _scan_inputs(card, b, h, s, dk, dv, seed, w_const=None):
+    """The reference's test law (tests/test_kernels.py): q, k, v normal at
+    scale 0.5, w = sigmoid(normal + 2.5) (about 0.92) or `w_const`,
+    u normal at scale 0.3; drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    q, k = (rng.standard_normal((b, h, s, dk)) * 0.5 for _ in range(2))
+    v = rng.standard_normal((b, h, s, dv)) * 0.5
+    w = (1 / (1 + np.exp(-(rng.standard_normal((b, h, s, dk)) + 2.5)))
+         if w_const is None else np.full((b, h, s, dk), w_const))
+    u = rng.standard_normal((h, dk)) * 0.3
+    return [torch.tensor(x, dtype=torch.float32, device=card)
+            for x in (q, k, v, w, u)]
+
+
+# linear_scan against its plain version: the reference's atol = 1e-4
+# (tests/test_kernels.py) plus rtol 1e-5. Both compute the same float32
+# recurrence step by step and differ only in the order of each step's
+# q·S sum, a few float32 ulps of |o| (up to about 10 at dk = 64).
+SCAN_TOL = dict(atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,dk,dv,w_const", [
+    (2, 2, 128, 16, 24, None), (1, 1, 128, 8, 8, None),
+    (2, 3, 1000, 64, 64, None), (2, 3, 1, 64, 64, None),
+    (1, 4, 300, 64, 64, 0.05), (3, 2, 77, 33, 40, None)])
+@pytest.mark.parametrize("bonus", [False, True])
+def test_linear_scan_kernel_matches_plain(card, b, h, s, dk, dv, w_const,
+                                          bonus):
+    """Both modes, the reference's shapes, ragged S, S = 1 and w = 0.05
+    (below the Pallas kernel's log-decay floor); bitwise identical across
+    launches."""
+    q, k, v, w, u = _scan_inputs(card, b, h, s, dk, dv, s + dk, w_const)
+    uu = u if bonus else None
+    before = ls_ops.launches.count
+    o, st = ls_ops.linear_scan(q, k, v, w, uu)
+    o2, st2 = ls_ops.linear_scan(q, k, v, w, uu)
+    po, pst = ls_ref.linear_scan_ref(q, k, v, w, uu)
+    torch.cuda.synchronize()
+    assert ls_ops.launches.count == before + 2
+    assert o.shape == v.shape and st.shape == (b, h, dk, dv)
+    assert st.dtype == torch.float32
+    torch.testing.assert_close(o, po, **SCAN_TOL)
+    torch.testing.assert_close(st, pst, **SCAN_TOL)
+    assert torch.equal(o, o2) and torch.equal(st, st2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_linear_scan_kernel_reads_mamba_broadcast_views(card, dtype):
+    """Mamba2's layout: B and C (B,S,N) shared by the heads and a scalar
+    decay per head, as stride-0 views, v a transposed float32 view; o
+    comes back in v's layout and matches the plain version on
+    materialized copies."""
+    b, s, h, n, hd = 2, 200, 6, 64, 32
+    g = torch.Generator(device=card).manual_seed(3)
+    bc = torch.randn(b, s, 2 * n, generator=g, device=card).to(dtype)
+    a = torch.rand(b, s, h, generator=g, device=card) * 0.5 + 0.5
+    v = torch.randn(b, s, h, hd, generator=g, device=card).transpose(1, 2)
+    q = bc[..., n:][:, None].expand(b, h, s, n)
+    k = bc[..., :n][:, None].expand(b, h, s, n)
+    w = a.transpose(1, 2)[..., None].expand(b, h, s, n)
+    o, st = ls_ops.linear_scan(q, k, v, w)
+    po, pst = ls_ref.linear_scan_ref(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), w.contiguous())
+    torch.cuda.synchronize()
+    assert o.stride() == v.stride() and o.dtype == torch.float32
+    torch.testing.assert_close(o, po, **SCAN_TOL)
+    torch.testing.assert_close(st, pst, **SCAN_TOL)
+
+
+def _narrow_zamba(dtype):
+    """Zamba2's smoke layout (two super-blocks of two Mamba2 blocks and the
+    shared block, one tail block) at widths the kernels take: attention
+    head_dim 64, state dim 64."""
+    return dataclasses.replace(configs.get_smoke_config("zamba2-1.2b"),
+                               d_model=128, num_heads=2, num_kv_heads=2,
+                               head_dim=64, d_ff=256, vocab_size=512,
+                               ssm_state_dim=64,
+                               ssm_head_dim=32, dtype=dtype)
+
+
+def _plain_paths(monkeypatch):
+    monkeypatch.setattr(attention, "flash_attention", _plain_attention)
+    monkeypatch.setattr(mamba, "linear_scan", ls_ref.linear_scan_ref)
+
+
+@pytest.mark.cuda
+def test_narrow_zamba_scores_through_the_kernels_match_plain(card,
+                                                             monkeypatch):
+    """float32: one linear_scan launch a Mamba2 block and one
+    flash_attention launch a shared-block run; scores within rtol 1e-4 of
+    the plain versions (the CPU parity tests' tolerance)."""
+    cfg = _narrow_zamba("float32")
+    m = model.init(cfg, generator=torch.Generator(device=card).manual_seed(0),
+                   device=card)
+    tokens = np.random.default_rng(0).integers(0, 512, (8, 100))
+    ls0, fa0 = ls_ops.launches.count, fa_ops.launches.count
+    got = model.proxy_scores(m, tokens)
+    assert ls_ops.launches.count == ls0 + cfg.num_layers
+    assert fa_ops.launches.count == fa0 + 2
+    _plain_paths(monkeypatch)
+    want = model.proxy_scores(m, tokens)
+    assert (ls_ops.launches.count, fa_ops.launches.count) == \
+        (ls0 + cfg.num_layers, fa0 + 2)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(4))
+def test_narrow_bf16_zamba_logits_through_the_kernels_match_plain(
+        card, monkeypatch, seed):
+    """bf16: last-position logits within 3.5e-2 of their largest magnitude
+    of the plain versions. Both compute the scan in float32 from the same
+    bf16 inputs, but bf16 rounds each block's output, and the kernels'
+    roundings differ from the plain versions' at a few outputs; the
+    untied head's logits are small (about 1), so a rounding is large
+    beside them. Over these seeds this model measured 8.3e-3 to 1.18e-2 on
+    an H100 80GB HBM3 at 700 W; the tolerance is three times the
+    largest."""
+    cfg = _narrow_zamba("bfloat16")
+    m = model.init(cfg, generator=torch.Generator(device=card)
+                   .manual_seed(seed), device=card)
+    tokens = np.random.default_rng(seed).integers(0, 512, (8, 100))
+    got = model.last_logits(m, tokens)
+    _plain_paths(monkeypatch)
+    want = model.last_logits(m, tokens)
+    assert bool(torch.isfinite(got).all())
+    ratio = float((got - want).abs().max()) / float(want.abs().max())
+    assert ratio <= 3.5e-2

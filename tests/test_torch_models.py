@@ -294,7 +294,7 @@ def test_count_params_analytic_matches_reference(case):
 
 
 def test_registry_holds_the_ported_arch():
-    assert configs.ARCH_IDS == ("smollm-360m",)
+    assert configs.ARCH_IDS == ("smollm-360m", "zamba2-1.2b")
     cfg = configs.get_config("smollm-360m")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jconfigs.get_config("smollm-360m"))
@@ -312,8 +312,8 @@ def test_registry_holds_the_ported_arch():
 @pytest.mark.parametrize("get", [configs.get_config,
                                  configs.get_smoke_config])
 def test_registry_names_the_known_archs(get):
-    with pytest.raises(KeyError, match="smollm-360m"):
-        get("zamba2-1.2b")
+    with pytest.raises(KeyError, match="smollm-360m.*zamba2-1.2b"):
+        get("rwkv6-7b")
 
 
 # -- token corpora ---------------------------------------------------------------
