@@ -6,7 +6,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
 1. Device: prints ``nvidia-smi --query-gpu=name,power.limit``; then
    builds every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
-   each, all at once) and prints each one's registers and shared memory.
+   each, all at once) and prints each one's build time, registers and
+   shared memory.
 2. Kernels: holds the engine's two CUDA kernels against their plain
    PyTorch versions on the card, at the main path's shapes: a 2^22-record chunk
    with 1% -1 sentinels, 4096 and 64 bins.
@@ -17,7 +18,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
      truncates each value below 2^-32); bitwise identical across two
      launches.
    * threshold_select: indices exactly equal at tau 0, 0.5, 0.999, 1.01,
-     on an empty input and on a length that is not a multiple of 1024.
+     on an empty input and on lengths that are not a multiple of its
+     tile; threshold_count (its counting mode) equal to their lengths.
 3. Engine at real size: 2^27 scores (about 1,240 hours of 30 fps video,
    one score per frame; 512 MiB of float32), drawn on the card from
    --seed as Beta(0.01, 1) — the paper's synthetic setting — with
@@ -31,7 +33,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    A small corpus also runs through the card's engine and a CPU engine
    from one corpus state: tau, counts and indices must agree.
 4. Times: kernel, plain and library times at a 2^22-record chunk beside
-   the card's bound; engine build and query wall times.
+   the card's bound; for threshold_select also its device time alone (no
+   read-back) and threshold_count's; engine build and query wall times.
 5. flash_attention against its plain version on the card, in bf16
    within BF16_ATOL + 2^-7 |plain| each and BF16_FRO_TOL ||plain|| in all
    (sized from a measurement: see the note at the constants), and in
@@ -62,8 +65,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    Then one scoring call under torch.profiler: device time by kernel and
    group (flash_attention, matmul, the rest) and the device's busy share.
 8. Times of flash_attention at the prefill shape (its row in the kernels
-   line) and at the scoring shape and zamba2's prefill shape (a line
-   each), beside its bound, its plain version and
+   line) and at the scoring shape and zamba2's prefill and scoring shapes
+   (a line each), beside its bound, its plain version and
    `scaled_dot_product_attention` (the yardstick; the port never calls
    it).
 9. linear_scan against its plain version on the card: zamba2-1.2b's
@@ -280,6 +283,24 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call of `fn`, which must not sync: the
+    card sleeps while the calls are queued behind it, so CUDA events see
+    the device's time alone, not the host's."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def bound(name: str, n: int, bytes_moved: int):
     """(bound_ms, bound_by): the larger of bytes over HBM rate and
     operations over the float32 rate."""
@@ -318,18 +339,18 @@ def check_kernels(chunk: torch.Tensor) -> dict:
         print(f"score_hist {bins} bins: counts exact, repeat bitwise, "
               f"max |kernel - plain| {err:.6g}, max |kernel - float64| "
               f"{max(float((k.double() - e).abs().max()) for k, e in zip(got[1:], exact)):.6g}")
-    for tau in (0.0, 0.5, 0.999, 1.01):
-        got = ts_ops.threshold_select(chunk, tau)
-        check(torch.equal(got, ts_ref.threshold_select_ref(chunk, tau)),
-              f"threshold_select tau={tau}")
-    for n in (0, 1000, 5000, CHUNK - 1):
+    for n, tau in [(CHUNK, tau) for tau in (0.0, 0.5, 0.999, 1.01)] + [
+            (n, 0.3) for n in (0, 1000, 5000, CHUNK - 1)]:
         part = chunk[:n]
-        check(torch.equal(ts_ops.threshold_select(part, 0.3),
-                          ts_ref.threshold_select_ref(part, 0.3)),
-              f"threshold_select length {n}")
+        got = ts_ops.threshold_select(part, tau)
+        want = ts_ref.threshold_select_ref(part, tau)
+        count = ts_ops.threshold_count(part, tau)
+        check(torch.equal(got, want), f"threshold_select n={n} tau={tau}")
+        check(int(count) == want.numel(), f"threshold_count n={n} tau={tau}")
     errs["threshold_select"] = 0.0
     print("threshold_select: indices exact at tau 0/0.5/0.999/1.01 and "
-          "lengths 0/1000/5000/2^22-1")
+          "lengths 0/1000/5000/2^22-1; threshold_count equal to their "
+          "lengths")
     return errs
 
 
@@ -954,6 +975,21 @@ def kernel_times(flat, tau_rt):
     }
     byts = {"score_hist": 4 * CHUNK + 3 * 4096 * 4,
             "threshold_select": 4 * CHUNK + 8 * k}
+    # threshold_select's one launch alone, with no read-back, and
+    # threshold_count's memset and launch, both as device time.
+    alone = {"kernel_ms": device_ms(
+                 lambda: ts_ops._launch(nxt(), tau_rt, count_only=False), 50),
+             "count_ms": device_ms(
+                 lambda: ts_ops.threshold_count(nxt(), tau_rt), 50),
+             "count_call_ms": cuda_ms(
+                 lambda: int(ts_ops.threshold_count(nxt(), tau_rt)), 50)}
+    print(f"threshold_select at a 2^22 chunk (k = {k} selected): call "
+          f"{t['threshold_select'][0]:.6g} ms (one launch, one read-back), "
+          f"its launch alone {alone['kernel_ms']:.6g} ms of device time; "
+          f"threshold_count {alone['count_ms']:.6g} ms of device time, "
+          f"{alone['count_call_ms']:.6g} ms with its read-back; "
+          f"torch.nonzero(s >= tau) {t['threshold_select'][2]:.6g} ms; "
+          f"bound {byts['threshold_select'] / HBM_BYTES_PER_S * 1e3:.6g} ms")
     return t, byts
 
 
@@ -993,13 +1029,20 @@ def main() -> None:
 
     with phase("build"):
         names = _build.sources()
+
+        def timed_load(name):
+            t0 = time.perf_counter()
+            _build.load(name)
+            return time.perf_counter() - t0
         with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-            list(pool.map(_build.load, names))  # one nvcc each, all at once
+            # one nvcc each, all at once
+            build_s = dict(zip(names, pool.map(timed_load, names)))
         print(f"built {names}")
         for name in names:
             regs = [ln.strip() for ln in _build.build_log(name).splitlines()
-                    if "Used" in ln]
-            print(f"  {name}: {'; '.join(regs)}")
+                    if "Used" in ln or "spill" in ln or "C75" in ln]
+            print(f"  {name}: built in {build_s[name]:.1f} s; "
+                  f"{'; '.join(regs)}")
 
     with phase("2-4 engine kernels, engine, times"):
         t0 = time.perf_counter()
@@ -1051,8 +1094,9 @@ def main() -> None:
         del model
     with phase("8 flash_attention times"):
         fa_rows = {shape: flash_row(shape, args.seed)
-                   for shape in (FA_PREFILL, FA_SCORING, FA_ZAMBA)}
-        for shape in (FA_SCORING, FA_ZAMBA):
+                   for shape in (FA_PREFILL, FA_SCORING, FA_ZAMBA,
+                                 FA_ZAMBA_SCORING)}
+        for shape in (FA_SCORING, FA_ZAMBA, FA_ZAMBA_SCORING):
             print(f"flash_attention at (B, S, H, KV, dh) = {shape}, bf16 "
                   f"causal: {json.dumps(fa_rows[shape])}")
 

@@ -21,8 +21,8 @@ cached state:
   5. **Emit.** A streamed walk runs the `threshold_select` kernel on every
      chunk and emits {A >= tau} (plus the labeled positives below tau)
      into a `SelectionSink` as host int64 indices. PT stage 2
-     (`_uniform_in_region`) counts and resolves its region draws with the
-     same kernel.
+     (`_uniform_in_region`) counts its region with the kernel's counting
+     mode (`threshold_count`) and resolves its draws with the kernel.
 
 **Residency.** In-RAM shards (numpy arrays or tensors) are copied once, at
 construction, into one flat float32 tensor on the engine's device; the
@@ -350,6 +350,11 @@ class SelectionEngine:
                 tau: float) -> torch.Tensor:
         return select_ops.threshold_select(self._span(shard, start, stop),
                                            tau)
+
+    def _count(self, shard, start: int, stop: int,
+               tau: float) -> torch.Tensor:
+        return select_ops.threshold_count(self._span(shard, start, stop),
+                                          tau)
 
     def _sketch_shards(self, shards: List, plan: pipeline.ChunkPlan):
         """Chunked sketch + raw-mass pass: per-shard sketches (left-fold
@@ -778,19 +783,22 @@ class SelectionEngine:
     def _uniform_in_region(self, key, s, tau, state=None) -> np.ndarray:
         """Uniform draws from {A >= tau} across shards, chunk-streamed.
 
-        One counting pass of `threshold_select` over the chunk plan gives
-        per-chunk region sizes; draws are rank-routed through them, and
-        the resolve pass re-runs the kernel only on chunks that received
-        draws. Empty regions get zero mass; if the region is globally
-        empty the draws fall back to uniform over all records (stage-2
-        restriction is an efficiency device, never a correctness one).
+        One counting pass of `threshold_count` over the chunk plan gives
+        per-chunk region sizes, read back to the host once; draws are
+        rank-routed through them, and the resolve pass runs
+        `threshold_select` only on chunks that received draws. Empty
+        regions get zero mass; if the region is globally empty the draws
+        fall back to uniform over all records (stage-2 restriction is an
+        efficiency device, never a correctness one).
         """
         st = self._state if state is None else state
         plan = st.plan
         spans = list(plan)
         span_counts = self.pool.map(
-            lambda sp: self._select(st.shards[sp.shard_id], sp.start,
-                                    sp.stop, tau).numel(), spans)
+            lambda sp: self._count(st.shards[sp.shard_id], sp.start,
+                                   sp.stop, tau), spans)
+        span_counts = torch.stack(span_counts).cpu().numpy() \
+            if span_counts else []
         per_shard = [np.zeros(plan.num_chunks(sh), np.int64)
                      for sh in range(len(st.shards))]
         for span, c in zip(spans, span_counts):

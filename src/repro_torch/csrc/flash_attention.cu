@@ -3,68 +3,228 @@
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention/flash_attention.py (`flash_attention`,
 // body `_flash_kernel`). Same function: o = softmax(q·kᵀ/√dh)·v per query
-// head, query head h reading KV head h / (H/KV), the mask q_pos >= k_pos
-// when causal, an online softmax with float32 (m, l, acc) state, and
-// 1/max(l, 1e-30) at the end; o is written in q's dtype. Layout is the model
-// stack's: q and o (B,S,H,dh), k and v (B,S,KV,dh), all contiguous.
+// head, query head h reading KV head h / (H/KV), the mask
+// key >= S || (causal && key > row) at -1e30, an online softmax in log2
+// units with float32 (m, l, acc) state, and 1/max(l, 1e-30) at the end; o
+// is written in q's dtype. Layout is the model stack's: q and o
+// (B,S,H,dh), k and v (B,S,KV,dh).
 //
 // Bound on this card: operations. At the smollm-360m prefill shape
 // (B=4, S=4096, H=15, dh=64, causal) the two products take
 // 2·2·B·H·(S²/2)·dh = 1.29e11 bf16 operations (0.130 ms at 989 TFLOP/s)
 // against 83.9 MB of q, k, v and o (0.025 ms at 3.35 TB/s). At the scoring
 // shape (B=256, S=128) the same count is 8.1e9 operations against 168 MB:
-// there the bytes bound it.
+// there the bytes bound it. The softmax's exp2s (B·H·S²/2 = 5.0e8 at the
+// prefill shape) take about as long as the products on the special-function
+// units (16 a clock per SM), so the kernel only nears its bound when they
+// overlap the products. (Side-by-side variants that moved a quarter or a
+// half of them to an FMA polynomial ran slower: the kernel is not held
+// back by those units alone.)
 //
-// What the design does about it: both products run on the tensor cores,
-// tiles above the diagonal cost nothing, and the S x S scores never leave
-// registers, so the kernel moves only q, k, v and o through device memory
-// (each K/V tile once per query tile, mostly from L2). It does not yet
-// overlap a CTA's loads with its products or use wgmma; it runs about ten
-// times its operations bound at the prefill shape (PERF.md).
+// bf16 design (`flash_bf16`), one template for head_dim 64 and 128:
+// * Persistent CTAs, one an SM, each with three warpgroups: a producer
+//   warpgroup, whose first thread issues every TMA load and which gives
+//   its registers to the consumers (setmaxnreg), and two consumer
+//   warpgroups of 64 query rows each. A work tile is 128 query rows of one
+//   head and batch; CTAs take them from a counter in device memory, so the
+//   causal tiles' unequal lengths balance out. Tiles are numbered query
+//   tile fastest, longest first: the CTAs in flight share a few heads' k
+//   and v in L2, and the short causal tiles come last. The counter (two
+//   ints a stream) is reset by the launch's last CTA, so no launch needs a
+//   memset.
+// * q goes through two buffers (one at dh 128) and k and v tiles of 128
+//   keys through a ring of 4 stages (3 at dh 128) in dynamic shared
+//   memory, each with full and empty mbarriers: the next work tile's q and
+//   first k and v load while this one finishes, and its epilogue (stores
+//   from registers) overlaps them. (Side-by-side variants with one q
+//   buffer, 2 stages or a grid of one CTA a work tile ran slower.) The
+//   4-D tensor maps over (dh, heads, S, batch) are built by the wrapper
+//   from the tensors' strides; TMA zero-fills rows past S and writes each
+//   64-column block with the 128-byte swizzle the wgmma descriptors name.
+//   Key tiles wholly above the diagonal are never loaded.
+// * s = q·kᵀ by wgmma m64n128k16 with both operands in shared memory
+//   (K-major); o += p·v by wgmma m64n{dh}k16 with p from registers (the
+//   score accumulator re-packed as the A fragment, rounded to bf16 as
+//   flash-attention kernels do) and v read as it lies, an MN-major B
+//   operand (the transpose bf16 allows). Nothing of the S x S scores
+//   leaves registers.
+// * The two consumer warpgroups take turns on the tensor cores (named
+//   barriers, FlashAttention-3's ping-pong). A turn issues q·kᵀ of tile
+//   j + 1 and then p·v of tile j; the warpgroup then runs tile j + 1's
+//   softmax while its own p·v and the other warpgroup's turn run, and
+//   rescales acc and re-packs p once its p·v is done. The last key tile,
+//   the only one with masked keys (the diagonal when causal, the ragged
+//   tile otherwise), is peeled off the loop, and the warpgroup index and
+//   the work tile read from shared memory are made warp-uniform with a
+//   shuffle: ptxas serializes wgmmas that sit on a path it cannot prove
+//   uniform (advisory C7520, which cost a fifth of the kernel's time in a
+//   side-by-side variant). The reduction order is fixed and there are no
+//   atomics in the sums: launches repeat bitwise.
+// * At dh 128 the consumers' 232 registers do not hold s, p and a 64-wide
+//   acc with the wgmma pipeline, and ptxas serializes the wgmmas (C7512):
+//   right, but slower than it could be. dh 128 is off the main path.
 //
-// Design (a simple, correct first version; wgmma/TMA is later work):
-// * One CTA per (query tile of 64 rows, head, batch). The TPU's sequential
-//   K-block grid axis becomes a loop inside the CTA over K/V tiles, up to
-//   the diagonal when causal: tiles strictly above it are never loaded, as
-//   `pl.when(diag_ok)` skips them. Query tiles are issued last-first, so
-//   the longest causal rows start first.
-// * bf16: four warps, each owning 16 query rows. q·kᵀ and p·v run on the
-//   tensor cores as mma.sync m16n8k16 (bf16 in, float32 accumulate); the
-//   score accumulators are re-packed in registers as the A operand of p·v
-//   (p rounded to bf16 there, as flash-attention kernels do), so the S×S
-//   scores never leave registers. K is staged row-major and V transposed
-//   in shared memory, rows padded by 8 elements so the fragment loads are
-//   free of bank conflicts. (m, l, acc) stay in registers.
-// * float32: CUDA cores only (no TF32), so the float32 path is exact to
-//   float32 rounding. Four threads share a query row, each holding every
-//   fourth dimension of q and acc; a row's dot products are summed with
-//   two warp shuffles.
-// * The ragged last tile is masked (keys past S score -1e30 and read zeros;
-//   rows past S are not written), so any S >= 1 runs, where the Pallas
-//   kernel asserts S % block == 0.
+// float32 (`flash_f32`): the card's exact float32 arbiter for the float32
+// model copies. CUDA cores only (no TF32), so it is exact to float32
+// rounding. One CTA per 64 query rows; four threads share a query row,
+// each holding every fourth dimension of q and acc; a row's dot products
+// are summed with two warp shuffles. Both paths mask the ragged last tile,
+// so any S >= 1 runs, where the Pallas kernel asserts S % block == 0.
+//
+// Times on NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py --seed 0, bf16
+// causal; PERF.md §6): 0.3432 ms at smollm-360m's (4, 4096, 15/5, 64)
+// against scaled_dot_product_attention's 0.3142 ms and a 0.1303 ms bound;
+// 0.6867 ms at zamba2-1.2b's (4, 4096, 32/32, 64) against 0.6342 ms; 0.0987
+// ms at the scoring shape (256, 128, 15/5, 64) against 0.0908 ms. The
+// mma.sync kernel this design replaced took 1.2694, 2.6201 and 0.1728 ms
+// on the same card and limit (PERF.md §6).
+#include <cuda.h>           // CUtensorMap and its enums (header only)
+#include <cudaTypedefs.h>   // PFN_cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBQ = 64;                 // query rows a CTA
-constexpr int kBK = 64;                 // keys a tile (bf16)
+constexpr int kBQ = 64;                 // query rows a CTA (float32)
 constexpr int kBK32 = 32;               // keys a tile (float32)
-constexpr int kThreads16 = 128;         // bf16: 4 warps x 16 rows
 constexpr int kThreads32 = 256;         // float32: 64 rows x 4 threads
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// -- bf16: tiles, shared memory, barriers ------------------------------------
+
+constexpr int kTileQ = 128;             // query rows a CTA: 2 x 64
+constexpr int kTileK = 128;             // keys a K/V tile
+constexpr int kMaxStages = 4;           // K/V ring depth (dh 64; dh 128: 3)
+constexpr int kThreadsBf16 = 384;       // producer + 2 consumer warpgroups
+constexpr int kRowBytes = 128;          // a swizzled row: 64 bf16 columns
+constexpr int kConsumerWarps = 8;
+constexpr uint32_t kTurn0 = 1;          // named barriers 1, 2: the turns
+static_assert(kTileQ == kTileK, "the causal tile count assumes it");
+
+// Shared memory of one CTA, in bytes from a 1024-aligned base: q, then the
+// K ring, then the V ring; each tile is dh/64 column blocks of 128-byte
+// rows (the TMA box and the 128-byte swizzle atom). The ring is as deep as
+// a CTA's 227 KB allow, so loads run ahead of the products by more than
+// their latency.
+template <int DH>
+struct Layout {
+  static constexpr int kStages = DH == 64 ? 4 : 3;
+  static constexpr int kQStages = DH == 64 ? 2 : 1;   // q buffers
+  static constexpr int kBlocks = DH / 64;
+  static constexpr int kQBlock = kTileQ * kRowBytes;
+  static constexpr int kKVBlock = kTileK * kRowBytes;
+  static constexpr int kQBytes = kBlocks * kQBlock;
+  static constexpr int kTileBytes = kBlocks * kKVBlock;
+  static constexpr int kK = kQStages * kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBytes = kV + kStages * kTileBytes + 1024;  // + align
+  static_assert(kStages <= kMaxStages && kBytes <= 232448 - 128, "smem");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete. A wait that lasts
+// about ten seconds (a broken pipeline, never a slow one) traps, so the
+// launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long start = -1;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (start < 0) start = now;
+    else if (now - start > (1ll << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(uint32_t id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(uint32_t id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of a wgmma operand across
+// this point (the wgmma runs asynchronously to the instructions around it).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i]) :: "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 in bits
+// 62-63. K-major tiles: rows of 128 bytes, 8-row groups 1024 bytes apart
+// (the stride offset), the leading offset unused. MN-major (v): the
+// leading offset steps 64-column blocks, the stride offset 8-key groups.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead,
+                                              uint32_t stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>((lead >> 4) & 0x3FFF) << 16
+         | static_cast<uint64_t>((stride >> 4) & 0x3FFF) << 32
+         | 1ull << 62;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two floats as a bf16 pair, `lo` in the low half (the lower column).
@@ -73,165 +233,440 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// d (64 x 128, float32) += a · bᵀ, a (64 x 16) and b (128 x 16) bf16 in
+// shared memory, both K-major (descriptors); d is overwritten if !accumulate.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// Keys this query tile reads: up to the diagonal when causal.
+// d (64 x 64, float32) += a · b: a (64 x 16) bf16 in registers (the
+// accumulator's fragment layout), b (16 x 64) bf16 in shared memory,
+// MN-major (its 64 columns contiguous: trans-b).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, float32) += a · b: a (64 x 16) bf16 in registers (the
+// accumulator's fragment layout), b (16 x 128) bf16 in shared memory,
+// MN-major (its 128 columns contiguous: trans-b).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// Lane 0 of the warp arrives on `bar` (a predicate, not a branch).
+__device__ __forceinline__ void mbar_arrive_lane0(uint32_t bar, int lane) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.s32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+      :: "r"(bar), "r"(lane) : "memory");
+}
+
+// Online softmax of one tile of scores in log2 units, for this thread's
+// rows row0 and row1: the row maxima m and sums l move on, s becomes
+// exp2(s · scale - m), and (c0, c1) are the factors the running output
+// must be scaled by (`rescale_pack`, once the product that reads it has
+// finished). With `mask` (the last tile, uniform), keys past S, or past
+// the row when causal, score -inf (weight 0); k0 is the tile's first key.
+// Every row keeps at least one key in every tile it reads.
+__device__ __forceinline__ void softmax_scores(
+    float (&s)[64], float& m0, float& m1, float& l0, float& l1, float& c0,
+    float& c1, bool mask, int k0, int row0, int row1, int seq, int causal,
+    float scale_log2) {
+  if (mask) {
+    const int key0 = k0 + 2 * (threadIdx.x & 3);
+#pragma unroll
+    for (int r = 0; r < 64; ++r) {
+      const int key = key0 + 8 * (r >> 2) + (r & 1);
+      const int row = (r & 2) ? row1 : row0;
+      if (key >= seq || (causal && key > row)) s[r] = -CUDART_INF_F;
+    }
+  }
+  float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+  for (int r = 0; r < 64; r += 4) {
+    mx0 = fmaxf(mx0, fmaxf(s[r], s[r + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[r + 2], s[r + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0 * scale_log2);
+  const float mn1 = fmaxf(m1, mx1 * scale_log2);
+  c0 = ex2(m0 - mn0);
+  c1 = ex2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int r = 0; r < 64; r += 4) {
+    s[r] = ex2(fmaf(s[r], scale_log2, -mn0));
+    s[r + 1] = ex2(fmaf(s[r + 1], scale_log2, -mn0));
+    s[r + 2] = ex2(fmaf(s[r + 2], scale_log2, -mn1));
+    s[r + 3] = ex2(fmaf(s[r + 3], scale_log2, -mn1));
+    sum0 += s[r] + s[r + 1];
+    sum1 += s[r + 2] + s[r + 3];
+  }
+  l0 = l0 * c0 + sum0;                // this thread's part of the row sum
+  l1 = l1 * c1 + sum1;
+}
+
+// acc *= (c0, c1) by row, and p = s as bf16: the A fragment of p·v (score
+// blocks 2kk and 2kk + 1, keys 16kk .. 16kk + 15, are step kk's).
+template <int DH>
+__device__ __forceinline__ void rescale_pack(float (&acc)[DH / 2],
+                                             uint32_t (&p)[32],
+                                             const float (&s)[64], float c0,
+                                             float c1) {
+#pragma unroll
+  for (int i = 0; i < DH / 2; i += 4) {
+    acc[i] *= c0;
+    acc[i + 1] *= c0;
+    acc[i + 2] *= c1;
+    acc[i + 3] *= c1;
+  }
+#pragma unroll
+  for (int kk = 0; kk < kTileK / 16; ++kk) {
+    p[4 * kk] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// s (64 x 128 keys) = q·kᵀ for this warpgroup's 64 rows: dh/16 steps of
+// wgmma m64n128k16, each 16 columns (32 bytes) further into a row.
+template <int DH>
+__device__ __forceinline__ void qk_product(float (&s)[64], uint32_t q_rows,
+                                           uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss_n128(s,
+                  smem_desc(q_rows + (kk / 4) * Layout<DH>::kQBlock + col,
+                            16, 8 * kRowBytes),
+                  smem_desc(k_tile + (kk / 4) * Layout<DH>::kKVBlock + col,
+                            16, 8 * kRowBytes),
+                  kk > 0);
+  }
+}
+
+// o (64 x dh) += p·v over the tile's 128 keys: 8 steps of wgmma
+// m64n{dh}k16, each 16 keys (16 rows of v) further.
+template <int DH>
+__device__ __forceinline__ void pv_product(float (&o)[DH / 2],
+                                           const uint32_t (&p)[32],
+                                           uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < kTileK / 16; ++kk) {
+    const uint64_t desc = smem_desc(v_tile + kk * 16 * kRowBytes,
+                                    Layout<DH>::kKVBlock, 8 * kRowBytes);
+    if constexpr (DH == 64) wgmma_rs_n64(o, &p[4 * kk], desc);
+    else wgmma_rs_n128(o, &p[4 * kk], desc);
+  }
+}
+
+// One work tile: 128 query rows of one head and batch. Tiles are numbered
+// query tile fastest, longest (highest) first, so the CTAs in flight share
+// a few heads' k and v in L2 and the short causal tiles come last.
+struct WorkTile {
+  int q0, h, b, kvh, n_tiles;
+};
+
+__device__ __forceinline__ WorkTile work_tile(int w, int q_tiles, int heads,
+                                              int kv_heads, int seq,
+                                              int causal) {
+  const int qt = q_tiles - 1 - w % q_tiles, hb = w / q_tiles;
+  WorkTile t;
+  t.q0 = qt * kTileQ;
+  t.h = hb % heads;
+  t.b = hb / heads;
+  t.kvh = t.h / (heads / kv_heads);
+  t.n_tiles = causal ? qt + 1 : (seq + kTileK - 1) / kTileK;
+  return t;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+flash_bf16(const __grid_constant__ CUtensorMap q_map,
+           const __grid_constant__ CUtensorMap k_map,
+           const __grid_constant__ CUtensorMap v_map,
+           __nv_bfloat16* __restrict__ o, int* __restrict__ sched, int seq,
+           int batch, int heads, int kv_heads, int causal, float scale_log2) {
+  using L = Layout<DH>;
+  constexpr int kStages = L::kStages, kQStages = L::kQStages;
+  extern __shared__ uint8_t smem_raw[];
+  // mbarriers: per q buffer full and empty; per stage K full, V full, K/V
+  // empty.
+  __shared__ __align__(8) uint64_t bars[4 + 3 * kMaxStages];
+  __shared__ int tile_slot[2];              // the work tile each q holds
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = smem_u32(&bars[0]);              // + 8 * buffer
+  const uint32_t q_empty = smem_u32(&bars[2]);
+  const uint32_t k_full = smem_u32(&bars[4]);              // + 8 * stage
+  const uint32_t v_full = smem_u32(&bars[4 + kStages]);
+  const uint32_t empty = smem_u32(&bars[4 + 2 * kStages]);
+  const int q_tiles = (seq + kTileQ - 1) / kTileQ;
+  const int work = q_tiles * heads * batch;
+
+  if (threadIdx.x == 0) {
+    for (int qs = 0; qs < kQStages; ++qs) {
+      mbar_init(q_full + 8 * qs, 1);
+      mbar_init(q_empty + 8 * qs, kConsumerWarps);
+    }
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full + 8 * st, 1);
+      mbar_init(v_full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The warpgroup index, warp-uniform as the compiler sees it (a shuffle),
+  // so no wgmma sits on a path it must treat as divergent.
+  const int role = __shfl_sync(kFull, static_cast<int>(threadIdx.x) / 128, 0);
+  if (role == 0) {
+    // Producer warpgroup: its first thread takes work tiles from the
+    // counter and keeps q and the K/V ring full, running ahead of the
+    // consumers into the next work tile.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int g = 0;                            // K/V tiles issued so far
+      for (int it = 0;; ++it) {
+        const int w = atomicAdd(sched, 1);
+        const int qs = it % kQStages;
+        const uint32_t qf = q_full + 8 * qs;
+        if (it >= kQStages)
+          mbar_wait(q_empty + 8 * qs, ((it / kQStages) & 1) ^ 1);
+        tile_slot[qs] = w;
+        if (w >= work) {
+          mbar_arrive(qf);                  // no more work: let them exit
+          break;
+        }
+        const WorkTile t =
+            work_tile(w, q_tiles, heads, kv_heads, seq, causal);
+        const uint32_t q_dst = base + qs * L::kQBytes;
+        mbar_expect_tx(qf, L::kQBytes);
+        for (int c = 0; c < L::kBlocks; ++c)
+          tma_load(q_dst + c * L::kQBlock, &q_map, qf, c * 64, t.h, t.q0,
+                   t.b);
+        for (int j = 0; j < t.n_tiles; ++j, ++g) {
+          const int st = g % kStages;
+          if (g >= kStages)
+            mbar_wait(empty + 8 * st, ((g / kStages) & 1) ^ 1);
+          const uint32_t k_dst = base + L::kK + st * L::kTileBytes;
+          const uint32_t v_dst = base + L::kV + st * L::kTileBytes;
+          mbar_expect_tx(k_full + 8 * st, L::kTileBytes);
+          for (int c = 0; c < L::kBlocks; ++c)
+            tma_load(k_dst + c * L::kKVBlock, &k_map, k_full + 8 * st,
+                     c * 64, t.kvh, j * kTileK, t.b);
+          mbar_expect_tx(v_full + 8 * st, L::kTileBytes);
+          for (int c = 0; c < L::kBlocks; ++c)
+            tma_load(v_dst + c * L::kKVBlock, &v_map, v_full + 8 * st,
+                     c * 64, t.kvh, j * kTileK, t.b);
+        }
+      }
+      // Every CTA takes one tile past the end; the last to do so resets
+      // the counter for the next launch on this stream.
+      __threadfence();
+      if (atomicAdd(sched + 1, 1) == static_cast<int>(gridDim.x) - 1) {
+        sched[0] = 0;
+        sched[1] = 0;
+      }
+    }
+  } else {
+    // Consumer warpgroups 0 and 1: 64 query rows each of every work tile.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = role - 1;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g4 = lane >> 2, t4 = lane & 3;
+    const uint32_t mine = kTurn0 + wg, theirs = kTurn0 + 1 - wg;
+    float s[64], acc[DH / 2];
+    uint32_t p[32];
+
+    // The turns alternate across work tiles: consumer 0 takes the first,
+    // consumer 1 hands over after each of its bursts, and consumer 0 takes
+    // one last turn at the end, so every arrival is waited for.
+    if (wg == 1) named_arrive(theirs);
+    int g = 0;                              // K/V tiles consumed so far
+    for (int it = 0;; ++it) {
+      const int qs = it % kQStages;
+      mbar_wait(q_full + 8 * qs, (it / kQStages) & 1);
+      // Read from shared memory, then shuffled: warp-uniform to ptxas.
+      const int w = __shfl_sync(
+          kFull, *reinterpret_cast<volatile int*>(&tile_slot[qs]), 0);
+      if (w >= work) break;
+      const uint32_t q_rows = base + qs * L::kQBytes + wg * 64 * kRowBytes;
+      const WorkTile t =
+          work_tile(w, q_tiles, heads, kv_heads, seq, causal);
+      // This thread's two rows (the accumulator fragment's g and g + 8).
+      const int row0 = t.q0 + wg * 64 + warp * 16 + g4, row1 = row0 + 8;
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+      float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, c0, c1;
+
+      // The first burst: s of the tile's first keys, and its softmax.
+      mbar_wait(k_full + 8 * (g % kStages), (g / kStages) & 1);
+      named_sync(mine);
+      wgmma_fence();
+      qk_product<DH>(s, q_rows,
+                     base + L::kK + (g % kStages) * L::kTileBytes);
+      wgmma_commit();
+      named_arrive(theirs);
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax_scores(s, m0, m1, l0, l1, c0, c1, t.n_tiles == 1, 0, row0,
+                     row1, seq, causal, scale_log2);
+      rescale_pack<DH>(acc, p, s, c0, c1);
+
+      // Steady state, one burst on the tensor cores a key tile: q·kᵀ of
+      // tile j + 1, then p·v of tile j. The softmax of tile j + 1 runs
+      // while p·v does (and while the other warpgroup's burst does); acc
+      // and p are touched only once p·v is done. Only the last key tile
+      // has masked keys.
+      for (int j = 0; j + 1 < t.n_tiles; ++j) {
+        const int st = (g + j) % kStages, nx = (g + j + 1) % kStages;
+        mbar_wait(k_full + 8 * nx, ((g + j + 1) / kStages) & 1);
+        mbar_wait(v_full + 8 * st, ((g + j) / kStages) & 1);
+        named_sync(mine);
+        wgmma_fence();
+        qk_product<DH>(s, q_rows, base + L::kK + nx * L::kTileBytes);
+        wgmma_commit();
+        pv_product<DH>(acc, p, base + L::kV + st * L::kTileBytes);
+        wgmma_commit();
+        named_arrive(theirs);
+        wgmma_wait<1>();                              // s of tile j + 1
+        fence_regs(s);
+        softmax_scores(s, m0, m1, l0, l1, c0, c1, j + 2 == t.n_tiles,
+                       (j + 1) * kTileK, row0, row1, seq, causal,
+                       scale_log2);
+        wgmma_wait<0>();                              // p·v of tile j
+        fence_regs(acc);
+        fence_regs(p);
+        mbar_arrive_lane0(empty + 8 * st, lane);     // stage st is free
+        rescale_pack<DH>(acc, p, s, c0, c1);
+      }
+      mbar_arrive_lane0(q_empty + 8 * qs, lane);     // q is read: refill
+      // p·v of the last key tile.
+      {
+        const int st = (g + t.n_tiles - 1) % kStages;
+        mbar_wait(v_full + 8 * st, ((g + t.n_tiles - 1) / kStages) & 1);
+        named_sync(mine);
+        wgmma_fence();
+        pv_product<DH>(acc, p, base + L::kV + st * L::kTileBytes);
+        wgmma_commit();
+        named_arrive(theirs);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        mbar_arrive_lane0(empty + 8 * st, lane);
+      }
+      g += t.n_tiles;
+
+      l0 += __shfl_xor_sync(kFull, l0, 1);
+      l0 += __shfl_xor_sync(kFull, l0, 2);
+      l1 += __shfl_xor_sync(kFull, l1, 1);
+      l1 += __shfl_xor_sync(kFull, l1, 2);
+      const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+      const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+      const long long q_stride = static_cast<long long>(heads) * DH;
+      __nv_bfloat16* ob = o + static_cast<long long>(t.b) * seq * q_stride
+                          + t.h * DH + 2 * t4;
+#pragma unroll
+      for (int i = 0; i < DH / 8; ++i) {
+        if (row0 < seq)
+          *reinterpret_cast<uint32_t*>(ob + row0 * q_stride + 8 * i) =
+              pack_bf16(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
+        if (row1 < seq)
+          *reinterpret_cast<uint32_t*>(ob + row1 * q_stride + 8 * i) =
+              pack_bf16(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
+      }
+    }
+    if (wg == 0) named_sync(mine);          // consumer 1's last hand-over
+  }
+}
+
+// Keys a float32 query tile reads: up to the diagonal when causal.
 __device__ __forceinline__ int key_tiles(int qt, int seq, int causal,
                                          int bk) {
   const int last = causal ? min(seq - 1, (qt + 1) * kBQ - 1) : seq - 1;
   return last / bk + 1;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads16)
-flash_bf16(const __nv_bfloat16* __restrict__ q,
-           const __nv_bfloat16* __restrict__ k,
-           const __nv_bfloat16* __restrict__ v,
-           __nv_bfloat16* __restrict__ o, int seq, int heads, int kv_heads,
-           int causal, float scale_log2) {
-  constexpr int kStrideK = DH + 8;      // K tile row, in elements
-  constexpr int kStrideV = kBK + 8;     // transposed V tile row
-  constexpr int kChunks = DH / 8;       // 16-byte chunks a row
-  __shared__ __align__(16) __nv_bfloat16 ks[kBK * kStrideK];
-  __shared__ __align__(16) __nv_bfloat16 vt[DH * kStrideV];
-
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const long long batch_off = static_cast<long long>(blockIdx.z) * seq;
-  const int kvh = h / (heads / kv_heads);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const long long q_stride = static_cast<long long>(heads) * DH;
-  const long long kv_stride = static_cast<long long>(kv_heads) * DH;
-  const __nv_bfloat16* qb = q + batch_off * q_stride + h * DH;
-  const __nv_bfloat16* kb = k + batch_off * kv_stride + kvh * DH;
-  const __nv_bfloat16* vb = v + batch_off * kv_stride + kvh * DH;
-  __nv_bfloat16* ob = o + batch_off * q_stride + h * DH;
-
-  // This thread's two rows (the mma fragments' groupID and groupID + 8).
-  const int r0 = qt * kBQ + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qf[DH / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const int c = kk * 16 + t4 * 2;
-    qf[kk][0] = r0 < seq ? load_pair(qb + r0 * q_stride + c) : 0u;
-    qf[kk][1] = r1 < seq ? load_pair(qb + r1 * q_stride + c) : 0u;
-    qf[kk][2] = r0 < seq ? load_pair(qb + r0 * q_stride + c + 8) : 0u;
-    qf[kk][3] = r1 < seq ? load_pair(qb + r1 * q_stride + c + 8) : 0u;
-  }
-
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  float acc[DH / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < DH / 8; ++dn)
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-
-  const int n_tiles = key_tiles(qt, seq, causal, kBK);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();                    // the last tile's reads are done
-    for (int i = threadIdx.x; i < kBK * kChunks; i += kThreads16) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
-      if (k0 + r < seq) {
-        kx = *reinterpret_cast<const uint4*>(kb + (k0 + r) * kv_stride + c);
-        vx = *reinterpret_cast<const uint4*>(vb + (k0 + r) * kv_stride + c);
-      }
-      *reinterpret_cast<uint4*>(&ks[r * kStrideK + c]) = kx;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vx);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt[(c + j) * kStrideV + r] = ve[j];
-    }
-    __syncthreads();
-
-    // s = q·kᵀ for this warp's 16 rows and the tile's 64 keys.
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n) {
-        const __nv_bfloat16* kr = &ks[(n * 8 + g) * kStrideK + kk * 16 + t4 * 2];
-        mma_bf16(s[n], qf[kk], load_pair(kr), load_pair(kr + 8));
-      }
-    }
-
-    // Online softmax in log2 units; masked keys score -1e30.
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + t4 * 2 + (e & 1);
-        const int row = e < 2 ? r0 : r1;
-        const bool masked = key >= seq || (causal && key > row);
-        s[n][e] = masked ? kNegInf : s[n][e] * scale_log2;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - mn0);
-      s[n][1] = exp2f(s[n][1] - mn0);
-      s[n][2] = exp2f(s[n][2] - mn1);
-      s[n][3] = exp2f(s[n][3] - mn1);
-      sum0 += s[n][0] + s[n][1];
-      sum1 += s[n][2] + s[n][3];
-    }
-    l0 = l0 * c0 + sum0;                // this thread's part of the row sum
-    l1 = l1 * c1 + sum1;
-#pragma unroll
-    for (int dn = 0; dn < DH / 8; ++dn) {
-      acc[dn][0] *= c0;
-      acc[dn][1] *= c0;
-      acc[dn][2] *= c1;
-      acc[dn][3] *= c1;
-    }
-
-    // acc += p·v: score tiles 2kk and 2kk+1 are the A fragment of keys
-    // 16kk .. 16kk+15.
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dn = 0; dn < DH / 8; ++dn) {
-        const __nv_bfloat16* vr = &vt[(dn * 8 + g) * kStrideV + kk * 16 + t4 * 2];
-        mma_bf16(acc[dn], pa, load_pair(vr), load_pair(vr + 8));
-      }
-    }
-  }
-
-  l0 += __shfl_xor_sync(kFull, l0, 1);
-  l0 += __shfl_xor_sync(kFull, l0, 2);
-  l1 += __shfl_xor_sync(kFull, l1, 1);
-  l1 += __shfl_xor_sync(kFull, l1, 2);
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int dn = 0; dn < DH / 8; ++dn) {
-    const int c = dn * 8 + t4 * 2;
-    if (r0 < seq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * q_stride + c) =
-          pack_bf16(acc[dn][0] * inv0, acc[dn][1] * inv0);
-    if (r1 < seq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * q_stride + c) =
-          pack_bf16(acc[dn][2] * inv1, acc[dn][3] * inv1);
-  }
 }
 
 template <int DH>
@@ -313,41 +748,112 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <typename T>
-using Kernel = void (*)(const T*, const T*, const T*, T*, int, int, int, int,
-                        float);
+
+// cuTensorMapEncodeTiled is a libcuda call; the runtime hands out its
+// address, so the library needs no -lcuda.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t err = cudaGetDriverEntryPoint(
+      "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+    return nullptr;
+  return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+}
+
+// A 4-D bf16 tensor map with 128-byte swizzle over `geom`: dims (dh,
+// heads, S, batch), then the byte strides of dims 1-3; boxes of 64
+// columns, one head, `rows` rows and one batch. Rows past S read zeros.
+cudaError_t encode_map(CUtensorMap* map, const void* ptr,
+                       const long long* geom, int rows) {
+  static const PFN_cuTensorMapEncodeTiled_v12000 encode =
+      tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(geom[0]), static_cast<cuuint64_t>(geom[1]),
+      static_cast<cuuint64_t>(geom[2]), static_cast<cuuint64_t>(geom[3])};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(geom[4]),
+                                 static_cast<cuuint64_t>(geom[5]),
+                                 static_cast<cuuint64_t>(geom[6])};
+  const cuuint32_t box[4] = {kRowBytes / 2, 1, static_cast<cuuint32_t>(rows),
+                             1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int DH>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        const long long* q_geom, const long long* kv_geom,
+                        int causal, float scale_log2, int ctas, int* sched,
+                        int smem_bytes, cudaStream_t stream) {
+  if (smem_bytes != Layout<DH>::kBytes) return cudaErrorInvalidValue;
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err = encode_map(&q_map, q, q_geom, kTileQ);
+  if (err == cudaSuccess) err = encode_map(&k_map, k, kv_geom, kTileK);
+  if (err == cudaSuccess) err = encode_map(&v_map, v, kv_geom, kTileK);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bf16<DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes);
+  if (err != cudaSuccess) return err;
+  flash_bf16<DH><<<ctas, kThreadsBf16, smem_bytes, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), sched,
+      static_cast<int>(q_geom[2]), static_cast<int>(q_geom[3]),
+      static_cast<int>(q_geom[1]), static_cast<int>(kv_geom[1]), causal,
+      scale_log2);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-// o = attention(q, k, v): q, o (batch, seq, heads, head_dim); k, v
-// (batch, seq, kv_heads, head_dim); bf16 if `is_bf16`, else float32.
-// head_dim is 64 or 128; the wrapper checks shapes, types and alignment.
-int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int batch, int seq, int heads,
-                           int kv_heads, int head_dim, int is_bf16,
-                           int causal, float scale_log2,
-                           cudaStream_t stream) {
+// bf16 o = attention(q, k, v) with the wrapper's launch plan: `q_geom` and
+// `kv_geom` are (dh, heads, S, batch) and the byte strides of dims 1-3 (o
+// is laid out as q); `ctas` persistent CTAs take the work tiles from
+// `sched`, two ints that are 0 before the launch and 0 again after it (the
+// last CTA resets them); `smem_bytes` is the dynamic shared memory, which
+// must be the kernel's layout for `head_dim`.
+int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
+                                void* o, const long long* q_geom,
+                                const long long* kv_geom, int head_dim,
+                                int causal, float scale_log2, int ctas,
+                                int* sched, int smem_bytes,
+                                cudaStream_t stream) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (head_dim == 64)
+    err = launch_bf16<64>(q, k, v, o, q_geom, kv_geom, causal, scale_log2,
+                          ctas, sched, smem_bytes, stream);
+  else if (head_dim == 128)
+    err = launch_bf16<128>(q, k, v, o, q_geom, kv_geom, causal, scale_log2,
+                           ctas, sched, smem_bytes, stream);
+  return static_cast<int>(err);
+}
+
+// float32 o = attention(q, k, v): q, o (batch, seq, heads, head_dim); k, v
+// (batch, seq, kv_heads, head_dim), contiguous; head_dim 64 or 128.
+int flash_attention_f32_launch(const void* q, const void* k, const void* v,
+                               void* o, int batch, int seq, int heads,
+                               int kv_heads, int head_dim, int causal,
+                               float scale_log2, cudaStream_t stream) {
   if (head_dim != 64 && head_dim != 128)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((seq + kBQ - 1) / kBQ, heads, batch);
-  if (is_bf16) {
-    const Kernel<__nv_bfloat16> kernel =
-        head_dim == 64 ? &flash_bf16<64> : &flash_bf16<128>;
-    kernel<<<grid, kThreads16, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(o), seq, heads, kv_heads, causal,
-        scale_log2);
-  } else {
-    const Kernel<float> kernel = head_dim == 64 ? &flash_f32<64> : &flash_f32<128>;
-    kernel<<<grid, kThreads32, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), seq, heads,
-        kv_heads, causal, scale_log2);
-  }
+  auto kernel = head_dim == 64 ? &flash_f32<64> : &flash_f32<128>;
+  kernel<<<grid, kThreads32, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), seq, heads,
+      kv_heads, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -24,7 +25,7 @@ from repro_torch.kernels.flash_attention import ref
 
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.bfloat16, torch.float32)
-_MAX_BATCH = 65_535        # the launch grid's z dimension
+_MAX_GRID = 65_535         # the launch grids' y and z dimensions
 
 launches = _build.LaunchCounter()
 
@@ -33,15 +34,64 @@ launches = _build.LaunchCounter()
 def _lib() -> ctypes.CDLL:
     """The built kernel library, its C signatures bound once."""
     lib = _build.load("flash_attention")
-    lib.flash_attention_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p]
-    lib.flash_attention_launch.restype = ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    geom = ctypes.POINTER(ctypes.c_longlong)
+    lib.flash_attention_bf16_launch.argtypes = [
+        ptr, ptr, ptr, ptr, geom, geom, i32, i32, ctypes.c_float, i32, ptr,
+        i32, ptr]
+    lib.flash_attention_f32_launch.argtypes = [
+        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ctypes.c_float,
+        ptr]
+    for fn in (lib.flash_attention_bf16_launch,
+               lib.flash_attention_f32_launch):
+        fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# The bf16 kernel's tiles (csrc/flash_attention.cu): one persistent CTA an
+# SM, with a producer and two consumer warpgroups, takes work tiles of
+# TILE_Q query rows of one head from a counter and streams k and v in tiles
+# of TILE_K keys through a ring of STAGES[head_dim] stages; every tile lies
+# in shared memory as head_dim/64 column blocks of 128-byte rows.
+TILE_Q = TILE_K = 128
+STAGES = {64: 4, 128: 3}
+Q_STAGES = {64: 2, 128: 1}
+BF16_THREADS = 384
+_MAX_WORK = 2 ** 31 - 1
+
+
+def tensor_map_geometry(t: torch.Tensor) -> Tuple[int, ...]:
+    """The TMA tensor map of a (B, S, heads, dh) bf16 tensor, from its
+    strides: dims (dh, heads, S, B) innermost first, then the byte strides
+    of dims heads, S and B. TMA needs dh contiguous and each stride a
+    multiple of 16 bytes."""
+    b, s, h, dh = t.shape
+    size = t.element_size()
+    return (dh, h, s, b, t.stride(2) * size, t.stride(1) * size,
+            t.stride(0) * size)
+
+
+def bf16_smem_bytes(head_dim: int) -> int:
+    """Dynamic shared memory of the bf16 kernel at `head_dim`: its q
+    buffers and the ring's k and v tiles, 2 bytes an element, plus 1024
+    bytes to align the base to the 128-byte swizzle's 1024-byte pattern."""
+    return 2 * head_dim * (Q_STAGES[head_dim] * TILE_Q
+                           + 2 * STAGES[head_dim] * TILE_K) + 1024
+
+
+def bf16_launch_plan(q: torch.Tensor, k: torch.Tensor, sms: int) -> dict:
+    """The bf16 kernel's launch on a card of `sms` SMs: its work tiles
+    (query tiles x heads x batch), one persistent CTA an SM up to that
+    many, their threads and dynamic shared memory, and the tensor maps of
+    q (and o's layout) and of k and v."""
+    b, s, h, dh = q.shape
+    work = -(-s // TILE_Q) * h * b
+    return {"work": work, "ctas": min(work, sms), "threads": BF16_THREADS,
+            "smem_bytes": bf16_smem_bytes(dh),
+            "q_geom": tensor_map_geometry(q),
+            "kv_geom": tensor_map_geometry(k)}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -60,13 +110,37 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share a dtype in {DTYPES}, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if not 1 <= b <= _MAX_BATCH or s < 1:
-        raise ValueError(f"need 1 <= B <= {_MAX_BATCH} and S >= 1, got "
+    if -(-s // TILE_Q) * h * b > _MAX_WORK:
+        raise ValueError(f"more than {_MAX_WORK} work tiles of {TILE_Q} "
+                         f"query rows: B={b}, S={s}, H={h}")
+    if not 1 <= b <= _MAX_GRID or s < 1:
+        raise ValueError(f"need 1 <= B <= {_MAX_GRID} and S >= 1, got "
                          f"B={b}, S={s}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              "aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _work_counter(device: torch.device, stream: int) -> torch.Tensor:
+    """The bf16 kernel's work-tile counter for launches on `stream`: two
+    ints, zero before each launch (set once here; each launch's last CTA
+    sets them back), one pair a stream so launches that may overlap do
+    not share one."""
+    key = (device.index, stream)
+    counter = _counters.get(key)
+    if counter is None:
+        counter = _counters.setdefault(
+            key, torch.zeros(2, dtype=torch.int32, device=device))
+    return counter
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -84,13 +158,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v)
     b, s, h, dh = q.shape
     lib = _lib()
+    scale_log2 = math.log2(math.e) / math.sqrt(dh)
     with torch.cuda.device(q.device):
         out = torch.empty_like(q)
-        status = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, s, h, k.shape[2], dh, int(q.dtype == torch.bfloat16),
-            int(causal), math.log2(math.e) / math.sqrt(dh),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if q.dtype == torch.bfloat16:
+            plan = bf16_launch_plan(q, k, _sm_count(q.device.index))
+            status = lib.flash_attention_bf16_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                (ctypes.c_longlong * 7)(*plan["q_geom"]),
+                (ctypes.c_longlong * 7)(*plan["kv_geom"]), dh, int(causal),
+                scale_log2, plan["ctas"],
+                _work_counter(q.device, stream).data_ptr(),
+                plan["smem_bytes"], stream)
+        else:
+            status = lib.flash_attention_f32_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, s, h, k.shape[2], dh, int(causal), scale_log2, stream)
     _build.check(status, lib.flash_attention_error_string,
                  "flash_attention")
     launches.bump()

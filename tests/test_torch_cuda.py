@@ -15,23 +15,23 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro_torch import configs
-from repro_torch import random as R
-from repro_torch.core.engine import SelectionEngine
-from repro_torch.core.oracle import array_oracle
-from repro_torch.core.queries import JointSUPGQuery, SUPGQuery
-from repro_torch.data.synthetic import make_beta
-from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention import ref as fa_ref
-from repro_torch.kernels.linear_scan import ops as ls_ops
-from repro_torch.kernels.linear_scan import ref as ls_ref
-from repro_torch.kernels.score_hist import ops as sh_ops
-from repro_torch.kernels.score_hist import ref as sh_ref
-from repro_torch.kernels.threshold_select import ops as ts_ops
-from repro_torch.kernels.threshold_select import ref as ts_ref
-from repro_torch.models import attention, mamba, model
+from repro_torch import configs  # noqa: E402
+from repro_torch import random as R  # noqa: E402
+from repro_torch.core.engine import SelectionEngine  # noqa: E402
+from repro_torch.core.oracle import array_oracle  # noqa: E402
+from repro_torch.core.queries import JointSUPGQuery, SUPGQuery  # noqa: E402
+from repro_torch.data.synthetic import make_beta  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.linear_scan import ops as ls_ops  # noqa: E402
+from repro_torch.kernels.linear_scan import ref as ls_ref  # noqa: E402
+from repro_torch.kernels.score_hist import ops as sh_ops  # noqa: E402
+from repro_torch.kernels.score_hist import ref as sh_ref  # noqa: E402
+from repro_torch.kernels.threshold_select import ops as ts_ops  # noqa: E402
+from repro_torch.kernels.threshold_select import ref as ts_ref  # noqa: E402
+from repro_torch.models import attention, mamba, model  # noqa: E402
 
 
 def _scores(n, seed, sentinel_frac=0.01):
@@ -64,14 +64,77 @@ def test_score_hist_kernel_matches_plain(card, n, bins):
         torch.testing.assert_close(g, p, rtol=4e-3, atol=1e-3)
 
 
+# Lengths: a few plain ones, those around the kernel's tile (one CTA's
+# records) and deep look-backs: 2^27 records are 8,192 tiles.
+_LENGTHS = {"0": lambda t: 0, "1": lambda t: 1, "1000": lambda t: 1000,
+            "2048": lambda t: 2048, "2049": lambda t: 2049,
+            "tile-1": lambda t: t - 1, "tile": lambda t: t,
+            "tile+1": lambda t: t + 1, "2^22": lambda t: 1 << 22,
+            "2^22+1": lambda t: (1 << 22) + 1, "2^27": lambda t: 1 << 27}
+
+
+def _card_scores(card, n, fill, seed):
+    """n scores: "beta" drawn as `_scores` draws them, then on the card
+    "mixed" uniform with 1% -1 sentinels, "all" at or above 0.5, "none"
+    below 0.5 or -1."""
+    if fill == "beta":
+        return torch.from_numpy(_scores(n, seed)).to(card)
+    g = torch.Generator(device=card).manual_seed(seed)
+    u = torch.rand(n, generator=g, device=card)
+    if fill == "all":
+        return 0.5 + 0.5 * u
+    if fill == "none":
+        return torch.where(u < 0.1, -1.0, 0.49 * u)
+    return torch.where(torch.rand(n, generator=g, device=card) < 0.01,
+                       -1.0, u)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [0, 1, 1000, 2048, 2049, 1 << 22])
+@pytest.mark.parametrize("length", list(_LENGTHS))
 @pytest.mark.parametrize("tau", [0.0, 0.5, 0.999, 1.01])
-def test_threshold_select_kernel_matches_plain(card, n, tau):
-    s = torch.from_numpy(_scores(n, 3)).to(card)
+@pytest.mark.parametrize("fill", ["beta", "all", "none"])
+def test_threshold_select_kernel_matches_plain(card, length, tau, fill):
+    """Indices exactly the plain version's at every tile boundary and
+    look-back depth, with everything or nothing selected;
+    `threshold_count` (the same kernel without the scatter) is a 0-d
+    tensor on the card equal to the selection's length."""
+    n = _LENGTHS[length](ts_ops._lib()[1])
+    s = _card_scores(card, n, fill, 3)
     got = ts_ops.threshold_select(s, tau)
+    count = ts_ops.threshold_count(s, tau)
+    want = ts_ref.threshold_select_ref(s, tau)
     torch.cuda.synchronize()
-    assert torch.equal(got, ts_ref.threshold_select_ref(s, tau))
+    assert torch.equal(got, want)
+    assert count.dim() == 0 and count.device == s.device
+    assert int(count) == want.numel()
+    if fill == "all" and tau <= 0.5:
+        assert got.numel() == n
+    if fill == "none" and tau >= 0.5:
+        assert got.numel() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [(1 << 22) + 1, 1 << 27])
+def test_threshold_select_kernel_repeats_bitwise(card, n):
+    """Twenty launches give the same indices: tiles take tickets in no
+    fixed order across launches, but each writes its fixed rank range."""
+    s = _card_scores(card, n, "mixed", 11)
+    first = ts_ops.threshold_select(s, 0.3)
+    for _ in range(19):
+        assert torch.equal(ts_ops.threshold_select(s, 0.3), first)
+
+
+@pytest.mark.cuda
+def test_threshold_select_reads_unaligned_spans(card):
+    """A span that starts off a 16-byte boundary (a view of a shard) takes
+    the kernel's scalar loads and selects the same records."""
+    s = _card_scores(card, 100_003, "mixed", 5)
+    for start in (1, 2, 3):
+        part = s[start:]
+        assert torch.equal(ts_ops.threshold_select(part, 0.4),
+                           ts_ref.threshold_select_ref(part, 0.4))
+        assert int(ts_ops.threshold_count(part, 0.4)) == \
+            int((part >= 0.4).sum())
 
 
 @pytest.mark.cuda
@@ -112,12 +175,18 @@ def _plain_attention(q, k, v, causal=True):
 BF16_RTOL, BF16_ATOL, BF16_FRO_TOL = 2.0 ** -7, 5e-3, 5e-3
 
 
+# Shapes: a few mixed ones, then lengths around the bf16 kernel's 128-row
+# tiles at both head dims with smollm's, zamba2's and an MQA head layout.
+_FLASH_SHAPES = [(2, 256, 8, 2, 64), (1, 128, 6, 1, 128),
+                 (2, 1000, 15, 5, 64), (3, 77, 6, 3, 128),
+                 (1, 1, 2, 1, 64)] + [
+    (1 if s > 1000 else 2, s, h, kv, dh)
+    for s in (1, 63, 127, 128, 129, 1000, 4096) for dh in (64, 128)
+    for h, kv in ((15, 5), (32, 32), (8, 1))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,kv,dh", [(2, 256, 8, 2, 64),
-                                         (1, 128, 6, 1, 128),
-                                         (2, 1000, 15, 5, 64),
-                                         (3, 77, 6, 3, 128),
-                                         (1, 1, 2, 1, 64)])
+@pytest.mark.parametrize("b,s,h,kv,dh", _FLASH_SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_kernel_matches_plain(card, b, s, h, kv, dh, causal,

@@ -23,20 +23,34 @@ import sys
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.core.engine import SelectionEngine as RefEngine
-from repro.core.oracle import array_oracle
-from repro.core.queries import JointSUPGQuery as RefJoint
-from repro.core.queries import SUPGQuery as RefQuery
-from repro.data import pipeline as ref_pipeline
-from repro.data.synthetic import make_beta
-from repro_torch import random as R
-from repro_torch.core import engine as E
-from repro_torch.core.queries import JointSUPGQuery, SUPGQuery
-from repro_torch.data import pipeline
+from repro.core.engine import SelectionEngine as RefEngine  # noqa: E402
+from repro.core.oracle import array_oracle  # noqa: E402
+from repro.core.queries import JointSUPGQuery as RefJoint  # noqa: E402
+from repro.core.queries import SUPGQuery as RefQuery  # noqa: E402
+from repro.data import pipeline as ref_pipeline  # noqa: E402
+from repro.data.synthetic import make_beta  # noqa: E402
+from repro_torch import random as R  # noqa: E402
+from repro_torch.core import engine as E  # noqa: E402
+from repro_torch.core.queries import JointSUPGQuery, SUPGQuery  # noqa: E402
+from repro_torch.data import pipeline  # noqa: E402
 
 SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _partitionable_threefry():
+    """`repro_torch.random` implements only jax's partitionable threefry,
+    so the reference draws its keys under that mode whatever jax's default
+    is: pinned in the config too, so an engine's worker threads see it."""
+    before = jax.config.jax_threefry_partitionable
+    jax.config.update("jax_threefry_partitionable", True)
+    try:
+        with jax.threefry_partitionable(True):
+            yield
+    finally:
+        jax.config.update("jax_threefry_partitionable", before)
 
 # (name, spec): RT, two-stage IS PT and JT are the main path; the uniform
 # RT and one-stage PT specs cover the engine's other sampling branches.

@@ -9,21 +9,21 @@ held against their plain versions on the card (tests/test_torch_cuda.py)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro.kernels.flash_attention import ops as jfa_ops
-from repro.kernels.flash_attention.ref import attention_ref as jattention_ref
-from repro.kernels.score_hist import ops as jsh_ops
-from repro.kernels.score_hist.ref import score_hist_ref as jscore_hist_ref
-from repro.kernels.threshold_select import ops as jts_ops
-from repro.kernels.threshold_select.ref import threshold_select_ref as jts_ref
-from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.kernels.flash_attention import ref as fa_ref
-from repro_torch.kernels.score_hist import ops as sh_ops
-from repro_torch.kernels.score_hist import ref as sh_ref
-from repro_torch.kernels.threshold_select import ops as ts_ops
-from repro_torch.kernels.threshold_select import ref as ts_ref
+from repro.kernels.flash_attention import ops as jfa_ops  # noqa: E402
+from repro.kernels.flash_attention.ref import attention_ref as jattention_ref  # noqa: E402
+from repro.kernels.score_hist import ops as jsh_ops  # noqa: E402
+from repro.kernels.score_hist.ref import score_hist_ref as jscore_hist_ref  # noqa: E402
+from repro.kernels.threshold_select import ops as jts_ops  # noqa: E402
+from repro.kernels.threshold_select.ref import threshold_select_ref as jts_ref  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.score_hist import ops as sh_ops  # noqa: E402
+from repro_torch.kernels.score_hist import ref as sh_ref  # noqa: E402
+from repro_torch.kernels.threshold_select import ops as ts_ops  # noqa: E402
+from repro_torch.kernels.threshold_select import ref as ts_ref  # noqa: E402
 
 
 def _scores(n, seed, sentinel_frac=0.01):
@@ -88,6 +88,32 @@ def test_threshold_select_plain_matches_reference(n, tau):
     assert got.numel() == int(((s >= tau) & (s >= 0)).sum())
 
 
+@pytest.mark.parametrize("n", [1, 777, 1024, 2049, 4096, 10_000])
+@pytest.mark.parametrize("tau", [0.0, 0.3, 0.999, 1.0, 1.01, -0.5])
+def test_threshold_count_plain_matches_reference(n, tau):
+    """The count is the length of the JAX package's selection, by its
+    numpy reference and, where the Pallas kernel takes the length, by the
+    kernel in interpret mode."""
+    rng = np.random.default_rng(n + 1)
+    s = rng.random(n).astype(np.float32)
+    s[rng.integers(0, n, max(n // 10, 1))] = -1.0
+    got = ts_ops.threshold_count(torch.from_numpy(s), tau)
+    assert got.dtype == torch.int64 and got.dim() == 0
+    assert int(got) == jts_ref(s, tau).size
+    if n % 512 == 0:
+        assert int(got) == jts_ops.threshold_select(
+            s, tau, backend="interpret").size
+
+
+def test_threshold_count_edge_cases():
+    assert int(ts_ops.threshold_count(torch.empty(0), 0.5)) == 0
+    assert int(ts_ops.threshold_count(torch.full((4097,), 0.9), 0.5)) \
+        == 4097
+    s = torch.tensor([-1.0, 0.0, 0.5, -1.0, 1.0])
+    for tau in (0.0, -1.0, float("-inf")):
+        assert int(ts_ops.threshold_count(s, tau)) == 3
+
+
 def test_threshold_select_never_selects_sentinel():
     s = torch.tensor([-1.0, 0.0, 0.5, -1.0, 1.0])
     for tau in (0.0, -1.0, float("-inf")):
@@ -132,6 +158,7 @@ def test_cpu_tensor_never_touches_the_build(monkeypatch):
     s = torch.from_numpy(_scores(3000, 0))
     sh_ops.score_hist(s, 64)
     ts_ops.threshold_select(s, 0.5)
+    ts_ops.threshold_count(s, 0.5)
     assert (sh_ops.launches.count, ts_ops.launches.count) == before
 
 
@@ -153,7 +180,8 @@ class _CudaLooking:
 
 @pytest.mark.parametrize("call", [
     lambda t: sh_ops.score_hist(t, 64),
-    lambda t: ts_ops.threshold_select(t, 0.5)])
+    lambda t: ts_ops.threshold_select(t, 0.5),
+    lambda t: ts_ops.threshold_count(t, 0.5)])
 def test_cuda_tensor_launches_or_raises(monkeypatch, call):
     """A CUDA tensor goes to the kernel and nowhere else: with no kernel
     to load the wrapper raises instead of computing the plain version."""
@@ -163,6 +191,7 @@ def test_cuda_tensor_launches_or_raises(monkeypatch, call):
     monkeypatch.setattr(_build, "load", no_kernel)
     monkeypatch.setattr(sh_ref, "score_hist_ref", None)
     monkeypatch.setattr(ts_ref, "threshold_select_ref", None)
+    monkeypatch.setattr(ts_ref, "threshold_count_ref", None)
     with pytest.raises(RuntimeError, match="kernel here"):
         call(_CudaLooking())
 
@@ -177,7 +206,8 @@ def test_score_hist_kernel_refuses_bins_beyond_shared_memory(bins):
 
 @pytest.mark.parametrize("call", [
     lambda t: sh_ops.score_hist(t, 64),
-    lambda t: ts_ops.threshold_select(t, 0.5)])
+    lambda t: ts_ops.threshold_select(t, 0.5),
+    lambda t: ts_ops.threshold_count(t, 0.5)])
 def test_other_devices_and_layouts_raise(call):
     with pytest.raises(ValueError):
         call(torch.zeros(8, device="meta"))
@@ -278,17 +308,19 @@ class _CudaLookingQKV:
         return self._ptr
 
 
-def test_flash_attention_cuda_tensor_launches_or_raises(monkeypatch):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_cuda_tensor_launches_or_raises(monkeypatch, dtype):
     """CUDA tensors go to the kernel and nowhere else: with no kernel to
-    load the wrapper raises instead of computing the plain version."""
+    load the wrapper raises instead of computing the plain version, on
+    the bf16 and the float32 entry point alike."""
     def no_kernel(name):
         raise RuntimeError(f"no {name} kernel here")
 
     monkeypatch.setattr(_build, "load", no_kernel)
     monkeypatch.setattr(fa_ops, "_lib", fa_ops._lib.__wrapped__)
     monkeypatch.setattr(fa_ref, "attention_ref", None)
-    q = _CudaLookingQKV((2, 100, 15, 64))
-    kv = _CudaLookingQKV((2, 100, 5, 64))
+    q = _CudaLookingQKV((2, 100, 15, 64), dtype)
+    kv = _CudaLookingQKV((2, 100, 5, 64), dtype)
     with pytest.raises(RuntimeError, match="kernel here"):
         fa_ops.flash_attention(q, kv, kv)
 
@@ -328,3 +360,48 @@ def test_flash_attention_other_devices_raise():
         fa_ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="cpu or on one cuda"):
         fa_ops.flash_attention(torch.zeros(1, 8, 2, 64), q, q)
+
+
+# -- flash_attention's bf16 launch plan ---------------------------------------
+
+@pytest.mark.parametrize("b,s,h,kv,dh", [
+    (4, 4096, 15, 5, 64),      # smollm-360m prefill
+    (256, 128, 32, 32, 64),    # zamba2-1.2b's shared block, scoring
+    (2, 1000, 8, 1, 128),      # ragged S, MQA, head_dim 128
+    (1, 1, 2, 1, 64)])
+def test_flash_bf16_launch_plan(b, s, h, kv, dh):
+    """Work tiles of 128 query rows for every head and batch, one
+    persistent CTA an SM (fewer where there is less work), 384 threads,
+    the dynamic shared memory of the q buffers and the ring's k and v
+    tiles (2 and 4 at head_dim 64, 1 and 3 at 128; plus the 1024-byte
+    alignment slack) within a CTA's 227 KB less its barriers, and tensor
+    maps over
+    (dh, heads, S, batch) with the tensors' byte strides, each a multiple
+    of the 16 bytes TMA needs."""
+    q = torch.empty(b, s, h, dh, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(b, s, kv, dh, dtype=torch.bfloat16, device="meta")
+    plan = fa_ops.bf16_launch_plan(q, k, sms=132)
+    assert plan["work"] == -(-s // 128) * h * b
+    assert plan["ctas"] == min(plan["work"], 132)
+    assert plan["threads"] == 384
+    assert plan["smem_bytes"] == {64: 164_864, 128: 230_400}[dh]
+    assert plan["smem_bytes"] <= 232_448 - 128
+    assert plan["q_geom"] == (dh, h, s, b, 2 * dh, 2 * h * dh,
+                              2 * s * h * dh)
+    assert plan["kv_geom"] == (dh, kv, s, b, 2 * dh, 2 * kv * dh,
+                               2 * s * kv * dh)
+    assert all(x % 16 == 0 for x in plan["q_geom"][4:] + plan["kv_geom"][4:])
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_check_rejects_strided_views(which):
+    """The kernel writes o in q's contiguous (B, S, H, dh) order, so the
+    wrapper takes only contiguous q, k and v: a (B, S, H, dh) view of a
+    (B, H, S, dh) tensor is refused before any launch."""
+    t = {name: torch.zeros(2, 100, 8, 64, dtype=torch.bfloat16)
+         for name in "qkv"}
+    t[which] = torch.zeros(2, 8, 100, 64,
+                           dtype=torch.bfloat16).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops._check(t["q"], t["k"], t["v"])
+    fa_ops._check(*(x.contiguous() for x in (t["q"], t["k"], t["v"])))

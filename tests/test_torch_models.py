@@ -20,21 +20,21 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
-from hypothesis import given, settings
-from hypothesis import strategies as st
+torch = pytest.importorskip("torch")
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
 
-from repro import configs as jconfigs
-from repro.data import synthetic as jsynthetic
-from repro.launch import serve as jserve
-from repro.models import attention as jattention
-from repro.models import layers as jlayers
-from repro.models import model as jmodel
-from repro.models import transformer as jtransformer
-from repro_torch import configs
-from repro_torch.data import synthetic
-from repro_torch.launch import serve
-from repro_torch.models import attention, layers, model, transformer
+from repro import configs as jconfigs  # noqa: E402
+from repro.data import synthetic as jsynthetic  # noqa: E402
+from repro.launch import serve as jserve  # noqa: E402
+from repro.models import attention as jattention  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+from repro.models import transformer as jtransformer  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention, layers, model, transformer  # noqa: E402
 
 SMOKE = configs.get_smoke_config("smollm-360m")
 JSMOKE = jconfigs.get_smoke_config("smollm-360m")

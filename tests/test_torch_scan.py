@@ -12,13 +12,13 @@ zamba2 model built on it is held in ``test_torch_zamba.py``.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
-from hypothesis import given, settings
-from hypothesis import strategies as st
+torch = pytest.importorskip("torch")
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
 
-from repro.kernels.linear_scan import ops as jls_ops
-from repro.models import scan_ops as jscan_ops
-from repro_torch.kernels.linear_scan import ops, ref
+from repro.kernels.linear_scan import ops as jls_ops  # noqa: E402
+from repro.models import scan_ops as jscan_ops  # noqa: E402
+from repro_torch.kernels.linear_scan import ops, ref  # noqa: E402
 
 SCAN_TOL = dict(atol=1e-4, rtol=0)           # tests/test_kernels.py
 

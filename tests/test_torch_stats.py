@@ -13,17 +13,17 @@ that comes out of them is compared exactly.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
-from hypothesis import given, settings
-from hypothesis import strategies as st
+torch = pytest.importorskip("torch")
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
 
-from repro.core import binned as jbinned
-from repro.core import bounds as jbounds
-from repro.core import sampling as jsampling
-from repro.core import thresholds as jthresholds
-from repro.data import synthetic as jsynthetic
-from repro_torch.core import binned, bounds, sampling, thresholds
-from repro_torch.data import synthetic
+from repro.core import binned as jbinned  # noqa: E402
+from repro.core import bounds as jbounds  # noqa: E402
+from repro.core import sampling as jsampling  # noqa: E402
+from repro.core import thresholds as jthresholds  # noqa: E402
+from repro.data import synthetic as jsynthetic  # noqa: E402
+from repro_torch.core import binned, bounds, sampling, thresholds  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
 
 
 def _t(a):

@@ -23,18 +23,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
-from repro import configs as jconfigs
-from repro.launch import serve as jserve
-from repro.models import mamba as jmamba
-from repro.models import model as jmodel
-from repro.models import scan_ops as jscan_ops
-from repro.models import transformer as jtransformer
-from repro_torch import configs
-from repro_torch.kernels.linear_scan import ref
-from repro_torch.launch import serve
-from repro_torch.models import mamba, model, transformer
+from repro import configs as jconfigs  # noqa: E402
+from repro.launch import serve as jserve  # noqa: E402
+from repro.models import mamba as jmamba  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+from repro.models import scan_ops as jscan_ops  # noqa: E402
+from repro.models import transformer as jtransformer  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels.linear_scan import ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import mamba, model, transformer  # noqa: E402
 
 ARCH = "zamba2-1.2b"
 SMOKE = configs.get_smoke_config(ARCH)
