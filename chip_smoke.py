@@ -69,14 +69,20 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    (a line each), beside its bound, its plain version and
    `scaled_dot_product_attention` (the yardstick; the port never calls
    it).
-9. linear_scan against its plain version on the card: zamba2-1.2b's
-   prefill shape (B=4, H=64, S=4096, dk=dv=64) and scoring shape (B=256,
-   S=128) in Mamba2 mode with Zamba2's decay law and layout (B and C
-   shared by the heads, the scalar decay per head, as stride-0 views);
-   RWKV6 mode (bonus u) at (2, 64, 1024, 64, 64); the reference's
-   (2, 2, 128, 16, 24) in both modes; a ragged S = 1000, S = 1 and decays
-   w = 0.05 (below the Pallas kernel's log-decay floor) in both modes. o
-   and the final state within SCAN_REF_ATOL (the reference's) at the
+9. linear_scan against its plain version on the card, each case labelled
+   with the kernel its route launched (`ls_ops.route`: the chunked
+   tensor-core kernel for Mamba2's views, the step kernel otherwise, both
+   launches counted on that route): zamba2-1.2b's prefill shape (B=4,
+   H=64, S=4096, dk=dv=64) and scoring shape (B=256, S=128) in Mamba2
+   mode with Zamba2's decay law and layout (B and C shared by the heads,
+   the scalar decay per head, as stride-0 views); RWKV6 mode (bonus u) at
+   (2, 64, 1024, 64, 64); the reference's (2, 2, 128, 16, 24) in both
+   modes; a ragged S = 1000, S = 1 and decays w = 0.05 (below the Pallas
+   kernel's log-decay floor) in both modes; for the chunked kernel, S at
+   a chunk's edges (63, 64, 65), decays of 1e-6 in the first 8 steps of
+   every 16 and near 1 after (where an L taken from a cumulative log
+   loses accuracy), decays of exactly 1 at S = 4096, and float32 q and k.
+   o and the final state within SCAN_REF_ATOL (the reference's) at the
    reference's shape and SCAN_REL of the largest |output| elsewhere, of
    the plain version, or of the plain recurrence in float64 where
    S >= 1024 (see the note at the constants); bitwise identical across
@@ -84,8 +90,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
 10. The full zamba2-1.2b model (38 Mamba2 blocks in 6 super-blocks of 6
     and a tail of 2, one shared attention block run 6 times, d 2048, bf16,
     weights drawn from --seed by `model.init`): one prefill at (4, 4096)
-    through `make_serve_prefill` with exactly 38 linear_scan and 6
-    flash_attention launches, its mfu (`model_flops`); the bf16 model's
+    through `make_serve_prefill` with exactly 38 linear_scan (all on the
+    chunked route) and 6 flash_attention launches, its mfu
+    (`model_flops`); the bf16 model's
     and its float32 copy's last-position logits with both kernels against
     both plain versions (`LOGIT_TOL`); where the bf16 gap comes from:
     each kernel alone by its plain version, and, with no kernel, the plain
@@ -93,13 +100,19 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
 11. Score, then select with zamba2-1.2b: a 2^13-record token corpus
     (vocab 32000) in calls of 256 records, one RT query as in phase 7;
     records/s, mfu, the scores' range and quantiles, and the path's
-    launches (38 linear_scan and 6 flash_attention a call); a profile of
+    launches (38 linear_scan, all on the chunked route, and 6
+    flash_attention a call); a profile of
     one scoring call by group (linear_scan, flash_attention, matmul, the
     rest).
 12. Times of linear_scan at the prefill shape (its row in the kernels
-    line) and at the scoring shape (a line), beside its bound and its
-    plain version; no single PyTorch call computes the scan, so its
-    library time is null.
+    line: the chunked kernel) and at the scoring shape (a line), beside
+    its bound and its plain version, and the step kernel's on the same
+    inputs with w materialized (its route), timed in turns (chunked,
+    step, step, chunked). The bound is the larger of the bytes and the
+    least operation time over the two forms (the chunked form's TF32 and
+    bf16 products on the tensor cores, the step form's float32
+    operations); each term is printed. No single PyTorch call computes
+    the scan, so its library time is null.
 
 Each phase prints its wall time as it ends, and the line before the
 kernels line sums them.
@@ -159,6 +172,7 @@ N_RECORDS = 1 << 27
 N_SHARDS = 16
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM, TF32 dense on the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM, bf16 dense on the tensor cores
 ARCH = "smollm-360m"
 ZAMBA = "zamba2-1.2b"
@@ -233,16 +247,23 @@ FA_ZAMBA_SCORING = (256, 128, 32, 32, 64)
 N_ZAMBA_CORPUS = 1 << 13              # token records zamba2 scores
 # linear_scan against its plain version (phase 9). At the reference's
 # shapes (dk 16 or 8), the reference's own atol = 1e-4
-# (tests/test_kernels.py). At dk = dv = 64 both compute the same float32
-# recurrence step by step and differ only in the order of each step's q·S
-# sum; the bar is SCAN_REL of the largest |output| (o or the state),
-# against the plain version, or, where S >= 1024, against the plain
-# recurrence in float64 on the card (the float32 plain version drifts
-# there as much as the kernel does: 2.1e-7 of the largest |o| at the
-# prefill shape, the kernel 1.4e-7). Over every case below at --seed 0, 1
-# and 2 the largest error measured 2.73e-7 of the largest |output| (o at
-# the scoring shape) on an H100 80GB HBM3 at 700 W; SCAN_REL is 3.7 times
-# that. A step dropped or read twice moves o by far more.
+# (tests/test_kernels.py). At dk = dv = 64 the step kernel computes the
+# same float32 recurrence step by step and differs only in the order of
+# each step's q·S sum; the chunked kernel computes the chunked form with
+# split-TF32 products. The bar is SCAN_REL of the largest |output| (o or
+# the state), against the plain version, or, where S >= 1024, against the
+# plain recurrence in float64 on the card (the float32 plain version
+# drifts there as much as the kernels do: 2.1e-7 of the largest |o| at
+# the prefill shape, the step kernel 1.4e-7). Over every case below at
+# --seed 0, 1 and 2 the step kernel's largest error measured 2.73e-7 of
+# the largest |output| (o at the scoring shape, which Mamba2's route now
+# gives the chunked kernel) on an H100 80GB HBM3 at 700 W; SCAN_REL is
+# 3.7 times that. The chunked kernel's largest error over seeds 0 to 7
+# (`check_scan`) measured 4.61e-7 (the state at decays of exactly 1 and
+# S = 4096, against the float64 arbiter, from which the float32 plain
+# version's state lies 2.2e-6 to 3.4e-6 at seeds 0 to 2) and 4.37e-7
+# elsewhere (o at the scoring shape), same card and limit. A step
+# dropped or read twice moves o by far more.
 SCAN_REF_ATOL = 1e-4
 SCAN_REL = 1e-6
 # Every kernel's launch counter, by name.
@@ -250,6 +271,27 @@ COUNTERS = {"flash_attention": fa_ops.launches,
             "linear_scan": ls_ops.launches,
             "score_hist": sh_ops.launches,
             "threshold_select": ts_ops.launches}
+
+
+def reset_counts(names) -> None:
+    """Set the launch counters of `names` to 0, by route too."""
+    for name in names:
+        COUNTERS[name].reset()
+
+
+def scan_routes() -> dict:
+    """linear_scan's launches by route since the last reset."""
+    return dict(ls_ops.launches.routes)
+
+
+def check_scan_routes(expected: int, where: str) -> None:
+    """Every linear_scan launch since the reset went through the chunked
+    kernel, `expected` of them."""
+    routes = scan_routes()
+    check(routes == {"chunked": expected, "step": 0},
+          f"{where}: linear_scan launches by route {routes}, expected "
+          f"{expected} chunked")
+    print(f"{where}: linear_scan launches by route {routes}")
 
 
 def check(ok: bool, what: str) -> None:
@@ -626,8 +668,7 @@ def model_phase(model, cfg, seed: int, per_prefill: dict) -> None:
     serve_prefill(model, {"tokens": tokens[:, :128]})      # warm-up
     torch.cuda.synchronize()
 
-    for name in per_prefill:
-        COUNTERS[name].reset()
+    reset_counts(per_prefill)
     t0 = time.perf_counter()
     scores = serve_prefill(model, {"tokens": tokens})
     torch.cuda.synchronize()
@@ -643,6 +684,8 @@ def model_phase(model, cfg, seed: int, per_prefill: dict) -> None:
     print(f"{cfg.name} prefill ({b}, {s}) through make_serve_prefill: "
           f"{wall:.4f} s, {b * s / wall:.1f} tokens/s, mfu {mfu:.4f}, "
           f"launches {launches}, scores {scores.tolist()}")
+    if "linear_scan" in per_prefill:
+        check_scan_routes(per_prefill["linear_scan"], "the prefill")
 
     # The bf16 model itself: its last-position logits with the kernels
     # against the same model with the plain versions.
@@ -699,8 +742,7 @@ def score_select_phase(model, cfg, seed: int, n_corpus: int,
     torch.cuda.synchronize()
 
     path = (*per_call, "score_hist", "threshold_select")
-    for name in path:
-        COUNTERS[name].reset()
+    reset_counts(path)
     t0 = time.perf_counter()
     scores = torch.cat([serve_prefill(model,
                                       {"tokens": tokens[i:i + SCORE_BATCH]})
@@ -748,6 +790,8 @@ def score_select_phase(model, cfg, seed: int, n_corpus: int,
           f" recall {queries.recall_of(sel_idx, truth):.4f}, precision "
           f"{queries.precision_of(sel_idx, truth):.4f}")
     print(f"score-then-select path launches: {launches}")
+    if "linear_scan" in per_call:
+        check_scan_routes(launches["linear_scan"], "scoring")
     return launches
 
 
@@ -824,25 +868,33 @@ def flash_row(shape, seed: int) -> dict:
 
 # -- phase 9 -------------------------------------------------------------------
 
-def scan_inputs(shape, g, *, layout="mamba", bonus=False, w_const=None):
+def scan_inputs(shape, g, *, layout="mamba", bonus=False, w_const=None,
+                tiny_early=False, qk_dtype=torch.bfloat16):
     """linear_scan's inputs on the card. ``mamba``: Zamba2's layout and
-    law, as `mamba_block` hands them over: B and C (B,S,N) bf16 normal,
-    shared by the heads as stride-0 views; dt = softplus(normal · 0.88)
-    per (b, s, head) (x · W at W's 1/sqrt(d) init after an RMSNorm), the
-    decay w = exp(-dt) (A = -1) as a stride-0 view over N, or `w_const`;
-    v = x · dt, a (B,S,H,hd) float32 tensor seen as (B,H,S,hd).
-    ``plain``: the reference test's law, contiguous float32: q, k, v
-    normal at scale 0.5, w = sigmoid(normal + 2.5) or `w_const`, and with
-    `bonus` u normal at scale 0.3."""
+    law, as `mamba_block` hands them over: B and C (B,S,N) normal in
+    `qk_dtype`, shared by the heads as stride-0 views; dt =
+    softplus(normal · 0.88) per (b, s, head) (x · W at W's 1/sqrt(d) init
+    after an RMSNorm), the decay w = exp(-dt) (A = -1) as a stride-0 view
+    over N, or `w_const`, or with `tiny_early` 1e-6 in the first 8 steps
+    of every 16 and 1 - 1e-3 · uniform after; v = x · dt, a (B,S,H,hd)
+    float32 tensor seen as (B,H,S,hd). ``plain``: the reference test's
+    law, contiguous float32: q, k, v normal at scale 0.5, w =
+    sigmoid(normal + 2.5) or `w_const`, and with `bonus` u normal at scale
+    0.3."""
     b, h, s, dk, dv = shape
 
     def normal(*size):
         return torch.randn(*size, generator=g, device=DEVICE)
     if layout == "mamba":
-        bc = normal(b, s, 2 * dk).bfloat16()
+        bc = normal(b, s, 2 * dk).to(qk_dtype)
         dt = F.softplus(normal(b, s, h) * 0.88)
         a = torch.exp(-dt) if w_const is None else torch.full_like(dt,
                                                                    w_const)
+        if tiny_early:
+            near_one = 1 - 1e-3 * torch.rand(b, s, h, generator=g,
+                                             device=DEVICE)
+            early = (torch.arange(s, device=DEVICE) % 16 < 8)[None, :, None]
+            a = torch.where(early, torch.full_like(a, 1e-6), near_one)
         v = (normal(b, s, h, dv) * dt[..., None]).transpose(1, 2)
         return (bc[..., dk:][:, None].expand(b, h, s, dk),
                 bc[..., :dk][:, None].expand(b, h, s, dk), v,
@@ -872,12 +924,25 @@ def check_scan(seed: int) -> float:
              ("S = 1", (3, 16, 1, 64, 64), dict(layout="plain", bonus=True)),
              ("w = 0.05", (2, 16, 512, 64, 64), dict(w_const=0.05)),
              ("w = 0.05", (2, 16, 512, 64, 64),
-              dict(layout="plain", bonus=True, w_const=0.05))]
+              dict(layout="plain", bonus=True, w_const=0.05)),
+             ("S = c - 1", (2, 16, 63, 64, 64), {}),
+             ("S = c", (2, 16, 64, 64, 64), {}),
+             ("S = c + 1", (2, 16, 65, 64, 64), {}),
+             ("w = 1e-6 early in each chunk, near 1 after",
+              (2, 16, 512, 64, 64), dict(tiny_early=True)),
+             ("w = 1", (2, 16, 4096, 64, 64), dict(w_const=1.0)),
+             ("float32 q and k", (2, 16, 1000, 64, 64),
+              dict(qk_dtype=torch.float32))]
     err_prefill = 0.0
     for label, shape, kw in cases:
         q, k, v, w, u = scan_inputs(shape, g, **kw)
+        route = ls_ops.route(q, k, v, w, u)
+        reset_counts(("linear_scan",))
         got = ls_ops.linear_scan(q, k, v, w, u)
         again = ls_ops.linear_scan(q, k, v, w, u)
+        check(scan_routes()[route] == 2 == ls_ops.launches.count,
+              f"linear_scan {label}: launches by route {scan_routes()}, "
+              f"expected 2 {route}")
         plain = ls_ref.linear_scan_ref(q, k, v, w, u)
         long = shape[2] >= 1024
         arbiter = ls_ref.linear_scan_ref(q, k, v, w, u,
@@ -886,7 +951,7 @@ def check_scan(seed: int) -> float:
         torch.cuda.synchronize()
         what = (f"linear_scan {label} {shape} "
                 f"{'rwkv6 (u)' if u is not None else 'mamba2'} "
-                f"{kw.get('layout', 'mamba')} layout")
+                f"{kw.get('layout', 'mamba')} layout, {route} kernel")
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"{what}: repeat launches differ")
         parts = []
@@ -918,23 +983,70 @@ def distinct_bytes(t: torch.Tensor) -> int:
         * t.element_size()
 
 
+SCAN_CHUNK = 64       # steps a chunk of the chunked kernel
+
+
+def chunked_ms(b, h, s, dk, dv, qk_bf16: bool) -> float:
+    """Least tensor-core time of the chunked form: per chunk of n steps,
+    (G ∘ L) X over its n(n+1)/2 causal pairs, C S_prev and Bᵀ (dout X)
+    over its n steps, each 2 operations a multiply-add, in TF32 times the
+    split's products (3 for (G ∘ L) X; 2 for the other two with bf16 q
+    and k, 3 with float32); G = C Bᵀ over the causal pairs in bf16 (or
+    TF32 with 3 products for float32 q and k)."""
+    full, last = divmod(s, SCAN_CHUNK)
+    pairs = full * SCAN_CHUNK * (SCAN_CHUNK + 1) // 2 + last * (last + 1) // 2
+    qk_split = 2 if qk_bf16 else 3
+    tf32 = 3 * 2 * pairs * dv + 2 * qk_split * 2 * s * dk * dv
+    g = 2 * pairs * dk
+    if qk_bf16:
+        return b * h * (tf32 / TF32_OPS_PER_S + g / BF16_OPS_PER_S) * 1e3
+    return b * h * (tf32 + 3 * g) / TF32_OPS_PER_S * 1e3
+
+
 def scan_row(shape, seed: int) -> dict:
-    """linear_scan's times at `shape` in Zamba2's layout, with its bound:
-    the larger of the bytes (each distinct input element read once, o and
-    the float32 state written once) over the HBM rate and the
-    recurrence's 5 float32 operations per state element a step (k·v, the
-    decay's multiply-add, q·S's multiply-add) over the float32 rate."""
+    """linear_scan's times at `shape` in Zamba2's layout: the chunked
+    kernel (Mamba2's route) and the step kernel on the same inputs with w
+    materialized (its route), in turns; with the bound: the larger of the
+    bytes (each distinct input element read once, o and the float32 state
+    written once) over the HBM rate and the least operation time over the
+    two forms (`chunked_ms`; the step form's 5 float32 operations per
+    state element a step, k·v, the decay's multiply-add and q·S's, over
+    the float32 rate). Prints each term and the step kernel's time, which
+    includes reading the materialized w that Mamba2's route never reads
+    (its bytes at the HBM rate are printed beside it)."""
     b, h, s, dk, dv = shape
     q, k, v, w, _ = scan_inputs(shape, torch.Generator(device=DEVICE)
                                 .manual_seed(seed + 19))
-    ms = cuda_ms(lambda: ls_ops.linear_scan(q, k, v, w), 20)
+    w_dense = w.contiguous()
+    check(ls_ops.route(q, k, v, w) == "chunked"
+          and ls_ops.route(q, k, v, w_dense) == "step",
+          f"linear_scan routes at {shape}")
+    chunked = [cuda_ms(lambda: ls_ops.linear_scan(q, k, v, w), 20)]
+    step = [cuda_ms(lambda: ls_ops.linear_scan(q, k, v, w_dense), 20)
+            for _ in range(2)]
+    chunked.append(cuda_ms(lambda: ls_ops.linear_scan(q, k, v, w), 20))
+    ms, step_ms = sum(chunked) / 2, sum(step) / 2
     plain_ms = cuda_ms(lambda: ls_ref.linear_scan_ref(q, k, v, w), 1)
     moved = sum(distinct_bytes(t) for t in (q, k, v, w)) \
         + distinct_bytes(v) + 4 * b * h * dk * dv
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = 5 * b * h * s * dk * dv / FP32_OPS_PER_S * 1e3
+    t_chunked = chunked_ms(b, h, s, dk, dv, q.dtype == torch.bfloat16)
+    t_step = 5 * b * h * s * dk * dv / FP32_OPS_PER_S * 1e3
+    t_ops = min(t_chunked, t_step)
     b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes \
         else (t_bytes, "bytes")
+    print(f"linear_scan at (B, H, S, dk, dv) = {shape}, zamba2 layout: "
+          f"chunked kernel {ms:.6g} ms ({chunked[0]:.6g}, {chunked[1]:.6g}),"
+          f" step kernel {step_ms:.6g} ms ({step[0]:.6g}, {step[1]:.6g}), "
+          f"chunked / step {ms / step_ms:.3f}; bound {b_ms:.6g} ms "
+          f"({b_by}): bytes {t_bytes:.6g} ms, the chunked form's "
+          f"tensor-core operations {t_chunked:.6g} ms, the step form's "
+          f"float32 operations {t_step:.6g} ms; share of the bound reached "
+          f"{b_ms / ms:.3f} (step kernel {b_ms / step_ms:.3f}); the step "
+          f"kernel's time includes reading the dense w, "
+          f"{w_dense.numel() * 4 / 1e6:.6g} MB, "
+          f"{w_dense.numel() * 4 / HBM_BYTES_PER_S * 1e3:.6g} ms at the HBM "
+          f"rate; plain version {plain_ms:.6g} ms")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
 
@@ -1114,6 +1226,7 @@ def main() -> None:
             "linear_scan"]
         profile_scoring_call(model, cfg, args.seed,
                              {"scan_kernel": "linear_scan",
+                              "chunked_kernel": "linear_scan",
                               "flash_bf16": "flash_attention"})
         del model
     with phase("12 linear_scan times"):
@@ -1145,7 +1258,7 @@ def main() -> None:
                  "launches": fa_launches, "max_abs_err": fa_err,
                  **fa_rows[FA_PREFILL]})
     rows.append({"name": "linear_scan", "route": "cuda",
-                 "source": "src/repro_torch/csrc/linear_scan.cu",
+                 "source": "src/repro_torch/csrc/linear_scan_chunked.cu",
                  "replaces": "src/repro/kernels/linear_scan/"
                              "linear_scan.py:108",
                  "launches": ls_launches, "max_abs_err": ls_err,

@@ -76,12 +76,88 @@ def sqrt32(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
-def log32(x: torch.Tensor) -> torch.Tensor:
-    """Float32 natural log rounded from float64, the same on every device.
-    XLA's CPU log is a polynomial that differs from it by one unit in the
-    last place for some inputs, so bounds that take a log of delta can
-    differ from the reference's in their last bit."""
-    return torch.log(x.to(torch.float64)).to(torch.float32)
+def fma32(a, b, c) -> torch.Tensor:
+    """Float32 a·b + c rounded once, as the FMA instructions that XLA's CPU
+    backend contracts a multiply and an add into.
+
+    Emulated in float64: the product of two float32 values is exact there,
+    and the sum is rounded to float64 and then to float32. That double
+    rounding could differ from one rounding in principle; the sweep of
+    `xla_log32` (eleven such FMAs an input) against ``jnp.log`` in
+    ``tests/test_torch_stats.py``, 1.5 million inputs, finds no case of
+    it."""
+    a = torch.as_tensor(a, dtype=torch.float32)
+    return (a.double() * torch.as_tensor(b, dtype=torch.float32,
+                                         device=a.device).double()
+            + torch.as_tensor(c, dtype=torch.float32,
+                              device=a.device).double()).float()
+
+
+# Cephes' logf as XLA's CPU code holds it (float32 bit patterns): the
+# fold point sqrt(1/2), the polynomial's nine coefficients and ln 2 split
+# in two (q1 + q2).
+_LOG_SQRTHF = 0x3F3504F3
+_LOG_P = (0x3D9021BB, 0xBDEBD1B8, 0x3DEF251A, 0xBDFE5D4F, 0x3E11E9BF,
+          0xBE2AAE50, 0x3E4CCEAC, 0xBE7FFFFC, 0x3EAAAAAA)
+_LOG_Q1, _LOG_Q2 = 0xB95E8083, 0x3F318000
+_F32_MIN_NORMAL = 0x00800000
+
+
+def _bits32(b: int, like: torch.Tensor) -> torch.Tensor:
+    """The float32 whose bit pattern is `b`, on `like`'s device."""
+    b = b - (1 << 32) if b >= 1 << 31 else b
+    return torch.tensor(b, dtype=torch.int32, device=like.device).view(
+        torch.float32)
+
+
+def xla_log32(x) -> torch.Tensor:
+    """Float32 natural log, bit for bit ``jnp.log`` on XLA's CPU, on any
+    device (a tensor stays where it lies; anything else becomes a CPU
+    tensor).
+
+    XLA's CPU log is Cephes' ``logf``, with the multiply-adds that its
+    backend contracts into FMAs (`fma32`):
+
+    * range reduction by bits: x = m·2^e, m in [0.5, 1); m below sqrt(1/2)
+      folds to 2m − 1 with e − 1, else m − 1;
+    * the polynomial in three interleaved Horner chains, each step an FMA,
+      joined by two more FMAs in x³;
+    * y = fma(y, x³, q1·e), q1·e rounded alone; x = fma(−½, x², x);
+      x + y rounded; then fma(e, q2, ·).
+
+    XLA's CPU code runs with subnormals read as zero, so a subnormal input
+    gives −inf, as ±0 does; a negative input or nan gives nan (all bits
+    set); +inf gives +inf.
+    """
+    x = torch.as_tensor(x, dtype=torch.float32)
+    p = [_bits32(b, x) for b in _LOG_P]
+    min_normal = _bits32(_F32_MIN_NORMAL, x)
+    zero = x.abs() < min_normal                       # ±0 and subnormals
+    nonpos = ~(x > 0)                                 # x <= 0 or nan
+    inf = x == float("inf")
+
+    bits = torch.where(x > min_normal, x, min_normal).view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & 0x807FFFFF - (1 << 32)) | 0x3F000000).view(torch.float32)
+    fold = m < _bits32(_LOG_SQRTHF, x)
+    r = (m - 1.0) + torch.where(fold, m, torch.zeros_like(m))
+    e = e - fold.float()
+
+    r2 = r * r
+    r3 = r2 * r
+    y0 = fma32(fma32(r, p[0], p[1]), r, p[2])
+    y1 = fma32(fma32(r, p[3], p[4]), r, p[5])
+    y2 = fma32(fma32(r, p[6], p[7]), r, p[8])
+    y = fma32(fma32(y0, r3, y1), r3, y2)
+    y = fma32(y, r3, e * _bits32(_LOG_Q1, x))
+    r = fma32(r2, -0.5, r) + y
+    out = fma32(e, _bits32(_LOG_Q2, x), r).view(torch.int32)
+
+    # XLA's tail, in bits: nan for x <= 0, then −inf for zero, +inf for inf.
+    out = out | -nonpos.int()
+    special = zero.int() * (0xFF800000 - (1 << 32)) + inf.int() * 0x7F800000
+    out = torch.where(zero | inf, special, out)
+    return out.view(torch.float32)
 
 
 def reciprocal32(v: int, like: torch.Tensor) -> torch.Tensor:
@@ -98,7 +174,7 @@ def gaussian_width(sigma, s, delta) -> torch.Tensor:
     tensor of effective sizes (divided, and +inf where s == 0)."""
     sigma = torch.as_tensor(sigma, dtype=torch.float32)
     delta = _f32(delta, sigma)
-    spread = sqrt32(2.0 * log32(torch.div(_f32(1.0, delta), delta)))
+    spread = sqrt32(2.0 * xla_log32(torch.div(_f32(1.0, delta), delta)))
     if isinstance(s, int):
         if s <= 0:
             return torch.full_like(sigma, float("inf"))
@@ -109,32 +185,42 @@ def gaussian_width(sigma, s, delta) -> torch.Tensor:
     return torch.where(s > 0, w, _f32(float("inf"), w))
 
 
-def ub(mu, sigma, s, delta) -> torch.Tensor:
-    """Upper confidence bound UB(mu, sigma, s, delta) — Eq. (7)."""
-    return torch.as_tensor(mu, dtype=torch.float32) + gaussian_width(
-        sigma, s, delta)
-
-
 def lb(mu, sigma, s, delta) -> torch.Tensor:
     """Lower confidence bound LB(mu, sigma, s, delta) — Eq. (8)."""
     return torch.as_tensor(mu, dtype=torch.float32) - gaussian_width(
         sigma, s, delta)
 
 
-def sample_mean_std(z: torch.Tensor):
-    """Plug-in (mu_hat, sigma_hat) with the biased 1/n variance.
+def sample_sum_std(z: torch.Tensor):
+    """(sum, 1/n, sigma_hat) of a sample, sigma_hat with the biased 1/n
+    variance: the pieces of mu_hat = sum · (1/n) that the reference's
+    jitted estimators contract into the bound (`ub_of_sum`, `lb_of_sum`).
 
-    Both divide by the constant n as the reference's jitted estimators
-    do after XLA's rewrite: a product with the float32 reciprocal."""
+    Both divide by the constant n as those estimators do after XLA's
+    rewrite: a product with the float32 reciprocal."""
     z = torch.as_tensor(z, dtype=torch.float32).reshape(-1)
     inv_n = reciprocal32(z.numel(), z)
-    mu = tree_sum(z) * inv_n
-    var = tree_sum(torch.square(z - mu)) * inv_n
-    return mu, sqrt32(var)
+    total = tree_sum(z)
+    var = tree_sum(torch.square(z - total * inv_n)) * inv_n
+    return total, inv_n, sqrt32(var)
+
+
+def ub_of_sum(total, inv_n, sigma, s, delta) -> torch.Tensor:
+    """UB with mu = total · inv_n, the product contracted into the add,
+    fma(total, inv_n, width): what the reference's jitted estimators
+    compute for mu + width."""
+    return fma32(total, inv_n, gaussian_width(sigma, s, delta))
+
+
+def lb_of_sum(total, inv_n, sigma, s, delta) -> torch.Tensor:
+    """LB as `ub_of_sum`: fma(total, inv_n, −width), rounded once."""
+    return fma32(total, inv_n, -gaussian_width(sigma, s, delta))
 
 
 def weighted_prefix_mean_std(z: torch.Tensor, w: torch.Tensor):
-    """Weighted (mu, sigma, ess) of every prefix z[:i+1] (Kish ESS)."""
+    """Weighted (mu, sigma, ess) of every prefix z[:i+1] (Kish ESS), the
+    variance csq/n − mu² as one FMA, as XLA's CPU backend compiles it
+    under ``jit`` (the reference's precision scan)."""
     z = torch.as_tensor(z, dtype=torch.float32)
     w = torch.as_tensor(w, dtype=torch.float32)
     n = blocked_cumsum(w)
@@ -142,6 +228,6 @@ def weighted_prefix_mean_std(z: torch.Tensor, w: torch.Tensor):
     csq = blocked_cumsum(z * z * w)
     safe_n = torch.clamp_min(n, 1e-30)
     mu = csum / safe_n
-    var = torch.clamp_min(csq / safe_n - mu * mu, 0.0)
+    var = torch.clamp_min(fma32(-mu, mu, csq / safe_n), 0.0)
     ess = (n * n) / torch.clamp_min(blocked_cumsum(w * w), 1e-30)
     return mu, sqrt32(var), ess

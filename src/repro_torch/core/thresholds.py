@@ -86,10 +86,12 @@ def tau_ci_r(a_s, o_s, m_s, gamma, delta) -> ThresholdResult:
     above = (a_desc >= tau_o).to(torch.float32)
     z1 = om_desc * above
     z2 = om_desc * (1.0 - above)
-    mu1, sg1 = bounds.sample_mean_std(z1)
-    mu2, sg2 = bounds.sample_mean_std(z2)
-    ub1 = bounds.ub(mu1, sg1, s, delta / 2.0)
-    lb2 = torch.clamp_min(bounds.lb(mu2, sg2, s, delta / 2.0), 0.0)
+    # mu = sum · (1/s) is contracted into each bound, as under jit
+    sum1, inv_s, sg1 = bounds.sample_sum_std(z1)
+    sum2, _, sg2 = bounds.sample_sum_std(z2)
+    ub1 = bounds.ub_of_sum(sum1, inv_s, sg1, s, delta / 2.0)
+    lb2 = torch.clamp_min(bounds.lb_of_sum(sum2, inv_s, sg2, s, delta / 2.0),
+                          0.0)
     gamma_p = torch.clamp(ub1 / torch.clamp_min(ub1 + lb2, 1e-30),
                           min=gamma, max=_f32(1.0))
 
@@ -160,9 +162,10 @@ def pt_stage1_nmatch(o_s0, m_s0, n_total, gamma, delta):
     """Stage 1 of Algorithm 5: UB on n_match and the D' cutoff rank
     ceil(n_match / gamma), both clipped to [1, n_total]."""
     z = _f32(o_s0) * _f32(m_s0)
-    mu, sg = bounds.sample_mean_std(z)
+    total, inv_s, sg = bounds.sample_sum_std(z)
     n = _f32(n_total)
-    n_match = n * bounds.ub(mu, sg, z.shape[0], _f32(delta) / 2.0)
+    n_match = n * bounds.ub_of_sum(total, inv_s, sg, z.shape[0],
+                                   _f32(delta) / 2.0)
     n_match = torch.clamp(n_match, min=_f32(1.0), max=n)
     rank = torch.clamp(torch.ceil(n_match / _f32(gamma)),
                        min=_f32(1.0), max=n).to(torch.int32)

@@ -33,25 +33,31 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 
 class LaunchCounter:
-    """Count of a wrapper's kernel launches (thread-safe).
+    """Count of a wrapper's kernel launches (thread-safe), in all
+    (`count`) and, for a wrapper with a kernel per route, by route
+    (`routes`).
 
     A wrapper bumps it once where it launches its kernel, and nowhere
     else, so a run can show that its main path went through the kernel.
     """
 
-    def __init__(self):
+    def __init__(self, routes=()):
         self.count = 0
+        self.routes = dict.fromkeys(routes, 0)
         self._lock = threading.Lock()
 
-    def bump(self) -> None:
-        """Record one launch."""
+    def bump(self, route=None) -> None:
+        """Record one launch, on `route` if the wrapper has routes."""
         with self._lock:
             self.count += 1
+            if route is not None:
+                self.routes[route] += 1
 
     def reset(self) -> None:
-        """Set the count back to 0."""
+        """Set every count back to 0."""
         with self._lock:
             self.count = 0
+            self.routes = dict.fromkeys(self.routes, 0)
 
 
 def nvcc() -> str:

@@ -1,6 +1,16 @@
-"""Wrapper of the linear scan kernel: the CUDA kernel
-``csrc/linear_scan.cu`` for CUDA tensors, the plain version
-(`ref.linear_scan_ref`) for CPU ones.
+"""Wrapper of the linear scan kernels: on CUDA tensors, the chunked
+tensor-core kernel ``csrc/linear_scan_chunked.cu`` for Mamba2's inputs and
+the step kernel ``csrc/linear_scan.cu`` for every other input; the plain
+version (`ref.linear_scan_ref`) for CPU ones.
+
+`route` picks the CUDA kernel from the inputs' structure before the launch:
+the chunked kernel where u is None (Mamba2's read after the update), w has
+dim stride 0 (a scalar decay per step), dk and dv are at most 64 and q, k
+are bf16 or float32, and where its row copies can read q, k and v as they
+lie (dim stride 1, rows on 16-byte boundaries, dv a multiple of 4 and dk
+of 16 bytes); the step kernel otherwise (RWKV6's bonus u, a decay per state
+row). Neither falls back to the other: a launch that fails raises.
+`launches` counts both kernels' launches, `launches.routes` each route's.
 
 Tensors are in the JAX package's (B,H,S,d) layout (``kernels/linear_scan``).
 The kernel reads q, k, w and v through their strides, so broadcast views
@@ -31,22 +41,49 @@ from repro_torch.kernels.linear_scan import ref
 MAX_DIM = 64               # dk and dv a block's state holds
 DTYPES = (torch.bfloat16, torch.float32)
 
-launches = _build.LaunchCounter()
+launches = _build.LaunchCounter(routes=("chunked", "step"))
+# Each route's library, ``csrc/<name>.cu``, and the pointers its launch
+# takes before (batch, heads, seq, dk, dv, qk_bf16, strides, stream):
+# q, k, v, w, o, state, and the step kernel's u after w.
+LIBS = {"chunked": ("linear_scan_chunked", 6), "step": ("linear_scan", 7)}
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """The built kernel library, its C signatures bound once."""
-    lib = _build.load("linear_scan")
-    lib.linear_scan_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    lib.linear_scan_launch.restype = ctypes.c_int
-    lib.linear_scan_error_string.argtypes = [ctypes.c_int]
-    lib.linear_scan_error_string.restype = ctypes.c_char_p
-    return lib
+def _entry_points(which: str):
+    """`which` route's (launch, error_string), bound once."""
+    name, n_ptr = LIBS[which]
+    lib = _build.load(name)
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p, ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return launch, err
+
+
+def _rows_copyable(t: torch.Tensor) -> bool:
+    """Whether 16-byte copies can read `t`'s rows as they lie: dim stride 1,
+    the row's bytes and every other stride a multiple of 16 bytes, the
+    data on a 16-byte boundary."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and (t.shape[-1] * size) % 16 == 0
+            and t.data_ptr() % 16 == 0
+            and all((st * size) % 16 == 0 for st in t.stride()[:-1]))
+
+
+def route(q, k, v, w, u=None) -> str:
+    """The CUDA kernel that `linear_scan` launches for these inputs:
+    ``"chunked"`` for Mamba2's (see the module docstring), ``"step"``
+    otherwise. A function of shapes, dtypes and strides only, so it runs
+    on CPU tensors too."""
+    mamba2 = (u is None and w.stride(-1) == 0 and q.dtype in DTYPES
+              and k.dtype == q.dtype
+              and q.shape[-1] <= MAX_DIM and v.shape[-1] <= MAX_DIM)
+    if mamba2 and all(_rows_copyable(t) for t in (q, k, v)):
+        return "chunked"
+    return "step"
 
 
 def _check(q, k, v, w, u) -> None:
@@ -93,20 +130,22 @@ def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, w, u)
     b, h, s, dk = q.shape
     dv = v.shape[-1]
-    lib = _lib()
+    which = route(q, k, v, w, u)
+    launch, error_string = _entry_points(which)
     with torch.cuda.device(q.device):
         o = torch.empty_like(v)            # v's layout when v is dense
         state = torch.empty(b, h, dk, dv, dtype=torch.float32,
                             device=q.device)
         uf = None if u is None else u.float().contiguous()
+        ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr()]
+        if which == "step":
+            ptrs.append(None if uf is None else uf.data_ptr())
         strides = (ctypes.c_longlong * 20)(
             *(x for t in (q, k, v, w, o) for x in t.stride()))
-        status = lib.linear_scan_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-            None if uf is None else uf.data_ptr(), o.data_ptr(),
-            state.data_ptr(), b, h, s, dk, dv,
+        status = launch(
+            *ptrs, o.data_ptr(), state.data_ptr(), b, h, s, dk, dv,
             int(q.dtype == torch.bfloat16), ctypes.addressof(strides),
             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(status, lib.linear_scan_error_string, "linear_scan")
-    launches.bump()
+    _build.check(status, error_string, LIBS[which][0])
+    launches.bump(which)
     return o, state

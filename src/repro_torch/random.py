@@ -13,10 +13,9 @@ pairs. Seeds follow jax with 64-bit mode off: the key is
 ``[0, seed mod 2**32]``.
 
 `categorical` draws by Gumbel-max, as jax does. Its Gumbel noise takes two
-float32 logarithms, which XLA and numpy round differently in about one case
-in seven (by one unit in the last place); the noise here is rounded
-correctly from float64. The argmax it feeds is the drawn index, and that is
-what the tests hold equal to jax's.
+float32 logarithms, and `log32` takes the logits' one: all three are
+`repro_torch.core.bounds.xla_log32`, XLA's CPU log bit for bit, so the noise
+and the logits are jax's to the bit.
 
 >>> key = PRNGKey(0)
 >>> key.tolist()
@@ -30,6 +29,9 @@ from __future__ import annotations
 from typing import Sequence, Tuple, Union
 
 import numpy as np
+import torch
+
+from repro_torch.core.bounds import xla_log32
 
 Shape = Union[int, Sequence[int]]
 
@@ -132,9 +134,9 @@ def randint(key, shape: Shape, minval: int, maxval: int) -> np.ndarray:
 
 def gumbel(key, shape: Shape) -> np.ndarray:
     """Float32 Gumbel noise ``-log(-log(u))``, u uniform in [tiny, 1)."""
-    u = uniform(key, shape, minval=_F32_TINY, maxval=1.0)
-    inner = (-np.log(u.astype(np.float64))).astype(np.float32)
-    return (-np.log(inner.astype(np.float64))).astype(np.float32)
+    u = torch.from_numpy(np.asarray(uniform(key, shape, minval=_F32_TINY,
+                                            maxval=1.0)))
+    return (-xla_log32(-xla_log32(u))).numpy()
 
 
 def categorical(key, logits, shape: Shape) -> np.ndarray:
@@ -147,8 +149,7 @@ def categorical(key, logits, shape: Shape) -> np.ndarray:
 
 
 def log32(x) -> np.ndarray:
-    """Float32 natural log, rounded correctly from float64 (jax's logits
-    for `categorical` are ``jnp.log`` of float32 masses)."""
-    with np.errstate(divide="ignore"):
-        return np.log(np.asarray(x, np.float32).astype(np.float64)) \
-            .astype(np.float32)
+    """Float32 natural log of a numpy array, ``jnp.log`` bit for bit
+    (`xla_log32`; jax's logits for `categorical` are ``jnp.log`` of
+    float32 masses)."""
+    return xla_log32(torch.from_numpy(np.array(x, np.float32))).numpy()

@@ -279,32 +279,80 @@ def _scan_inputs(card, b, h, s, dk, dv, seed, w_const=None):
             for x in (q, k, v, w, u)]
 
 
+def _mamba_scan_inputs(card, b, h, s, n, hd, seed, law, dtype):
+    """Mamba2's layout as `mamba_block` hands it over: B and C (B,S,N)
+    normal in `dtype`, shared by the heads, and the decay (B,H,S) over N,
+    as stride-0 views; v = x · dt, a (B,S,H,hd) float32 tensor seen as
+    (B,H,S,hd). Decays exp(-dt), dt = softplus(normal · 0.88) (Zamba2's
+    law), or with ``law="tiny"`` 1e-6 in the first 8 steps of every 16 and
+    near 1 after; u normal at scale 0.3."""
+    rng = np.random.default_rng(seed)
+    bc = torch.tensor(rng.standard_normal((b, s, 2 * n)), device=card)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)) * 0.88))
+    a = np.exp(-dt)
+    if law == "tiny":
+        a = np.where((np.arange(s) % 16 < 8)[None, :, None], 1e-6,
+                     1 - 1e-3 * rng.random((b, s, h)))
+    x = rng.standard_normal((b, s, h, hd)) * dt[..., None]
+    v = torch.tensor(x, dtype=torch.float32, device=card).transpose(1, 2)
+    w = torch.tensor(a, dtype=torch.float32, device=card).transpose(1, 2)
+    bc = bc.to(dtype)
+    u = torch.tensor(rng.standard_normal((h, n)) * 0.3, dtype=torch.float32,
+                     device=card)
+    return (bc[..., n:][:, None].expand(b, h, s, n),
+            bc[..., :n][:, None].expand(b, h, s, n), v,
+            w[..., None].expand(b, h, s, n), u)
+
+
 # linear_scan against its plain version: the reference's atol = 1e-4
-# (tests/test_kernels.py) plus rtol 1e-5. Both compute the same float32
-# recurrence step by step and differ only in the order of each step's
-# q·S sum, a few float32 ulps of |o| (up to about 10 at dk = 64).
+# (tests/test_kernels.py) plus rtol 1e-5. The step kernel computes the same
+# float32 recurrence step by step and differs only in the order of each
+# step's q·S sum, a few float32 ulps of |o| (up to about 10 at dk = 64).
+# The chunked kernel computes the chunked form with split-TF32 products:
+# on Zamba2's bf16 path within 4.4e-7 of the largest |o| of the plain
+# version (chip_smoke.py phase 9, --seed 0, 1, 2, H100 80GB HBM3 at 700 W).
 SCAN_TOL = dict(atol=1e-4, rtol=1e-5)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,s,dk,dv,w_const", [
-    (2, 2, 128, 16, 24, None), (1, 1, 128, 8, 8, None),
-    (2, 3, 1000, 64, 64, None), (2, 3, 1, 64, 64, None),
-    (1, 4, 300, 64, 64, 0.05), (3, 2, 77, 33, 40, None)])
+@pytest.mark.parametrize("b,h,s,dk,dv,w_const,layout", [
+    (2, 2, 128, 16, 24, None, "plain"), (1, 1, 128, 8, 8, None, "plain"),
+    (2, 3, 1000, 64, 64, None, "plain"), (2, 3, 1, 64, 64, None, "plain"),
+    (1, 4, 300, 64, 64, 0.05, "plain"), (3, 2, 77, 33, 40, None, "plain"),
+    (2, 3, 63, 64, 64, None, "mamba"), (2, 3, 64, 64, 64, None, "mamba"),
+    (2, 3, 65, 64, 64, None, "mamba"), (2, 3, 1, 64, 64, None, "mamba"),
+    (2, 3, 300, 64, 64, "tiny", "mamba"),
+    (2, 3, 200, 64, 64, None, "mamba f32"),
+    (2, 3, 130, 16, 24, None, "mamba"),
+    (4, 64, 128, 64, 64, None, "mamba"),
+    (1, 64, 512, 64, 64, None, "mamba")])
 @pytest.mark.parametrize("bonus", [False, True])
 def test_linear_scan_kernel_matches_plain(card, b, h, s, dk, dv, w_const,
-                                          bonus):
+                                          layout, bonus):
     """Both modes, the reference's shapes, ragged S, S = 1 and w = 0.05
-    (below the Pallas kernel's log-decay floor); bitwise identical across
+    (below the Pallas kernel's log-decay floor); Mamba2's views through
+    the chunked kernel at a chunk's edges (S = 63, 64, 65), S = 1, decays
+    of 1e-6 early in each chunk, float32 q and k, dk, dv below 64, and
+    zamba2-1.2b's scoring and prefill layouts at small B (with u, the
+    same views go to the step kernel); bitwise identical across
     launches."""
-    q, k, v, w, u = _scan_inputs(card, b, h, s, dk, dv, s + dk, w_const)
+    if layout == "plain":
+        q, k, v, w, u = _scan_inputs(card, b, h, s, dk, dv, s + dk, w_const)
+    else:
+        q, k, v, w, u = _mamba_scan_inputs(
+            card, b, h, s, dk, dv, s + dk, w_const,
+            torch.float32 if layout == "mamba f32" else torch.bfloat16)
     uu = u if bonus else None
+    route = "chunked" if layout != "plain" and not bonus else "step"
+    assert ls_ops.route(q, k, v, w, uu) == route
     before = ls_ops.launches.count
+    on_route = ls_ops.launches.routes[route]
     o, st = ls_ops.linear_scan(q, k, v, w, uu)
     o2, st2 = ls_ops.linear_scan(q, k, v, w, uu)
     po, pst = ls_ref.linear_scan_ref(q, k, v, w, uu)
     torch.cuda.synchronize()
     assert ls_ops.launches.count == before + 2
+    assert ls_ops.launches.routes[route] == on_route + 2
     assert o.shape == v.shape and st.shape == (b, h, dk, dv)
     assert st.dtype == torch.float32
     torch.testing.assert_close(o, po, **SCAN_TOL)
@@ -316,9 +364,9 @@ def test_linear_scan_kernel_matches_plain(card, b, h, s, dk, dv, w_const,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_linear_scan_kernel_reads_mamba_broadcast_views(card, dtype):
     """Mamba2's layout: B and C (B,S,N) shared by the heads and a scalar
-    decay per head, as stride-0 views, v a transposed float32 view; o
-    comes back in v's layout and matches the plain version on
-    materialized copies."""
+    decay per head, as stride-0 views, v a transposed float32 view; they
+    take the chunked kernel, o comes back in v's layout and matches the
+    plain version on materialized copies."""
     b, s, h, n, hd = 2, 200, 6, 64, 32
     g = torch.Generator(device=card).manual_seed(3)
     bc = torch.randn(b, s, 2 * n, generator=g, device=card).to(dtype)
@@ -327,7 +375,9 @@ def test_linear_scan_kernel_reads_mamba_broadcast_views(card, dtype):
     q = bc[..., n:][:, None].expand(b, h, s, n)
     k = bc[..., :n][:, None].expand(b, h, s, n)
     w = a.transpose(1, 2)[..., None].expand(b, h, s, n)
+    chunked = ls_ops.launches.routes["chunked"]
     o, st = ls_ops.linear_scan(q, k, v, w)
+    assert ls_ops.launches.routes["chunked"] == chunked + 1
     po, pst = ls_ref.linear_scan_ref(q.contiguous(), k.contiguous(),
                                      v.contiguous(), w.contiguous())
     torch.cuda.synchronize()

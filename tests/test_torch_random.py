@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-
-from repro_torch import random as R
+pytest.importorskip("torch")
+from repro_torch import random as R  # noqa: E402
 
 SEEDS = [0, 1, 42, 123456, 2**31 - 1, 2**32 - 1, -5]
 
@@ -68,3 +68,14 @@ def test_categorical(seed, n_cat):
     np.testing.assert_array_equal(got, want)
     if n_cat > 2:
         assert not np.any(got == 1)
+
+
+@pytest.mark.parametrize("seed", SEEDS[:4])
+@pytest.mark.parametrize("shape", [(7,), (3000, 33)])
+def test_gumbel_bit_for_bit(seed, shape):
+    """Gumbel noise -log(-log u) takes both logs as XLA's CPU does, so it
+    equals jax's noise to the bit, not only the argmax it feeds."""
+    got = R.gumbel(R.PRNGKey(seed), shape)
+    want = _jax(jax.random.gumbel, _jax(jax.random.PRNGKey, seed), shape)
+    assert got.dtype == np.float32 and got.shape == shape
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

@@ -197,3 +197,130 @@ def test_port_is_finite_where_the_pallas_default_chunk_is_not():
     want = jscan_ops.linear_scan_recurrent(*map(jnp.asarray, (q, k, v, w)))
     for g, x in zip(got, want):
         np.testing.assert_allclose(g, np.asarray(x), atol=1e-5, rtol=1e-5)
+
+
+# -- the chunked kernel's algebra and its route ------------------------------
+
+def _chunked_f64(q, k, v, w, c):
+    """The algebra of the chunked CUDA kernel (``csrc/linear_scan_chunked
+    .cu``) in float64, for Mamba2's scalar decay per step (w read at dim
+    0): chunks of c steps, the last padded with zero rows and decays of 1;
+    in each, G = C Bᵀ, L[i, j] = a_{j+1} ··· a_i by running products down
+    each column (no ratio, no log), din_i = a_0 · L[i, 0], dout_j =
+    L[c-1, j], A = din_{c-1}, and
+
+        o = (G ∘ L) X + diag(din) C S,   S <- A S + Bᵀ diag(dout) X.
+    """
+    f = torch.float64
+    q, k, v = (torch.as_tensor(x).to(f) for x in (q, k, v))
+    a = torch.as_tensor(w).to(f)[..., 0].clamp(ref.W_MIN, 1.0)
+    b, h, s, dk = q.shape
+    pad = -s % c
+    q, k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
+    a = torch.nn.functional.pad(a, (0, pad), value=1.0)
+    cols = torch.arange(c)
+    state = torch.zeros(b, h, dk, v.shape[-1], dtype=f)
+    out = []
+    for t0 in range(0, s + pad, c):
+        cq, ck, x, ac = (t[:, :, t0:t0 + c] for t in (q, k, v, a))
+        lmat = torch.zeros(b, h, c, c, dtype=f)
+        prev = torch.zeros(b, h, c, dtype=f)
+        for i in range(c):
+            prev = torch.where(cols < i, prev * ac[..., i, None],
+                               (cols == i).to(f))
+            lmat[..., i, :] = prev
+        din = ac[..., :1] * lmat[..., :, 0]
+        dout = lmat[..., c - 1, :]
+        gmat = cq @ ck.transpose(-1, -2)
+        out.append((gmat * lmat) @ x + din[..., None] * (cq @ state))
+        state = din[..., -1, None, None] * state \
+            + ck.transpose(-1, -2) @ (dout[..., None] * x)
+    return torch.cat(out, dim=2)[:, :, :s], state
+
+
+def _mamba_decays(b, h, s, dk, law, seed):
+    """Decays (B,H,S) broadcast over dk as a stride-0 view: ``zamba2`` is
+    exp(-softplus(normal · 0.88)), ``tiny early`` sets the first 8 steps
+    of every 16 to 1e-6 and the rest near 1, ``one`` is exactly 1,
+    ``mixed`` puts 1e-6 at a fifth of the steps."""
+    rng = np.random.default_rng(seed)
+    a = np.exp(-np.log1p(np.exp(rng.standard_normal((b, h, s)) * 0.88)))
+    if law == "tiny early":
+        a = np.where(np.arange(s) % 16 < 8, 1e-6, 1 - 1e-3 * rng.random(
+            (b, h, s)))
+    elif law == "one":
+        a = np.ones((b, h, s))
+    elif law == "mixed":
+        a = np.where(rng.random((b, h, s)) < 0.2, 1e-6, a)
+    return torch.from_numpy(a.astype(np.float32))[..., None].expand(
+        b, h, s, dk)
+
+
+@pytest.mark.parametrize("c", [16, 64])
+@pytest.mark.parametrize("s,law", [(1, "zamba2"), (10, "zamba2"),
+                                   (63, "tiny early"), (64, "zamba2"),
+                                   (65, "mixed"), (100, "zamba2"),
+                                   (130, "one"), (200, "tiny early")])
+def test_chunked_algebra_equals_the_recurrence(c, s, law):
+    """The chunk decomposition that the CUDA kernel computes equals the
+    exact recurrence (the plain version in float64) to 1e-12 of the
+    largest output, at S < c, S = 1, ragged S, decays down to 1e-6 (also
+    1e-6 early in a chunk and near 1 after, where a log-space L loses
+    accuracy) and decays of exactly 1."""
+    b, h, dk, dv = 2, 3, 16, 8
+    rng = np.random.default_rng(s * 7 + c)
+    q, k = (torch.from_numpy(rng.standard_normal((b, h, s, dk))) for _ in
+            range(2))
+    v = torch.from_numpy(rng.standard_normal((b, h, s, dv)))
+    w = _mamba_decays(b, h, s, dk, law, s + c)
+    got = _chunked_f64(q, k, v, w, c)
+    want = ref.linear_scan_ref(q, k, v, w, compute_dtype=torch.float64)
+    for g, x in zip(got, want):
+        x = x.double()
+        err = float((g - x).abs().max())
+        assert err <= 1e-12 * float(x.abs().max()), (err, law)
+
+
+def _mamba_views(b, h, s, n, hd, dtype=torch.bfloat16, dv_pad=0):
+    """Mamba2's layout as `mamba_block` hands it over: B and C (B,S,N)
+    shared by the heads and the decay (B,H,S) over N as stride-0 views, v
+    a (B,S,H,hd) tensor seen as (B,H,S,hd)."""
+    bc = torch.randn(b, s, 2 * n).to(dtype)
+    v = torch.randn(b, s, h, hd + dv_pad)[..., :hd].transpose(1, 2)
+    return (bc[..., n:][:, None].expand(b, h, s, n),
+            bc[..., :n][:, None].expand(b, h, s, n), v,
+            _mamba_decays(b, h, s, n, "zamba2", 0))
+
+
+def test_route_takes_the_chunked_kernel_for_mamba2_views():
+    """Mamba2's views (bf16 or float32 q, k) go to the chunked kernel; a
+    decay per state row, RWKV6's bonus u and rows that 16-byte copies
+    cannot read go to the step kernel."""
+    q, k, v, w = _mamba_views(2, 4, 70, 64, 32)
+    assert ops.route(q, k, v, w) == "chunked"
+    assert ops.route(q.float(), k.float(), v, w) == "chunked"
+    assert ops.route(q, k, v, w.contiguous()) == "step"
+    assert ops.route(q, k, v, w, torch.zeros(4, 64)) == "step"
+    assert ops.route(q, k, v.contiguous(), w) == "chunked"
+    assert ops.route(q.half(), k.half(), v, w) == "step"
+    q8, k8, v8, w8 = _mamba_views(1, 2, 9, 8, 8)
+    assert ops.route(q8, k8, v8, w8) == "chunked"
+    _, _, v6, _ = _mamba_views(1, 2, 9, 8, 6)
+    assert ops.route(q8, k8, v6, w8) == "step"           # 24-byte rows
+    _, _, vpad, _ = _mamba_views(1, 2, 9, 8, 8, dv_pad=1)
+    assert ops.route(q8, k8, vpad, w8) == "step"         # 36-byte strides
+    q12, k12, v12, w12 = _mamba_views(1, 2, 9, 12, 8)
+    assert ops.route(q12, k12, v12, w12) == "step"       # 24-byte rows
+
+
+def test_cpu_runs_the_plain_version_on_either_route():
+    """On the CPU both routes run the plain recurrence and count no
+    launch."""
+    q, k, v, w = _mamba_views(1, 2, 40, 16, 8)
+    before = (ops.launches.count, dict(ops.launches.routes))
+    for ww in (w, w.contiguous()):
+        got = ops.linear_scan(q, k, v, ww)
+        want = ref.linear_scan_ref(q, k, v, ww)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x)
+    assert before == (ops.launches.count, dict(ops.launches.routes))

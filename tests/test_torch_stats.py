@@ -2,14 +2,15 @@
 primitives, Lemma-1 bounds and the §5 threshold estimators — against the
 JAX package on the same inputs.
 
-Integer and threshold outputs are exact. Float32 reductions run in XLA's
-CPU association order and are bit-equal. Two intermediate scalars are held
-to rtol 1e-6 instead: XLA's CPU log is a polynomial that differs from a
-correctly rounded log by one unit in the last place for some arguments,
-and its compiled estimators contract some multiply-adds into FMAs, so
-n_match (PT stage 1) and gamma' (RT) can differ in their last bit. The tau
-that comes out of them is compared exactly.
+Every output is held bit for bit. Float32 reductions run in XLA's CPU
+association order. The port's log is XLA's CPU log (Cephes' ``logf`` with
+its FMAs, `bounds.xla_log32`), swept against ``jnp.log`` here, and the
+port's estimators contract the multiply-adds that XLA's CPU backend
+contracts into FMAs under ``jit`` (mu = sum · 1/s into each bound; the
+precision scan's variance), so gamma' (RT) and n_match (PT stage 1) equal
+the reference's to the bit, as the tau that comes out of them does.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from repro.core import bounds as jbounds  # noqa: E402
 from repro.core import sampling as jsampling  # noqa: E402
 from repro.core import thresholds as jthresholds  # noqa: E402
 from repro.data import synthetic as jsynthetic  # noqa: E402
+from repro_torch import random as prandom  # noqa: E402
 from repro_torch.core import binned, bounds, sampling, thresholds  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 
@@ -132,14 +134,20 @@ CASES = [(seed, s, ties, g, d)
 
 
 def test_bounds_match_reference():
+    """The prefix and sample statistics equal the reference's as its
+    estimators run them, under ``jit`` (the bounds built on them are held
+    through the estimators, `test_tau_estimators_match_reference`)."""
     a, o, m = _sample(0, 3000, False)
     mu, sg, n = bounds.weighted_prefix_mean_std(_t(o), _t(m))
-    jmu, jsg, jn = jbounds.weighted_prefix_mean_std(o, m)
+    jmu, jsg, jn = jax.jit(jbounds.weighted_prefix_mean_std)(o, m)
     _eq(mu, jmu)
     _eq(sg, jsg)
     _eq(n, jn)
     z = o * m
-    _eq(bounds.sample_mean_std(_t(z))[0], jnp.mean(z))
+    total, inv_n, sigma = bounds.sample_sum_std(_t(z))
+    jmean, jsigma = jax.jit(jbounds.sample_mean_std)(z)
+    _eq(total * inv_n, jmean)
+    _eq(sigma, jsigma)
     w = bounds.gaussian_width(torch.tensor([0.0, 2.0]),
                               torch.tensor([0.0, 16.0]), 0.05)
     assert torch.isinf(w[0]) and torch.isfinite(w[1])
@@ -168,12 +176,60 @@ def test_tau_estimators_match_reference(seed, s, ties, gamma, delta):
         _eq(got.tau, want.tau)
         _eq(got.n_candidates, want.n_candidates)
         _eq(got.valid, want.valid)
-        np.testing.assert_allclose(got.corrected_target,
-                                   want.corrected_target, rtol=1e-6)
+        _eq(got.corrected_target, want.corrected_target)
     nm, rank = thresholds.pt_stage1_nmatch(o, m, 100_000, gamma, delta)
     jnm, jrank = jthresholds.pt_stage1_nmatch(o, m, 100_000, gamma, delta)
     _eq(rank, jrank)
-    np.testing.assert_allclose(nm, jnm, rtol=1e-6)
+    _eq(nm, jnm)
+
+
+# -- XLA's CPU log and FMA contractions ---------------------------------------
+
+_LOG_SPECIALS = np.array(
+    [0.0, -0.0, 1e-45, -1e-45, 1e-40, 1.1754942e-38, 1.1754944e-38, 1.0,
+     0.5, 2.0, 0.70710677, 0.7071068, 3.4028235e38, -1.0, np.inf, -np.inf,
+     np.nan], np.float32)
+
+
+def _log_sweep():
+    """1.5 million float32 inputs from a seed: random bit patterns (every
+    exponent, subnormals, negatives, infinities and nans), their absolute
+    values, a dense run over [1/4, 4] and the special values."""
+    rng = np.random.default_rng(20)
+    x = rng.integers(0, 2**32, 500_000, dtype=np.uint64).astype(
+        np.uint32).view(np.float32)
+    dense = np.linspace(0.25, 4.0, 500_000, dtype=np.float32)
+    return np.concatenate([x, np.abs(x), dense, _LOG_SPECIALS])
+
+
+def test_xla_log32_is_jnp_log_bit_for_bit():
+    x = _log_sweep()
+    got = bounds.xla_log32(_t(x)).numpy()
+    _eq(got.view(np.uint32), np.asarray(jnp.log(x)).view(np.uint32))
+
+
+def test_random_log32_is_xla_log32():
+    """The numpy entry point of the sampler (`random.log32`, the logits of
+    `categorical`) is the same function, special values included."""
+    x = _log_sweep()[::7]
+    got = prandom.log32(x)
+    assert got.dtype == np.float32 and got.shape == x.shape
+    _eq(got.view(np.uint32), bounds.xla_log32(_t(x)).numpy().view(np.uint32))
+    _eq(prandom.log32(np.float32(0.5)), jnp.log(np.float32(0.5)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fma32_contractions_match_jit(seed):
+    """The contracted variance of the weighted prefix statistics and the
+    contracted bounds equal the reference's under jit, where its op-by-op
+    results differ from them somewhere (the contractions are real)."""
+    a, o, m = _sample(seed, 3000, False)
+    got = bounds.weighted_prefix_mean_std(_t(o), _t(m))
+    jitted = jax.jit(jbounds.weighted_prefix_mean_std)(o, m)
+    eager = jbounds.weighted_prefix_mean_std(o, m)
+    for x, y in zip(got, jitted):
+        _eq(x, y)
+    assert not np.array_equal(np.asarray(jitted[1]), np.asarray(eager[1]))
 
 
 # -- synthetic corpora ----------------------------------------------------------
