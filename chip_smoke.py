@@ -9,13 +9,18 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    each, all at once) and prints each one's build time, registers and
    shared memory.
 2. Kernels: holds the engine's two CUDA kernels against their plain
-   PyTorch versions on the card, at the main path's shapes: a 2^22-record chunk
-   with 1% -1 sentinels, 4096 and 64 bins.
-   * score_hist: counts exact; sums within |k - p| <= 4e-3 |p| + 1e-3 of
-     the plain version, whose float32 scatter-add drifts by up to ~1e-3
-     relative in a bin holding millions of records; within
+   PyTorch versions on the card, at the main path's shapes: 2^22-record
+   chunks, 4096 and 64 bins.
+   * score_hist with the chunk masses, in one launch, on four inputs: the
+     corpus's Beta chunk with 1% -1 sentinels, uniform scores, scores in
+     four bins and scores in one bin. Counts exact; sums within
      1e-6 |e| + n 2^-32 of a float64 sum (the kernel's fixed point
-     truncates each value below 2^-32); bitwise identical across two
+     truncates each run below 2^-32) and, on the Beta and uniform chunks,
+     within |k - p| <= 4e-3 |p| + 1e-3 of the plain version, whose float32
+     scatter-add drifts by up to ~1e-3 relative in a bin holding millions
+     of records (where all records fall in a few bins it drifts past that
+     bar itself, so float64 decides: `HIST_INPUTS`); masses within
+     rel 1e-12 of torch.float64 sums; all bitwise identical across two
      launches.
    * threshold_select: indices exactly equal at tau 0, 0.5, 0.999, 1.01,
      on an empty input and on lengths that are not a multiple of its
@@ -33,8 +38,14 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    A small corpus also runs through the card's engine and a CPU engine
    from one corpus state: tau, counts and indices must agree.
 4. Times: kernel, plain and library times at a 2^22-record chunk beside
-   the card's bound; for threshold_select also its device time alone (no
-   read-back) and threshold_count's; engine build and query wall times.
+   the card's bound; for score_hist on the Beta, uniform and clustered
+   inputs, its call and its launch alone as device time beside three
+   `torch.bincount` calls; for threshold_select also its device time
+   alone (no read-back) and threshold_count's; engine build and query
+   wall times. Then one build at workers 1 and one at 8 under
+   torch.profiler, split by step and kernel: exactly one score_hist
+   launch a chunk and three device-to-host copies (the masses' one
+   read-back and two normalizers); and three builds at each worker count.
 5. flash_attention against its plain version on the card, in bf16
    within BF16_ATOL + 2^-7 |plain| each and BF16_FRO_TOL ||plain|| in all
    (sized from a measurement: see the note at the constants), and in
@@ -134,6 +145,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -146,7 +158,8 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import random as R  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import queries  # noqa: E402
+from repro_torch.core import binned, queries, sampling  # noqa: E402
+from repro_torch.core import engine as engine_mod  # noqa: E402
 from repro_torch.core.engine import SelectionEngine  # noqa: E402
 from repro_torch.core.oracle import array_oracle  # noqa: E402
 from repro_torch.core.queries import JointSUPGQuery, SUPGQuery  # noqa: E402
@@ -238,8 +251,20 @@ LOGIT_TOL = {ARCH: (BF16_LOGIT_TOL, F32_LOGIT_TOL),
              ZAMBA: (ZAMBA_BF16_LOGIT_TOL, ZAMBA_F32_LOGIT_TOL)}
 # Operations each kernel does per record, counted from its source:
 # score_hist compares, clips, scales, converts and takes a square root
-# (8); threshold_select compares once.
-OPS_PER_RECORD = {"score_hist": 8, "threshold_select": 1}
+# (8) and adds both float64 mass terms (2, counted at the float32 rate:
+# the bytes bound it either way); threshold_select compares once.
+OPS_PER_RECORD = {"score_hist": 10, "threshold_select": 1}
+# score_hist's inputs (phases 2 and 4), each a 2^22-record chunk, and
+# whether the plain version's float32 sums are a bar for it. Where every
+# record falls in a few bins, the plain float32 scatter-add drifts far
+# from the exact sums (a bin of a million records near 0.3 adds each below
+# half an ulp of its total), beyond its own bar of 4e-3 |e| + 1e-3; there
+# float64 sums alone decide.
+HIST_INPUTS = {"beta": True, "uniform": True, "clustered": False,
+               "one bin": False}
+# The build's wall at workers 1 and 8 on the same corpus when each chunk
+# ran its own masses pass and read-back (PERF.md §5, phase 3 then).
+SEPARATE_MASSES_BUILD_S = {1: 0.040, 8: 0.089}
 LS_PREFILL = (4, 64, 4096, 64, 64)    # B, H, S, dk, dv: zamba2-1.2b prefill
 LS_SCORING = (256, 64, 128, 64, 64)   # the scoring batch
 FA_ZAMBA = (4, 4096, 32, 32, 64)      # zamba2's shared attention block
@@ -353,34 +378,78 @@ def bound(name: str, n: int, bytes_moved: int):
 
 # -- phase 2 -------------------------------------------------------------------
 
-def check_kernels(chunk: torch.Tensor) -> dict:
-    """Phase 2: each kernel against its plain version; returns each
-    kernel's largest |kernel - plain|."""
-    errs = {}
-    for bins in (4096, 64):
-        got = sh_ops.score_hist(chunk, bins)
-        again = sh_ops.score_hist(chunk, bins)
-        plain = sh_ref.score_hist_ref(chunk, bins)
-        valid = chunk >= 0
-        a = chunk.clamp(0.0, 1.0)[valid]
-        ids = sh_ref.bin_index(chunk, bins)[valid]
-        exact = [torch.bincount(ids, weights=w, minlength=bins)
-                 for w in (a.double().sqrt(), a.double())]
-        torch.cuda.synchronize()
-        check(torch.equal(got[0], plain[0]), f"score_hist counts, {bins}")
-        check(all(torch.equal(x, y) for x, y in zip(got, again)),
-              f"score_hist repeat launches differ, {bins} bins")
-        for k, p, e in zip(got[1:], plain[1:], exact):
+def hist_input(kind: str, chunk: torch.Tensor, g) -> torch.Tensor:
+    """A 2^22-record score_hist input: "beta" is `chunk` (the corpus's
+    Beta(0.01, 1) scores); "uniform" is uniform on [0, 1); "clustered" puts
+    every record in one of four bins of 4096 (and of 64), "one bin" all of
+    them in one."""
+    u = torch.rand(chunk.numel(), device=chunk.device, generator=g)
+    if kind == "beta":
+        return chunk
+    if kind == "uniform":
+        return u
+    if kind == "clustered":
+        k = torch.tensor([517.0, 1024.0, 2900.0, 4000.0], device=u.device)[
+            torch.randint(0, 4, u.shape, device=u.device, generator=g)]
+        return (k + 0.25 + 0.5 * u) / 4096
+    return (1234.25 + 0.5 * u) / 4096
+
+
+def check_hist(s: torch.Tensor, bins: int, plain_bar: bool, label: str):
+    """score_hist with its masses on `s` against its plain versions and
+    float64 sums: counts exact; sums within 1e-6 |e| + n 2^-32 of float64
+    (the fixed point truncates each run below 2^-32) and, if `plain_bar`,
+    within 4e-3 |p| + 1e-3 of the plain float32 sums; masses within
+    rel 1e-12 of torch.float64 sums; all bitwise on a second launch.
+    Returns the largest |kernel - plain|."""
+    m1 = torch.empty(2, dtype=torch.float64, device=s.device)
+    m2 = torch.empty_like(m1)
+    got = sh_ops.score_hist(s, bins, masses=m1)
+    again = sh_ops.score_hist(s, bins, masses=m2)
+    plain = sh_ref.score_hist_ref(s, bins)
+    plain_m = sh_ref.chunk_masses_ref(s)
+    valid = s >= 0
+    a = s.clamp(0.0, 1.0)[valid]
+    ids = sh_ref.bin_index(s, bins)[valid]
+    exact = [torch.bincount(ids, weights=w, minlength=bins)
+             for w in (a.double().sqrt(), a.double())]
+    torch.cuda.synchronize()
+    what = f"score_hist {label}, {bins} bins"
+    check(torch.equal(got[0], plain[0]), f"{what}: counts")
+    check(all(torch.equal(x, y) for x, y in zip(got, again))
+          and torch.equal(m1, m2), f"{what}: repeat launches differ")
+    for k, p, e in zip(got[1:], plain[1:], exact):
+        if plain_bar:
             check(bool(((k - p).abs() <= 4e-3 * p.abs() + 1e-3).all()),
-                  f"score_hist sums vs plain, {bins} bins")
-            tol = 1e-6 * e.abs() + chunk.numel() * 2.0 ** -32
-            check(bool(((k.double() - e).abs() <= tol).all()),
-                  f"score_hist sums vs float64, {bins} bins")
-        err = max(float((k - p).abs().max()) for k, p in zip(got, plain))
-        errs["score_hist"] = max(errs.get("score_hist", 0.0), err)
-        print(f"score_hist {bins} bins: counts exact, repeat bitwise, "
-              f"max |kernel - plain| {err:.6g}, max |kernel - float64| "
-              f"{max(float((k.double() - e).abs().max()) for k, e in zip(got[1:], exact)):.6g}")
+                  f"{what}: sums vs plain")
+        tol = 1e-6 * e.abs() + s.numel() * 2.0 ** -32
+        check(bool(((k.double() - e).abs() <= tol).all()),
+              f"{what}: sums vs float64")
+    rel = float(((m1 - plain_m).abs() / plain_m.abs()).max())
+    check(rel <= 1e-12, f"{what}: masses {rel:.3g} from float64")
+    err = max(float((k - p).abs().max()) for k, p in zip(got, plain))
+    drift = max(float(((p.double() - e).abs() / (4e-3 * e.abs() + 1e-3))
+                      .max()) for p, e in zip(plain[1:], exact))
+    print(f"{what}: counts exact, repeat bitwise, max |kernel - plain| "
+          f"{err:.6g}, max |kernel - float64| "
+          f"{max(float((k.double() - e).abs().max()) for k, e in zip(got[1:], exact)):.6g}, "
+          f"masses {rel:.3g} from float64; the plain sums' distance from "
+          f"float64 over their bar {drift:.3g}"
+          + ("" if plain_bar else " (float64 decides)"))
+    return err
+
+
+def check_kernels(chunk: torch.Tensor, g) -> dict:
+    """Phase 2: each kernel against its plain version; returns each
+    kernel's largest |kernel - plain| (score_hist's where the plain sums
+    are a bar)."""
+    errs = {"score_hist": 0.0}
+    for kind, plain_bar in HIST_INPUTS.items():
+        s = hist_input(kind, chunk, g)
+        for bins in (4096, 64):
+            err = check_hist(s, bins, plain_bar, kind)
+            if plain_bar:
+                errs["score_hist"] = max(errs["score_hist"], err)
     for n, tau in [(CHUNK, tau) for tau in (0.0, 0.5, 0.999, 1.01)] + [
             (n, 0.3) for n in (0, 1000, 5000, CHUNK - 1)]:
         part = chunk[:n]
@@ -1053,7 +1122,84 @@ def scan_row(shape, seed: int) -> dict:
 
 # -- phase 4 -------------------------------------------------------------------
 
-def kernel_times(flat, tau_rt):
+def hist_times(chunks, g) -> dict:
+    """score_hist per 2^22-record chunk on the Beta corpus (`chunks`),
+    uniform and clustered inputs (8 chunks each, cycled): the call (one
+    launch with its masses, no read-back), the launch alone as device
+    time, the plain versions (the sketch and the masses) and three
+    `torch.bincount` calls; prints a line for each input."""
+    m = torch.empty(2, dtype=torch.float64, device=chunks[0].device)
+    out = {}
+    for kind in ("beta", "uniform", "clustered"):
+        inputs = [hist_input(kind, c, g) for c in chunks]
+        it = {"i": 0}
+
+        def nxt():
+            it["i"] = (it["i"] + 1) % len(inputs)
+            return inputs[it["i"]]
+
+        def plain():
+            c = nxt()
+            return sh_ref.score_hist_ref(c, 4096), sh_ref.chunk_masses_ref(c)
+
+        def library():
+            c = nxt()
+            valid = c >= 0
+            a = c.clamp(0.0, 1.0)
+            ids = torch.clamp_max((a * 4096).long(), 4095)
+            v = valid.float()
+            return (torch.bincount(ids, weights=v, minlength=4096),
+                    torch.bincount(ids, weights=a.sqrt() * v, minlength=4096),
+                    torch.bincount(ids, weights=a * v, minlength=4096))
+
+        r = out[kind] = {
+            "call_ms": cuda_ms(lambda: sh_ops.score_hist(nxt(), 4096,
+                                                         masses=m), 50),
+            "device_ms": device_ms(lambda: sh_ops.score_hist(nxt(), 4096,
+                                                             masses=m), 50),
+            "plain_ms": cuda_ms(plain, 5),
+            "bincount_ms": cuda_ms(library, 20)}
+        print(f"score_hist at a 2^22 chunk, {kind}: call {r['call_ms']:.6g} "
+              f"ms (one launch with its masses, no read-back), the launch "
+              f"alone {r['device_ms']:.6g} ms of device time; plain "
+              f"{r['plain_ms']:.6g} ms; 3 x torch.bincount "
+              f"{r['bincount_ms']:.6g} ms; bound "
+              f"{(4 * CHUNK + 3 * 4096 * 4 + 16) / HBM_BYTES_PER_S * 1e3:.6g}"
+              " ms")
+    return out
+
+
+def build_times(scores, n_chunks: int) -> None:
+    """Engine builds over the phase-3 corpus: one at workers 1 and one at
+    8 under the profiler (`profile_build`), each with exactly one
+    score_hist launch a chunk and three device-to-host copies (the chunk
+    masses' one read-back and the two normalizers); then three unprofiled
+    builds at each worker count, host clock ending in a synchronize."""
+    shards = list(torch.tensor_split(scores, N_SHARDS))
+    for workers in (1, 8):
+        prof = profile_build(shards, workers)
+        hist = sum(n for name, n in prof["launches"].items()
+                   if "hist_chunk" in name)
+        check(hist == n_chunks, f"build at workers {workers}: {hist} "
+              f"score_hist launches for {n_chunks} chunks")
+        check(prof["d2h"] == 3, f"build at workers {workers}: "
+              f"{prof['d2h']} device-to-host copies, expected 3")
+    for workers in (1, 8):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            SelectionEngine(shards, num_bins=4096, workers=workers,
+                            clamp_workers=False, device=DEVICE).close()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print(f"build wall s at workers {workers}: "
+              + ", ".join(f"{w:.5f}" for w in walls)
+              + " (with a masses pass a chunk: "
+              f"{SEPARATE_MASSES_BUILD_S[workers]})")
+
+
+def kernel_times(flat, tau_rt, g):
     """Per-call times at 2^22-record chunks of the corpus, cycling over 8
     chunks (128 MiB, past the 50 MB L2) so reads come from HBM."""
     chunks = [flat[i * CHUNK:(i + 1) * CHUNK] for i in range(8)]
@@ -1063,29 +1209,18 @@ def kernel_times(flat, tau_rt):
         it["i"] = (it["i"] + 1) % len(chunks)
         return chunks[it["i"]]
 
-    def library_hist():
-        c = nxt()
-        valid = c >= 0
-        a = c.clamp(0.0, 1.0)
-        ids = torch.clamp_max((a * 4096).long(), 4095)
-        v = valid.float()
-        return (torch.bincount(ids, weights=v, minlength=4096),
-                torch.bincount(ids, weights=a.sqrt() * v, minlength=4096),
-                torch.bincount(ids, weights=a * v, minlength=4096))
-
+    hist = hist_times(chunks, g)["beta"]
     thr = torch.tensor(ts_ref.threshold32(tau_rt), device=flat.device)
     k = int((chunks[0] >= thr).sum())
     t = {
-        "score_hist": (cuda_ms(lambda: sh_ops.score_hist(nxt(), 4096), 50),
-                       cuda_ms(lambda: sh_ref.score_hist_ref(nxt(), 4096),
-                               5),
-                       cuda_ms(library_hist, 20)),
+        "score_hist": (hist["call_ms"], hist["plain_ms"],
+                       hist["bincount_ms"]),
         "threshold_select": (
             cuda_ms(lambda: ts_ops.threshold_select(nxt(), tau_rt), 50),
             cuda_ms(lambda: ts_ref.threshold_select_ref(nxt(), tau_rt), 50),
             cuda_ms(lambda: torch.nonzero(nxt() >= thr), 50)),
     }
-    byts = {"score_hist": 4 * CHUNK + 3 * 4096 * 4,
+    byts = {"score_hist": 4 * CHUNK + 3 * 4096 * 4 + 16,
             "threshold_select": 4 * CHUNK + 8 * k}
     # threshold_select's one launch alone, with no read-back, and
     # threshold_count's memset and launch, both as device time.
@@ -1103,6 +1238,83 @@ def kernel_times(flat, tau_rt):
           f"torch.nonzero(s >= tau) {t['threshold_select'][2]:.6g} ms; "
           f"bound {byts['threshold_select'] / HBM_BYTES_PER_S * 1e3:.6g} ms")
     return t, byts
+
+
+def _build_steps():
+    """(label, owner, attribute) of each step of an engine build that
+    `profile_build` times on the host, where the owner has it."""
+    return [("_residency", engine_mod, "_residency"),
+            ("chunk pass (_sketch_shards)", SelectionEngine,
+             "_sketch_shards"),
+            ("per-chunk unit", binned, "chunk_sketch_into"),
+            ("score_hist call", sh_ops, "score_hist"),
+            # The per-chunk steps of a build before score_hist took over
+            # the masses, so that one profile reads an older tree too.
+            ("per-chunk unit", binned, "chunk_sketch_stats"),
+            ("masses (chunk_raw_masses)", sampling, "chunk_raw_masses"),
+            ("merge_sketches", binned, "merge_sketches"),
+            ("weight_normalizers", binned, "weight_normalizers"),
+            ("_sampling_state", SelectionEngine, "_sampling_state")]
+
+
+def profile_build(shards, workers: int) -> dict:
+    """One engine build over `shards` at `workers` under torch.profiler,
+    with host timers on its steps (`_build_steps`: summed over threads, so
+    at workers > 1 the per-chunk steps overlap). Prints the build's wall,
+    each step's host time and calls, the device time by kernel, the
+    device-to-host copies and the device's busy share; returns the wall
+    (s) and the kernel launches by name."""
+    spent, lock = {}, threading.Lock()
+
+    def timed(label, fn):
+        @functools.wraps(fn)
+        def inner(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                with lock:
+                    s, n = spent.get(label, (0.0, 0))
+                    spent[label] = (s + time.perf_counter() - t0, n + 1)
+        return inner
+
+    patches = [mock.patch.object(owner, attr, timed(label,
+                                                    getattr(owner, attr)))
+               for label, owner, attr in _build_steps()
+               if hasattr(owner, attr)]
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        prof = stack.enter_context(torch.profiler.profile(
+            activities=activities))
+        t0 = time.perf_counter()
+        eng = SelectionEngine(shards, num_bins=4096, workers=workers,
+                              clamp_workers=False, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng.close()
+    events = prof.key_averages()
+    kernels = [(e.key, e.self_device_time_total, e.count) for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_us = sum(t for _, t, _ in kernels)
+    d2h = sum(e.count for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "DtoH" in e.key)
+    print(f"build at workers {workers} under the profiler: wall "
+          f"{wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
+          f"({busy_us / 1e6 / wall:.3f} of the wall), {d2h} device-to-host "
+          "copies; host time by step (summed over threads, calls):")
+    for label, (s, n) in sorted(spent.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {s * 1e3:9.3f} ms  x{n:<4d} {label}")
+    print("  device time by kernel:")
+    for name, t, n in sorted(kernels, key=lambda k: -k[1])[:12]:
+        print(f"  {t / 1e3:9.3f} ms  x{n:<4d} {name[:100]}")
+    return {"wall_s": wall, "d2h": d2h,
+            "launches": {name: n for name, _, n in kernels}}
 
 
 class Phases:
@@ -1168,7 +1380,7 @@ def main() -> None:
         g = torch.Generator(device=DEVICE).manual_seed(args.seed + 7)
         chunk = scores[:CHUNK].clone()
         chunk[torch.rand(CHUNK, device=DEVICE, generator=g) < 0.01] = -1.0
-        errs = check_kernels(chunk)
+        errs = check_kernels(chunk, g)
         small_agreement(args.seed)
 
         sh_ops.launches.reset()
@@ -1188,7 +1400,9 @@ def main() -> None:
                                      for k, v in walls.items()))
 
         tau_rt = results[1]["RT"].tau
-        times, byts = kernel_times(results[1]["engine"]._state.flat, tau_rt)
+        times, byts = kernel_times(results[1]["engine"]._state.flat, tau_rt,
+                                   g)
+        build_times(scores, n_chunks)
         del results, scores, chunk
 
     with phase("5 flash_attention"):

@@ -7,8 +7,9 @@ from one fixed-width histogram sketch, built in one pass:
   sum_w[b]     sum of sqrt(A(x)) in bin b -> normalizer of Theorem-1 weights
   sum_a[b]     sum of A(x) in bin b       -> normalizer of 'prop' weights
 
-The per-chunk pass is the `score_hist` kernel on the card (its plain
-version on the CPU). Sketches are float32 tensors on the corpus's device;
+The per-chunk pass (the sketch and the chunk's float64 sampling masses)
+is one `score_hist` kernel launch on the card (its plain versions on the
+CPU). Sketches are float32 tensors on the corpus's device;
 merging is the reference's left fold, and the normalizers and the rank
 lookup sum in its order (`bounds.tree_sum`, `bounds.blocked_cumsum`).
 """
@@ -19,7 +20,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import bounds, sampling
+from repro_torch.core import bounds
 from repro_torch.kernels.score_hist import ops as hist_ops
 
 DEFAULT_BINS = 4096
@@ -50,12 +51,23 @@ def build_sketch(scores: torch.Tensor, num_bins: int = DEFAULT_BINS) \
     return ScoreSketch(*hist_ops.score_hist(scores, num_bins))
 
 
+def chunk_sketch_into(chunk: torch.Tensor, masses: torch.Tensor,
+                      num_bins: int = DEFAULT_BINS) -> ScoreSketch:
+    """One construction-pass unit with no read-back: the chunk's sketch,
+    and its float64 raw sampling masses (Σ sqrt(A), Σ A) for the
+    hierarchical sampler written into `masses`, a (2,) float64 tensor on
+    the chunk's device (a row of the build's buffer). On the card one
+    kernel launch computes both."""
+    return ScoreSketch(*hist_ops.score_hist(chunk, num_bins, masses=masses))
+
+
 def chunk_sketch_stats(chunk: torch.Tensor, num_bins: int = DEFAULT_BINS) \
         -> Tuple[ScoreSketch, float, float]:
-    """One construction-pass unit: a chunk's sketch plus its float64 raw
-    sampling masses (Σ sqrt(A), Σ A) for the hierarchical sampler."""
-    s_sqrt, s_a = sampling.chunk_raw_masses(chunk)
-    return build_sketch(chunk, num_bins), s_sqrt, s_a
+    """`chunk_sketch_into` with the masses read back as host floats."""
+    masses = torch.empty(2, dtype=torch.float64, device=chunk.device)
+    sketch = chunk_sketch_into(chunk, masses, num_bins)
+    s_sqrt, s_a = masses.tolist()
+    return sketch, s_sqrt, s_a
 
 
 def merge_sketches(*sketches: ScoreSketch) -> ScoreSketch:

@@ -358,27 +358,35 @@ class SelectionEngine:
 
     def _sketch_shards(self, shards: List, plan: pipeline.ChunkPlan):
         """Chunked sketch + raw-mass pass: per-shard sketches (left-fold
-        merged in span order) and per-shard `ChunkMasses`."""
+        merged in span order) and per-shard `ChunkMasses`. Each chunk
+        writes its masses into its row of one float64 (n_chunks, 2)
+        buffer on the engine's device, read back once after the pass."""
         spans = list(plan)
-        stats = self.pool.map(
-            lambda sp: binned.chunk_sketch_stats(
-                self._span(shards[sp.shard_id], sp.start, sp.stop),
-                self.num_bins), spans)
+        sums = torch.empty((len(spans), 2), dtype=torch.float64,
+                           device=self.device)
+
+        def sketch(i):
+            sp = spans[i]
+            return binned.chunk_sketch_into(
+                self._span(shards[sp.shard_id], sp.start, sp.stop), sums[i],
+                self.num_bins)
+
+        stats = self.pool.map(sketch, range(len(spans)))
+        host = sums.cpu().numpy()          # the pass's one read-back
         parts: List[List] = [[] for _ in shards]
-        sums: List[List[Tuple[float, float, int]]] = [[] for _ in shards]
-        for sp, (sk, s_sqrt, s_a) in zip(spans, stats):
+        rows: List[List[int]] = [[] for _ in shards]
+        for i, (sp, sk) in enumerate(zip(spans, stats)):
             parts[sp.shard_id].append(sk)
-            sums[sp.shard_id].append((s_sqrt, s_a, sp.size))
+            rows[sp.shard_id].append(i)
         sketches = [binned.merge_sketches(*p) if p else
                     binned.empty_sketch(self.num_bins, self.device)
                     for p in parts]
         masses = [
             sampling.ChunkMasses(
-                np.asarray([t[0] for t in ss], np.float64),
-                np.asarray([t[1] for t in ss], np.float64),
-                np.asarray([t[2] for t in ss], np.int64))
-            if ss else sampling.ChunkMasses.empty()
-            for ss in sums]
+                host[r, 0], host[r, 1],
+                np.asarray([spans[i].size for i in r], np.int64))
+            if r else sampling.ChunkMasses.empty()
+            for r in rows]
         return sketches, masses
 
     # -- lifecycle ------------------------------------------------------

@@ -69,18 +69,6 @@ class ChunkMasses(NamedTuple):
                    np.empty(0, np.int64))
 
 
-def chunk_raw_masses(chunk: torch.Tensor) -> Tuple[float, float]:
-    """Float64 Σ sqrt(A) and Σ A over one chunk (sentinels contribute 0).
-
-    Each term is the float32 value, summed in float64 on the chunk's
-    device; the summation order is torch's, so a sum can differ from the
-    reference's numpy sum in its last bits."""
-    a = torch.clamp(chunk.to(torch.float32), 0.0, 1.0)
-    sums = torch.stack([sqrt32(a).to(torch.float64).sum(),
-                        a.to(torch.float64).sum()]).cpu()
-    return float(sums[0]), float(sums[1])
-
-
 def defensive_chunk_mass(raw: np.ndarray, sizes: np.ndarray, z: float,
                          kappa: float, n_total: int) -> np.ndarray:
     """Total defensive-mixture draw probability of each chunk:

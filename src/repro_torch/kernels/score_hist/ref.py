@@ -1,4 +1,4 @@
-"""Plain PyTorch score sketch (scatter-add formulation).
+"""Plain PyTorch score sketch (scatter-add formulation) and chunk masses.
 
 The CPU path of `ops.score_hist`, and what the CUDA kernel is held against
 on the card. Float32 `index_add_` on the CPU adds in record order, as the
@@ -33,3 +33,13 @@ def score_hist_ref(scores: torch.Tensor, num_bins: int = 4096) \
                            device=s.device).index_add_(0, ids, values)
 
     return scatter(valid), scatter(sqrt32(a) * valid), scatter(a * valid)
+
+
+def chunk_masses_ref(scores: torch.Tensor) -> torch.Tensor:
+    """(2,) float64 on the scores' device: Σ sqrt(clip(A,0,1)) and
+    Σ clip(A,0,1), each term the float32 value (its square root correctly
+    rounded, `sqrt32`), summed in float64 in torch's order; sentinels
+    contribute 0. The chunk's raw sampling masses."""
+    a = torch.clamp(scores.to(torch.float32), 0.0, 1.0)
+    return torch.stack([sqrt32(a).to(torch.float64).sum(),
+                        a.to(torch.float64).sum()])

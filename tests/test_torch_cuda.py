@@ -48,20 +48,182 @@ def card():
     return torch.device("cuda")
 
 
+def _hist_scores(card, n, fill, seed):
+    """n scores for score_hist: "beta" as `_scores` draws them (1% -1
+    sentinels), "uniform" on [0, 1), "clustered" in four bins of 4096 (one
+    of 64), all drawn on the card from `seed`."""
+    if fill == "beta":
+        return torch.from_numpy(_scores(n, seed)).to(card)
+    g = torch.Generator(device=card).manual_seed(seed)
+    u = torch.rand(n, generator=g, device=card)
+    if fill == "uniform":
+        return u
+    k = torch.tensor([517.0, 1024.0, 2900.0, 4000.0], device=card)[
+        torch.randint(0, 4, (n,), generator=g, device=card)]
+    return (k + 0.25 + 0.5 * u) / 4096
+
+
+def _float64_sums(s, bins):
+    """Per-bin float64 Σ sqrt(a) and Σ a over the records the sketch
+    counts (the binning of `sh_ref.bin_index`)."""
+    valid = s >= 0
+    a = s.clamp(0.0, 1.0)[valid].double()
+    ids = sh_ref.bin_index(s, bins)[valid]
+    return [torch.bincount(ids, weights=w, minlength=bins)
+            for w in (a.sqrt(), a)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["beta", "uniform", "clustered"])
 @pytest.mark.parametrize("n,bins", [(1 << 22, 4096), (1 << 22, 64),
                                     (777, 4096), (5, 64),
                                     (100_000, sh_ops.MAX_BINS), (3000, 1)])
-def test_score_hist_kernel_matches_plain(card, n, bins):
-    s = torch.from_numpy(_scores(n, 7)).to(card)
+def test_score_hist_kernel_matches_plain(card, n, bins, fill):
+    """Counts exactly the plain version's; sums within 1e-6 |e| + n 2^-32
+    of float64 sums (the fixed point truncates each run below 2^-32) and,
+    but for clustered scores, within the plain float32 version's own drift
+    (rtol 4e-3, atol 1e-3); where every record falls in a few bins that
+    scatter-add drifts past it, and float64 decides (chip_smoke.py's
+    `HIST_INPUTS`). Bitwise identical on a second launch."""
+    s = _hist_scores(card, n, fill, 7)
     got = sh_ops.score_hist(s, bins)
     again = sh_ops.score_hist(s, bins)
     plain = sh_ref.score_hist_ref(s, bins)
+    exact = _float64_sums(s, bins)
     torch.cuda.synchronize()
     assert torch.equal(got[0], plain[0])
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    for g, p in zip(got[1:], plain[1:]):
-        torch.testing.assert_close(g, p, rtol=4e-3, atol=1e-3)
+    for g, p, e in zip(got[1:], plain[1:], exact):
+        if fill != "clustered":
+            torch.testing.assert_close(g, p, rtol=4e-3, atol=1e-3)
+        assert bool(((g.double() - e).abs()
+                     <= 1e-6 * e.abs() + n * 2.0 ** -32).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["beta", "uniform", "clustered"])
+@pytest.mark.parametrize("n", [1 << 22, 1000, 1])
+def test_score_hist_masses_match_float64_sums(card, n, fill):
+    """The launch's chunk masses are within rel 1e-12 of torch.float64
+    sums of the clipped scores and their float32 square roots
+    (`chunk_masses_ref`), bitwise the same on a second launch, and leave
+    the sketch as it is without them."""
+    s = _hist_scores(card, n, fill, 5)
+    m1 = torch.empty(2, dtype=torch.float64, device=card)
+    m2 = torch.empty_like(m1)
+    with_masses = sh_ops.score_hist(s, 4096, masses=m1)
+    sh_ops.score_hist(s, 4096, masses=m2)
+    alone = sh_ops.score_hist(s, 4096)
+    want = sh_ref.chunk_masses_ref(s)
+    torch.cuda.synchronize()
+    assert torch.equal(m1, m2)
+    assert all(torch.equal(a, b) for a, b in zip(with_masses, alone))
+    torch.testing.assert_close(m1, want, rtol=1e-12, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start,n", [(1, (1 << 22) - 1), (3, 1000),
+                                     (2, (1 << 20) + 1), (1, 2)])
+def test_score_hist_reads_unaligned_spans(card, start, n):
+    """A span that starts off a 16-byte boundary, of a length that is not
+    a multiple of 4, takes the kernel's scalar head and tail: counts and
+    masses as on an aligned copy of the same scores (the masses within
+    rel 1e-12: the records fall to other threads)."""
+    base = _hist_scores(card, start + n, "beta", 9)
+    span = base[start:start + n]
+    copy = span.clone()
+    assert span.data_ptr() % 16 and copy.data_ptr() % 16 == 0
+    m_span = torch.empty(2, dtype=torch.float64, device=card)
+    m_copy = torch.empty_like(m_span)
+    got = sh_ops.score_hist(span, 64, masses=m_span)
+    want = sh_ops.score_hist(copy, 64, masses=m_copy)
+    plain = sh_ref.score_hist_ref(copy, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], plain[0]) and torch.equal(want[0], plain[0])
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=n * 2.0 ** -32)
+    torch.testing.assert_close(m_span, m_copy, rtol=1e-12, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("own_streams", [False, True])
+def test_score_hist_threads_at_once_match_serial(card, own_streams):
+    """Eight threads launching on 16 chunks at once, on the default stream
+    or each on its own, give each chunk the bits of a serial run: the
+    sketch and the masses."""
+    import concurrent.futures
+    scores = _hist_scores(card, 16 << 18, "beta", 4)
+    chunks = list(scores.view(16, -1))
+
+    def one(c):
+        m = torch.empty(2, dtype=torch.float64, device=card)
+        h = sh_ops.score_hist(c, 4096, masses=m)
+        return torch.cat(h).cpu(), m.cpu()
+
+    def on_own_stream(c):
+        with torch.cuda.stream(torch.cuda.Stream(card)):
+            return one(c)
+
+    serial = [one(c) for c in chunks]
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        both = list(pool.map(on_own_stream if own_streams else one, chunks))
+    for (h1, m1), (h2, m2) in zip(serial, both):
+        assert torch.equal(h1, h2) and torch.equal(m1, m2)
+
+
+@pytest.mark.cuda
+def test_score_hist_uses_no_shared_compare_and_swap(card):
+    """The compiled kernel's shared-memory atomics are 32-bit adds: no
+    compare-and-swap loop (what a 64-bit shared atomicAdd compiles to on
+    this card), read from its SASS with the toolkit's cuobjdump."""
+    import pathlib
+    import subprocess
+    from repro_torch.kernels import _build
+    sh_ops._lib()
+    cuobjdump = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build._lib_path("score_hist"))],
+                          capture_output=True, text=True, check=True).stdout
+    shared = [next(t for t in ln.split() if t.startswith("ATOMS"))
+              for ln in sass.splitlines() if "ATOMS" in ln]
+    assert shared and all(op == "ATOMS.ADD" or op.startswith("ATOMS.POPC")
+                          for op in shared), sorted(set(shared))
+    assert "CAS" not in sass
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workers", [1, 8])
+def test_card_build_reads_the_masses_back_once(card, workers):
+    """A build on the card launches score_hist once a chunk and copies
+    from the device three times: the chunk masses' one read-back and the
+    two weight normalizers. Its sketch counts equal a CPU build's and its
+    chunk masses are within rel 1e-12 of them."""
+    ds = make_beta(400_000, 0.01, 1.0, seed=6)
+    shards = np.array_split(ds.scores, 4)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with SelectionEngine(shards, num_bins=4096, chunk_records=1 << 15,
+                         device="cpu") as cpu:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            gpu = SelectionEngine(shards, num_bins=4096,
+                                  chunk_records=1 << 15, workers=workers,
+                                  clamp_workers=False, device=card)
+            torch.cuda.synchronize()
+        gpu.close()
+        events = prof.key_averages()
+        cuda = torch.autograd.DeviceType.CUDA
+        launches = sum(e.count for e in events if e.device_type == cuda
+                       and "hist_chunk" in e.key)
+        d2h = sum(e.count for e in events if e.device_type == cuda
+                  and "DtoH" in e.key)
+        assert launches == cpu.plan.total_chunks
+        assert d2h == 3
+        assert torch.equal(gpu.sketch.counts.cpu(), cpu.sketch.counts)
+        for a, b in zip(gpu._state.chunk_masses, cpu._state.chunk_masses):
+            np.testing.assert_allclose(a.sum_sqrt, b.sum_sqrt, rtol=1e-12)
+            np.testing.assert_allclose(a.sum_a, b.sum_a, rtol=1e-12)
+            np.testing.assert_array_equal(a.sizes, b.sizes)
 
 
 # Lengths: a few plain ones, those around the kernel's tile (one CTA's

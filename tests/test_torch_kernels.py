@@ -69,6 +69,36 @@ def test_score_hist_ignores_sentinel_and_clips():
     assert float(counts.sum()) == 4.0
 
 
+@pytest.mark.parametrize("n", [1, 777, 5000])
+def test_score_hist_masses_on_the_cpu_match_the_reference(n):
+    """On the CPU `masses` receives the chunk's float64 Σ sqrt(clip(A))
+    and Σ clip(A) of the plain version, within float64 reordering
+    (rel 1e-12) of the JAX package's chunk masses, and the sketch is the
+    plain one, bit for bit."""
+    from repro.core import binned as jbinned
+    s = _scores(n, 3 * n)
+    masses = torch.full((2,), np.nan, dtype=torch.float64)
+    got = sh_ops.score_hist(torch.from_numpy(s), 64, masses=masses)
+    _, js_sqrt, js_a = jbinned.chunk_sketch_stats(s, 64, use_kernel=False)
+    assert torch.equal(masses, sh_ref.chunk_masses_ref(torch.from_numpy(s)))
+    np.testing.assert_allclose(masses.numpy(), [js_sqrt, js_a], rtol=1e-12)
+    for g, w in zip(got, sh_ref.score_hist_ref(torch.from_numpy(s), 64)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("masses", [
+    lambda: torch.empty(2, dtype=torch.float32),
+    lambda: torch.empty(3, dtype=torch.float64),
+    lambda: torch.empty(4, dtype=torch.float64)[::2],
+    lambda: torch.empty(2, dtype=torch.float64, device="meta")])
+def test_score_hist_refuses_masses_it_cannot_write(masses):
+    """`masses` must be a contiguous (2,) float64 tensor on the scores'
+    device, on the CPU path as on the card's."""
+    with pytest.raises(ValueError, match="masses"):
+        sh_ops.score_hist(torch.from_numpy(_scores(100, 1)), 64,
+                          masses=masses())
+
+
 # -- threshold_select, plain version vs the JAX package ---------------------
 
 @pytest.mark.parametrize("n", [1, 777, 1024, 2049, 4096, 10_000])

@@ -84,6 +84,53 @@ def test_chunk_sketch_stats():
     assert s_a == pytest.approx(js_a, rel=1e-12)
 
 
+def test_chunk_sketch_into_writes_the_masses_of_chunk_sketch_stats():
+    """The buffer path (masses written into a float64 row, no read-back)
+    gives the sketch and the masses of `chunk_sketch_stats`, bit for bit."""
+    s = np.random.default_rng(2).beta(0.05, 1.0, 5000).astype(np.float32)
+    s[::50] = -1.0
+    row = torch.full((2,), np.nan, dtype=torch.float64)
+    sk = binned.chunk_sketch_into(_t(s), row, 64)
+    want, w_sqrt, w_a = binned.chunk_sketch_stats(_t(s), 64)
+    for f in ("counts", "sum_w", "sum_a"):
+        _eq(getattr(sk, f), getattr(want, f))
+    assert row.tolist() == [w_sqrt, w_a]
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_sketch_shards_masses_through_the_buffer(workers):
+    """`_sketch_shards` reads every chunk's masses from one (n_chunks, 2)
+    buffer and gives the `ChunkMasses` of a per-chunk float64 sum (the
+    pass before the buffer: each chunk's clipped terms and their float32
+    square roots, summed by torch and read back), bit for bit, and the
+    reference's within float64 reordering (rel 1e-12)."""
+    from repro.core.engine import SelectionEngine as RefEngine
+    from repro_torch.core.engine import SelectionEngine
+    rng = np.random.default_rng(8)
+    shards = [rng.beta(0.02, 1.0, n).astype(np.float32)
+              for n in (3000, 1024, 2500)]
+    shards[0][rng.random(3000) < 0.02] = -1.0
+    with SelectionEngine(shards, num_bins=64, chunk_records=1024,
+                         workers=workers, device="cpu") as eng:
+        got = eng._state.chunk_masses
+    ref = RefEngine(shards, num_bins=64, chunk_records=1024,
+                    use_kernel=False)
+    try:
+        want_ref = ref._state.chunk_masses
+    finally:
+        ref.close()
+    for shard, cm, rm in zip(shards, got, want_ref):
+        chunks = [shard[i:i + 1024] for i in range(0, shard.size, 1024)]
+        a = [torch.clamp(_t(c), 0.0, 1.0) for c in chunks]
+        _eq(cm.sum_sqrt, [float(bounds.sqrt32(x).to(torch.float64).sum())
+                          for x in a])
+        _eq(cm.sum_a, [float(x.to(torch.float64).sum()) for x in a])
+        _eq(cm.sizes, [c.size for c in chunks])
+        np.testing.assert_allclose(cm.sum_sqrt, rm.sum_sqrt, rtol=1e-12)
+        np.testing.assert_allclose(cm.sum_a, rm.sum_a, rtol=1e-12)
+        _eq(cm.sizes, rm.sizes)
+
+
 # -- sampling -----------------------------------------------------------------
 
 def test_sampling_primitives():
