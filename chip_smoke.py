@@ -124,6 +124,31 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     bf16 products on the tensor cores, the step form's float32
     operations); each term is printed. No single PyTorch call computes
     the scan, so its library time is null.
+13. Sessions and the live plane at real size, on phase 3's corpus drawn
+    again (2^27 Beta(0.01, 1) scores on the card, 16 shards of 2^23,
+    2^22-record chunks, 4096 bins, labels on the host). Sessions: an
+    engine over the first 12 shards runs 3 RT (gamma 0.9, delta 0.05,
+    budget 3000), 2 two-stage PT (gamma `PT_SESSION_GAMMA`) and 1 JT
+    (gamma_recall 0.8, stage budget 3000) on keys split from one key, in
+    sequence through `run`/`run_joint` at workers 1, then through
+    `run_many` at concurrency 1 and None at workers 8 and at concurrency
+    2 at workers 1: tau, per-shard counts and indices identical across
+    the four; each run's `SessionStats`, threshold_select launches and
+    wall. The live plane (launches counted from here): a standing RT
+    certified at epoch 0; an RT pinned at epoch 0 and stepped once,
+    then shards 12-13 and 14-15 appended through `IngestPlane`, the
+    pinned RT equal to its sequential result and score_hist launched
+    exactly once per appended chunk; the standing RT's one catch-up
+    (`pump`/`settle`) equal to a plain {A >= tau} per shard on the card,
+    launching threshold_select once per appended chunk; the appended
+    engine's sketch, z, chunk masses, CDFs and RT/PT/JT bit for bit a
+    cold build over the 16 shards; `gc_epochs` after each unpin, with
+    `torch.cuda.memory_allocated()` falling by at least the freed
+    epoch's flat and sketch; a `DriftSentinel` watch (probe 4096, sigma
+    4) over 4 shards that triggers on 12 appended Beta(0.01, 2) shards
+    (`make_drift_pair_on_device`'s shift) and stays quiet on the 12
+    same-law shards of the corpus. Walls (appends, sessions, the phase)
+    are printed beside the card's name and power limit.
 
 Each phase prints its wall time as it ends, and the line before the
 kernels line sums them.
@@ -156,6 +181,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import live  # noqa: E402
 from repro_torch import random as R  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import binned, queries, sampling  # noqa: E402
@@ -163,8 +189,10 @@ from repro_torch.core import engine as engine_mod  # noqa: E402
 from repro_torch.core.engine import SelectionEngine  # noqa: E402
 from repro_torch.core.oracle import array_oracle  # noqa: E402
 from repro_torch.core.queries import JointSUPGQuery, SUPGQuery  # noqa: E402
+from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.data.synthetic import (contains_marker,  # noqa: E402
                                         make_beta_on_device,
+                                        make_drift_pair_on_device,
                                         make_token_corpus)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -1317,6 +1345,247 @@ def profile_build(shards, workers: int) -> dict:
             "launches": {name: n for name, _, n in kernels}}
 
 
+# -- phase 13 ------------------------------------------------------------------
+
+# A gamma two-stage PT certifies over Beta(0.01, 1) at budget 3000 (at 0.9
+# it usually certifies none: PERF.md §7; 0.8 certified in each of six keys
+# over 2^23 such records on the CPU).
+PT_SESSION_GAMMA = 0.8
+SESSION_BATCH = (
+    [("RT", SUPGQuery(target="recall", gamma=0.9, delta=0.05,
+                      budget=3000))] * 3
+    + [("PT", SUPGQuery(target="precision", gamma=PT_SESSION_GAMMA,
+                        delta=0.05, budget=3000, two_stage=True))] * 2
+    + [("JT", JointSUPGQuery(gamma_recall=0.8, stage_budget=3000))])
+SESSION_SHARDS = 12      # the engine's corpus before the appends
+SENTINEL_SHARDS = 4      # the sentinel's corpus before its append
+DRIFT_SHARDS = 12        # Beta(0.01, 2) shards the sentinel sees appended
+
+
+def many_with_stats(eng, key, oracle, concurrency):
+    """`run_many` over `SESSION_BATCH`; (results, its session's stats,
+    threshold_select launches, wall s)."""
+    sessions = []
+    opened = eng.session
+
+    def spy(*a, **kw):
+        sess = opened(*a, **kw)
+        sessions.append(sess)
+        return sess
+
+    eng.session = spy     # the instance's, to read run_many's session
+    ts_ops.launches.reset()
+    t0 = time.perf_counter()
+    try:
+        out = eng.run_many(key, oracle, [q for _, q in SESSION_BATCH],
+                           concurrency=concurrency)
+        torch.cuda.synchronize()
+    finally:
+        del eng.session
+    return out, sessions[0].stats, ts_ops.launches.count, \
+        time.perf_counter() - t0
+
+
+def check_state_bitwise(a, b, what: str) -> None:
+    """Two corpus states hold the same sketches, z, chunk masses and
+    chunk-mass CDFs, bit for bit."""
+    check(a.z == b.z, f"{what}: z {a.z} != {b.z}")
+    for x, y in zip(a.shard_sketches + [a.sketch],
+                    b.shard_sketches + [b.sketch]):
+        check(all(torch.equal(u, v) for u, v in zip(x, y)),
+              f"{what}: a sketch differs")
+    for x, y in zip(a.chunk_masses, b.chunk_masses):
+        check(all(np.array_equal(u, v) for u, v in zip(x, y)),
+              f"{what}: chunk masses differ")
+    for k in b.sampling_cache:
+        for x, y in zip(a.sampling_cache[k], b.sampling_cache[k]):
+            check(x.mass == y.mass and np.array_equal(x.cdf, y.cdf),
+                  f"{what}: a chunk-mass CDF differs")
+
+
+def drift_audit(shards, appended, labels, seed) -> "live.DriftReport":
+    """A fresh engine over `shards`, a `DriftSentinel` watch (probe 4096,
+    sigma 4) on an RT query, `appended` appended, then one audit."""
+    q = SESSION_BATCH[0][1]
+    with SelectionEngine(shards, num_bins=4096, device=DEVICE) as eng:
+        sent = live.DriftSentinel(eng, array_oracle(labels),
+                                  probe_budget=4096, sigma=4.0)
+        watch = sent.watch(q, key=R.PRNGKey(seed + 21))
+        live.IngestPlane(eng).append(appended)
+        return sent.audit(watch, key=R.PRNGKey(seed + 22))
+
+
+def live_phase(scores, labels, seed, card: str) -> dict:
+    """Phase 13: sessions and the live plane at real size. Returns the
+    launches of the phase's main path and its walls."""
+    shards = list(torch.tensor_split(scores, N_SHARDS))
+    oracle = array_oracle(labels)
+    key = R.PRNGKey(seed + 13)
+    keys = R.split(key, len(SESSION_BATCH))
+    walls = {}
+    print(f"sessions over {SESSION_SHARDS} shards of {shards[0].numel()}: "
+          f"3 RT, 2 two-stage PT at gamma {PT_SESSION_GAMMA}, 1 JT "
+          "(budget 3000 each)")
+
+    # 1. sessions: sequential at w1, run_many at c1/None on w8, c2 on w1
+    eng = SelectionEngine(shards[:SESSION_SHARDS], num_bins=4096,
+                          workers=1, device=DEVICE)
+    ts_ops.launches.reset()
+    t0 = time.perf_counter()
+    seq = [run_query(eng, k, oracle, name, q)[0]
+           for k, (name, q) in zip(keys, SESSION_BATCH)]
+    walls["sequential_w1"] = time.perf_counter() - t0
+    print(f"sequential run/run_joint at workers 1: wall "
+          f"{walls['sequential_w1']:.4f} s, threshold_select launches "
+          f"{ts_ops.launches.count} ({card})")
+    with SelectionEngine(shards[:SESSION_SHARDS], num_bins=4096, workers=8,
+                         clamp_workers=False, device=DEVICE) as w8:
+        check_state_bitwise(w8._state, eng._state,
+                            "build at workers 8 vs 1")
+        runs = [("w8 concurrency 1", w8, 1), ("w8 concurrency None", w8,
+                                              None),
+                ("w1 concurrency 2", eng, 2)]
+        for label, e, c in runs:
+            got, stats, n_ts, wall = many_with_stats(e, key, oracle, c)
+            walls[label] = wall
+            for (name, _), a, b in zip(SESSION_BATCH, seq, got):
+                check(same(a, b), f"run_many {label}: {name} differs from "
+                      "the sequential run")
+            print(f"run_many {label}: wall {wall:.4f} s, SessionStats "
+                  f"rounds {stats.rounds}, drains {stats.drains}, "
+                  f"fused_walks {stats.fused_walks}, walk_spans "
+                  f"{stats.walk_spans}, fused_spans {stats.fused_spans}; "
+                  f"threshold_select launches {n_ts} ({card})")
+    for (name, _), sel in zip(SESSION_BATCH, seq):
+        print(f"  {name}: tau {sel.tau:.6g}, selected {sel.total_selected}, "
+              f"oracle calls {sel.oracle_calls}")
+    check(np.isfinite(seq[3].tau), f"PT at gamma {PT_SESSION_GAMMA} "
+          "certified no threshold")
+
+    # 2. the live plane, counted from here to the end of the phase
+    reset_counts(("score_hist", "threshold_select"))
+    plane = live.IngestPlane(eng)
+    emitted = []
+    sink = pipeline.CallbackSink(lambda sid, idx, folded: emitted.append(
+        (sid, np.asarray(idx).copy())))
+    rt = SESSION_BATCH[0][1]
+    with eng.session(oracle) as sess:
+        reg = live.StandingRegistry(plane, sess)
+        sq = reg.register(rt, key=R.PRNGKey(seed + 14), sink=sink)
+        reg.settle()
+        tau_sq = sq.wait_certified(timeout=0)
+        emitted.clear()                          # keep the catch-ups only
+        pinned = eng.pin()
+        h = sess.submit(rt, key=keys[0], state=pinned)
+        sess.step()                              # the plan pins epoch 0
+        hist0 = sh_ops.launches.count
+        appends = []
+        for part in (shards[12:14], shards[14:16]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plane.append(part)
+            torch.cuda.synchronize()
+            appends.append(time.perf_counter() - t0)
+        hist_appended = sh_ops.launches.count - hist0
+        check(same(h.result(), seq[0]), "the RT pinned at epoch 0 differs "
+              "from its sequential result after two appends")
+        chunks_appended = sum(-(-s.numel() // CHUNK) for s in shards[12:])
+        check(hist_appended == chunks_appended,
+              f"two appends launched score_hist {hist_appended} times for "
+              f"{chunks_appended} appended chunks")
+        ts0 = ts_ops.launches.count
+        started = reg.pump()
+        reg.settle()
+        catchup = ts_ops.launches.count - ts0
+        check(started == 1 and (sq.emissions, sq.epoch) == (1, 2),
+              f"standing RT: {started} catch-ups started, "
+              f"{sq.emissions} emissions, epoch {sq.epoch}")
+        check(catchup == chunks_appended,
+              f"the catch-up launched threshold_select {catchup} times for "
+              f"{chunks_appended} appended chunks")
+    walls["appends"] = appends
+    thr = torch.tensor(ts_ref.threshold32(tau_sq), device=scores.device)
+    for sh in range(N_SHARDS):
+        mine = [idx for sid, idx in emitted if sid == sh]
+        got = np.sort(np.concatenate(mine)) if mine else np.empty(0)
+        want = (eng.offsets[sh] + torch.nonzero(eng.shards[sh] >= thr)
+                .flatten().cpu().numpy()      # the sink gets global ids
+                if sh >= SESSION_SHARDS else np.empty(0))
+        check(np.array_equal(got, want), f"standing RT's catch-up on shard "
+              f"{sh} differs from a plain count on the card")
+    print(f"appends of 2 shards ({2 * shards[0].numel()} records) each: "
+          f"wall {', '.join(f'{w:.4f}' for w in appends)} s, score_hist "
+          f"launches {hist_appended} for {chunks_appended} appended chunks "
+          f"({card})")
+    print(f"standing RT (tau {tau_sq:.6g}, certified at epoch 0): one "
+          f"catch-up over shards 12-15, {sq.records_reemitted} records, "
+          f"threshold_select launches {catchup} for {chunks_appended} "
+          "appended chunks; its sink equals a plain count per shard")
+
+    # an engine after the appends == a cold build over the 16 shards
+    with SelectionEngine(shards, num_bins=4096, workers=1,
+                         device=DEVICE) as cold:
+        check_state_bitwise(eng._state, cold._state,
+                            "after two appends vs a cold build")
+        for k, (name, q) in zip(keys, (SESSION_BATCH[0], SESSION_BATCH[3],
+                                       SESSION_BATCH[5])):
+            check(same(run_query(eng, k, oracle, name, q)[0],
+                       run_query(cold, k, oracle, name, q)[0]),
+                  f"{name} after two appends differs from a cold build")
+    print("after two appends: sketch, z, chunk masses, CDFs and RT/PT/JT "
+          "bit for bit a cold build over the 16 shards")
+
+    # superseded epochs: 1 unpinned, 0 pinned above; each gc frees its own
+    for st in (None, pinned):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        if st is not None:
+            eng.unpin(st)
+            own = st.flat.numel() * 4 + 3 * 4 * eng.num_bins
+        else:
+            dead = [s for s in eng._superseded if s.pins == 0]
+            own = sum(s.flat.numel() * 4 + 3 * 4 * eng.num_bins
+                      for s in dead)
+            del dead
+        freed = eng.gc_epochs()
+        torch.cuda.synchronize()
+        drop = before - torch.cuda.memory_allocated()
+        check(freed == 1 and drop >= own,
+              f"gc_epochs freed {freed} epochs, memory_allocated fell "
+              f"{drop} bytes, their own {own}")
+        print(f"gc_epochs: freed {freed} epoch, memory_allocated fell "
+              f"{drop} bytes (its own flat and sketch: {own})")
+    del pinned, st
+    check(eng.epochs_live == 1 and eng.epochs_freed == 2,
+          f"epochs live {eng.epochs_live}, freed {eng.epochs_freed}")
+    eng.close()
+
+    # drift sentinel: Beta(0.01, 2) appended trips it, same law does not
+    n_drift = DRIFT_SHARDS * shards[0].numel()
+    (_, _), (shift, shift_labels) = make_drift_pair_on_device(
+        n_drift, seed=seed, device=DEVICE)
+    base = SENTINEL_SHARDS * shards[0].numel()
+    drift = drift_audit(shards[:SENTINEL_SHARDS],
+                        list(shift.tensor_split(DRIFT_SHARDS)),
+                        np.concatenate([labels[:base], shift_labels]), seed)
+    control = drift_audit(shards[:SENTINEL_SHARDS],
+                          shards[SENTINEL_SHARDS:], labels, seed)
+    for name, rep, want in (("drift", drift, True),
+                            ("control", control, False)):
+        print(f"sentinel, {name}: ref rate {rep.ref_rate:.6g}, rate "
+              f"{rep.rate:.6g}, z {rep.z:.4f} (sigma 4), drifted "
+              f"{rep.drifted}, re-validated {rep.revalidated}")
+        check(rep.drifted is want and rep.revalidated is want
+              and rep.epoch == 1, f"sentinel on the {name} append: "
+              f"drifted {rep.drifted}, z {rep.z}")
+    launches = {"score_hist": sh_ops.launches.count,
+                "threshold_select": ts_ops.launches.count}
+    check(all(n > 0 for n in launches.values()),
+          f"phase 13's path launched {launches}")
+    print(f"phase 13 live-plane launches: {launches}")
+    return {"launches": launches, "walls": walls}
+
+
 class Phases:
     """Wall time of each phase, printed as it ends and summed at the end."""
 
@@ -1345,7 +1614,8 @@ def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
-    print(device_line())
+    card = device_line()
+    print(card)
     kind = torch.cuda.get_device_name(0)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
@@ -1449,6 +1719,17 @@ def main() -> None:
         print(f"linear_scan at the scoring shape (B, H, S, dk, dv) = "
               f"{LS_SCORING}, zamba2 layout: "
               f"{json.dumps(ls_rows[LS_SCORING])}")
+    live_name = "13 sessions and the live plane"
+    with phase(live_name):
+        t0 = time.perf_counter()
+        scores, labels = make_beta_on_device(N_RECORDS, 0.01, 1.0,
+                                             seed=args.seed, device=DEVICE)
+        torch.cuda.synchronize()
+        print(f"corpus: phase 3's {N_RECORDS} scores drawn again on the "
+              f"card in {time.perf_counter() - t0:.2f} s")
+        live_phase(scores, labels, args.seed, card)
+        del scores, labels
+    print(f"phase 13 wall: {phase.walls[live_name]:.3f} s ({card})")
     print(phase.total())
 
     rows = []

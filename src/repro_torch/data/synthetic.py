@@ -5,7 +5,9 @@ Bernoulli(A(x)): a perfectly calibrated proxy whose sharpness and positive
 rate are set by (alpha, beta). The paper's pairs: (0.01, 1) with TPR
 ~0.5-1% and (0.01, 2) with TPR ~1%. `make_beta` draws on the host with
 numpy (the JAX package's generator, value for value); `make_beta_on_device`
-draws the same law on a device.
+draws the same law on a device. `make_drift_pair` (and its device twin)
+gives Table 3's drift pair: the Beta(0.01, 1) corpus and a Beta(0.01, 2)
+shift.
 
 Token corpora for the model plane: `make_token_corpus` plants the
 `MARKER` tri-gram in a subset of random token records, and
@@ -55,6 +57,24 @@ def make_beta(n=1_000_000, alpha=0.01, beta=1.0, seed=0,
         scores = np.clip(probs + rng.normal(0, noise_std, n)
                          .astype(np.float32), 0.0, 1.0)
     return BetaDataset(scores=scores, labels=labels, alpha=alpha, beta=beta)
+
+
+def make_drift_pair(n=1_000_000, seed=0):
+    """(train, shifted) Beta datasets, Table 3's synthetic drift row:
+    Beta(0.01, 1) at `seed` and Beta(0.01, 2) at ``seed + 1`` (the JAX
+    package's pair, value for value)."""
+    return (make_beta(n, 0.01, 1.0, seed=seed),
+            make_beta(n, 0.01, 2.0, seed=seed + 1))
+
+
+def make_drift_pair_on_device(n: int, seed: int = 0, device="cuda") \
+        -> Tuple[Tuple[torch.Tensor, np.ndarray],
+                 Tuple[torch.Tensor, np.ndarray]]:
+    """`make_drift_pair`'s laws drawn on `device` by `make_beta_on_device`:
+    ((scores, labels) of Beta(0.01, 1) at `seed`, (scores, labels) of
+    Beta(0.01, 2) at ``seed + 1``)."""
+    return (make_beta_on_device(n, 0.01, 1.0, seed=seed, device=device),
+            make_beta_on_device(n, 0.01, 2.0, seed=seed + 1, device=device))
 
 
 def make_beta_on_device(n: int, alpha: float = 0.01, beta: float = 1.0,

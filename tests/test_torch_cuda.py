@@ -31,6 +31,7 @@ from repro_torch.kernels.score_hist import ops as sh_ops  # noqa: E402
 from repro_torch.kernels.score_hist import ref as sh_ref  # noqa: E402
 from repro_torch.kernels.threshold_select import ops as ts_ops  # noqa: E402
 from repro_torch.kernels.threshold_select import ref as ts_ref  # noqa: E402
+from repro_torch.live import IngestPlane  # noqa: E402
 from repro_torch.models import attention, mamba, model  # noqa: E402
 
 
@@ -321,6 +322,143 @@ def test_card_engine_matches_cpu_engine(card):
             np.testing.assert_array_equal(a.shard_counts, b.shard_counts)
             for i in range(3):
                 np.testing.assert_array_equal(a.indices(i), b.indices(i))
+
+
+_LIVE_QUERIES = [SUPGQuery(target="recall", gamma=0.9, budget=2000),
+                 SUPGQuery(target="precision", gamma=0.8, budget=2000),
+                 JointSUPGQuery(gamma_recall=0.8, stage_budget=2000)]
+
+
+def _same_selection(a, b):
+    assert a.tau == b.tau
+    np.testing.assert_array_equal(a.shard_counts, b.shard_counts)
+    for i in range(a.num_shards):
+        np.testing.assert_array_equal(a.indices(i), b.indices(i))
+
+
+def _live_shards(card, n_shards=6, n=150_000, seed=8):
+    """`n_shards` Beta(0.01, 1) shards on the card, and their labels."""
+    ds = make_beta(n_shards * n, 0.01, 1.0, seed=seed)
+    scores = torch.from_numpy(ds.scores).to(card)
+    return list(scores.split(n)), ds.labels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workers", [1, 8])
+def test_card_append_equals_cold_build_bitwise(card, workers):
+    """On the card, an engine over shards 0-2 with 3 and then 4-5 appended
+    holds the bits of a cold build over all six: sketches, z, chunk masses
+    and CDFs; score_hist launched exactly once per appended chunk; and
+    RT/PT/JT through `run_many` give the cold build's results."""
+    shards, labels = _live_shards(card)
+    oracle = array_oracle(labels)
+    kw = dict(num_bins=4096, chunk_records=1 << 15, workers=workers,
+              clamp_workers=False, device=card)
+    with SelectionEngine(shards, **kw) as cold, \
+            SelectionEngine(shards[:3], **kw) as warm:
+        plane = IngestPlane(warm)
+        before = sh_ops.launches.count
+        plane.append(shards[3])
+        plane.append(shards[4:])
+        torch.cuda.synchronize()
+        appended = sum(-(-s.numel() // (1 << 15)) for s in shards[3:])
+        assert sh_ops.launches.count - before == appended
+        a, b = warm._state, cold._state
+        assert a.z == b.z
+        for x, y in zip(a.shard_sketches + [a.sketch],
+                        b.shard_sketches + [b.sketch]):
+            assert all(torch.equal(u, v) for u, v in zip(x, y))
+        for x, y in zip(a.chunk_masses, b.chunk_masses):
+            for u, v in zip(x, y):
+                np.testing.assert_array_equal(u, v)
+        for x, y in zip(a.sampling_cache[("sqrt", 0.1)],
+                        b.sampling_cache[("sqrt", 0.1)]):
+            assert x.mass == y.mass
+            np.testing.assert_array_equal(x.cdf, y.cdf)
+        assert torch.equal(a.flat, b.flat)
+        key = R.PRNGKey(3)
+        for x, y in zip(cold.run_many(key, oracle, _LIVE_QUERIES),
+                        warm.run_many(key, oracle, _LIVE_QUERIES)):
+            _same_selection(x, y)
+
+
+@pytest.mark.cuda
+def test_card_run_many_at_workers_8_equals_sequential_runs(card):
+    """`run_many` at concurrency None on 8 workers (pool threads launching
+    threshold_select at once, 8 walks fused a round) returns what
+    sequential `run`/`run_joint` at workers 1 return on the split keys."""
+    shards, labels = _live_shards(card, n_shards=4)
+    oracle = array_oracle(labels)
+    batch = [SUPGQuery(target="recall", gamma=0.9, budget=2000)] * 3 + [
+        SUPGQuery(target="recall", gamma=0.85, budget=1500,
+                  method="noci"),
+        SUPGQuery(target="precision", gamma=0.8, budget=2000)] * 2 + [
+        JointSUPGQuery(gamma_recall=0.8, stage_budget=2000)]
+    key = R.PRNGKey(9)
+    with SelectionEngine(shards, num_bins=4096, chunk_records=1 << 15,
+                         workers=8, clamp_workers=False, device=card) as w8:
+        with w8.session(oracle) as sess:
+            handles = [sess.submit(q, key=k) for q, k in
+                       zip(batch, R.split(key, len(batch)))]
+            many = [h.result() for h in handles]
+        assert sess.stats.fused_walks == len(batch)
+        assert sess.stats.fused_spans < sess.stats.walk_spans
+        for x, y in zip(w8.run_many(key, oracle, batch), many):
+            _same_selection(x, y)
+        state = w8._state
+    with SelectionEngine.from_state(state, device=card, workers=1) as w1:
+        for k, q, b in zip(R.split(key, len(batch)), batch, many):
+            run = w1.run_joint if isinstance(q, JointSUPGQuery) else w1.run
+            _same_selection(run(k, oracle, q), b)
+
+
+@pytest.mark.cuda
+def test_card_engine_with_an_append_matches_cpu_engine(card):
+    """A card engine and a CPU engine from one state, each appending the
+    same shard: the sketches' counts are equal and the chunk masses within
+    rel 1e-12 (the card's sums are fixed point). From the card's appended
+    state, the CPU engine answers RT/PT/JT with the card's tau, counts and
+    indices."""
+    shards, labels = _live_shards(card, n_shards=3)
+    oracle = array_oracle(labels)
+    with SelectionEngine([s.cpu() for s in shards[:2]], num_bins=4096,
+                         chunk_records=1 << 15, device="cpu") as cpu, \
+            SelectionEngine.from_state(cpu._state, device=card,
+                                       workers=4) as gpu:
+        IngestPlane(cpu).append(shards[2].cpu().numpy())
+        IngestPlane(gpu).append(shards[2])
+        assert torch.equal(gpu.sketch.counts.cpu(), cpu.sketch.counts)
+        for a, b in zip(gpu._state.chunk_masses, cpu._state.chunk_masses):
+            np.testing.assert_allclose(a.sum_sqrt, b.sum_sqrt, rtol=1e-12)
+            np.testing.assert_allclose(a.sum_a, b.sum_a, rtol=1e-12)
+            np.testing.assert_array_equal(a.sizes, b.sizes)
+        with SelectionEngine.from_state(gpu._state, device="cpu") as host:
+            assert host.epoch == gpu.epoch == 1
+            for q in _LIVE_QUERIES:
+                run = ("run_joint" if isinstance(q, JointSUPGQuery)
+                       else "run")
+                _same_selection(getattr(host, run)(R.PRNGKey(1), oracle, q),
+                                getattr(gpu, run)(R.PRNGKey(1), oracle, q))
+
+
+@pytest.mark.cuda
+def test_card_gc_epochs_lowers_memory_allocated(card):
+    """While an epoch is pinned its flat corpus stays on the card; once
+    unpinned, `gc_epochs` frees it and `torch.cuda.memory_allocated()`
+    falls by at least its bytes (4 a record) and its global sketch."""
+    shards, _ = _live_shards(card, n_shards=3, n=1 << 20)
+    with SelectionEngine(shards[:2], num_bins=4096, device=card) as eng:
+        pinned = eng.pin()
+        own = pinned.flat.numel() * 4 + 3 * 4 * eng.num_bins
+        IngestPlane(eng).append(shards[2])
+        torch.cuda.synchronize()
+        assert eng.gc_epochs() == 0 and eng.epochs_live == 2
+        before = torch.cuda.memory_allocated(card)
+        eng.unpin(pinned)
+        del pinned
+        assert eng.gc_epochs() == 1 and eng.epochs_live == 1
+        torch.cuda.synchronize()
+        assert before - torch.cuda.memory_allocated(card) >= own
 
 
 def _plain_attention(q, k, v, causal=True):

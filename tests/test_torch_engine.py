@@ -279,6 +279,10 @@ PORT_DOC_MODULES = [
     "repro_torch.kernels.score_hist.ops",
     "repro_torch.kernels.flash_attention.ops",
     "repro_torch.kernels.threshold_select.ops",
+    "repro_torch.live.ingest",
+    "repro_torch.live.standing",
+    "repro_torch.live.sentinel",
+    "repro_torch.testing.faults",
 ]
 
 
