@@ -149,6 +149,33 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     (`make_drift_pair_on_device`'s shift) and stays quiet on the 12
     same-law shards of the corpus. Walls (appends, sessions, the phase)
     are printed beside the card's name and power limit.
+14. The serving and durability planes at real size, on phase 13's
+    corpus, keys and sequential results (a durable root in a temporary
+    directory, removed at the end). Served: a `SelectionServer` over the
+    first 12 shards (workers 1, tenants 'metered' with a quota and
+    'open') answers phase 13's six queries from a pool of 8 client
+    threads: tau, per-shard counts and indices equal the sequential
+    results, each query's `oracle_calls` at most its sequential one and
+    their sum the channel's labels (the channel's shared cache makes
+    attribution depend on the schedule), threshold_select launched as
+    often as in sequence; `ServerStats.format()` and p50/p99. Durable: a
+    server journaling to the root subscribes a standing RT and an
+    audited standing RT (sentinel probe 4096, sigma 4) on `BitmaskStore`
+    sinks, snapshots, appends shards 12-13 and 14-15 (each journaled
+    append's wall and its split: device-to-host copy, `np.save`, CRC32,
+    spool write + fsync, journal record + fsync, install) and records
+    taus, sink bytes, the tenant's charge and the watch. The same run
+    again under `CrashInjector({"post_journal_pre_install": 1})`: the
+    second append dies journaled but not installed (the only exception
+    caught in the phase), `close(abandon=True)` frees at least the
+    engine's flats (`memory_allocated`), and `SelectionServer.restore`
+    over the 12 base shards on the card recovers 2 epochs and 2 standing
+    queries, launching score_hist once per replayed chunk (8) and
+    threshold_select once per appended chunk per standing query in the
+    catch-ups (16); taus, sink bytes, charge and the watch's base key and
+    last audited epoch equal the uncrashed run's. The restore's wall
+    (build, replay, adopt) and the phase's walls are printed beside the
+    card's name and power limit.
 
 Each phase prints its wall time as it ends, and the line before the
 kernels line sums them.
@@ -168,10 +195,14 @@ import functools
 import json
 import math
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import zlib
+from typing import Optional
 from unittest import mock
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -183,6 +214,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import live  # noqa: E402
 from repro_torch import random as R  # noqa: E402
+from repro_torch import testing  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import binned, queries, sampling  # noqa: E402
 from repro_torch.core import engine as engine_mod  # noqa: E402
@@ -194,6 +226,7 @@ from repro_torch.data.synthetic import (contains_marker,  # noqa: E402
                                         make_beta_on_device,
                                         make_drift_pair_on_device,
                                         make_token_corpus)
+from repro_torch.durable import recovery  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
@@ -206,6 +239,7 @@ from repro_torch.kernels.threshold_select import ref as ts_ref  # noqa: E402
 from repro_torch.launch.serve import make_serve_prefill  # noqa: E402
 from repro_torch.models import attention, mamba, transformer  # noqa: E402
 from repro_torch.models import model as modellib  # noqa: E402
+from repro_torch.serve import SelectionServer  # noqa: E402
 
 DEVICE = "cuda"
 CHUNK = 1 << 22
@@ -1435,9 +1469,10 @@ def live_phase(scores, labels, seed, card: str) -> dict:
     seq = [run_query(eng, k, oracle, name, q)[0]
            for k, (name, q) in zip(keys, SESSION_BATCH)]
     walls["sequential_w1"] = time.perf_counter() - t0
+    seq_launches = ts_ops.launches.count
     print(f"sequential run/run_joint at workers 1: wall "
           f"{walls['sequential_w1']:.4f} s, threshold_select launches "
-          f"{ts_ops.launches.count} ({card})")
+          f"{seq_launches} ({card})")
     with SelectionEngine(shards[:SESSION_SHARDS], num_bins=4096, workers=8,
                          clamp_workers=False, device=DEVICE) as w8:
         check_state_bitwise(w8._state, eng._state,
@@ -1583,6 +1618,314 @@ def live_phase(scores, labels, seed, card: str) -> dict:
     check(all(n > 0 for n in launches.values()),
           f"phase 13's path launched {launches}")
     print(f"phase 13 live-plane launches: {launches}")
+    return {"launches": launches, "walls": walls, "seq": seq,
+            "seq_select_launches": seq_launches}
+
+
+# -- phase 14 ------------------------------------------------------------------
+
+SERVE_CLIENTS = 8        # client threads submitting to the server
+SERVE_QUOTA = 10_000     # the metered tenant's label quota (its 3 queries)
+PROBE = 4096             # the audited standing RT's sentinel probe
+APPEND_SPLIT = (("copy", "device-to-host copy"),
+                ("serialize", "np.save into memory"),
+                ("crc", "CRC32"),
+                ("spool", "spool write + fsync"),
+                ("journal", "journal record + fsync"))
+
+
+@contextlib.contextmanager
+def timing_spies(targets):
+    """Wrap each (owner, attribute, label) so that every call adds its
+    seconds to ``spent[label]``; yields `spent`."""
+    spent = dict.fromkeys((label for _, _, label in targets), 0.0)
+    with contextlib.ExitStack() as stack:
+        for owner, attr, label in targets:
+            def wrapped(*a, _fn=getattr(owner, attr), _label=label, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    spent[_label] += time.perf_counter() - t0
+            stack.enter_context(mock.patch.object(owner, attr, wrapped))
+        yield spent
+
+
+def served_batch(shards, labels, seq, seq_launches, keys, card) -> None:
+    """Step 1: the session batch through a `SelectionServer` from a pool of
+    client threads, against phase 13's sequential results."""
+    eng = SelectionEngine(shards[:SESSION_SHARDS], num_bins=4096,
+                          workers=1, device=DEVICE)
+    tenants = ["metered" if i % 2 == 0 else "open"
+               for i in range(len(SESSION_BATCH))]
+    ts_ops.launches.reset()
+    t0 = time.perf_counter()
+    with SelectionServer(eng, array_oracle(labels), max_inflight=8,
+                         quotas={"metered": SERVE_QUOTA}) as server:
+        with concurrent.futures.ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            out = list(pool.map(
+                lambda job: server.submit(job[0][1], tenant=job[1],
+                                          key=job[2]).result(timeout=600),
+                zip(SESSION_BATCH, tenants, keys)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = server.stats()
+    launches = ts_ops.launches.count
+    for (name, _), a, b in zip(SESSION_BATCH, seq, out):
+        check(same(a, b), f"served {name} differs from its sequential run")
+        check(b.oracle_calls <= a.oracle_calls,
+              f"served {name} charged {b.oracle_calls} labels, alone "
+              f"{a.oracle_calls}")
+    charged = sum(b.oracle_calls for b in out)
+    check(charged == stats.records_labeled,
+          f"served queries charged {charged} labels, the channel labeled "
+          f"{stats.records_labeled}")
+    check(stats.completed == len(SESSION_BATCH) and stats.failed == 0,
+          f"server completed {stats.completed}, failed {stats.failed}")
+    check(launches == seq_launches, f"served batch launched "
+          f"threshold_select {launches} times, in sequence {seq_launches}")
+    print(f"served batch ({SERVE_CLIENTS} client threads, tenants "
+          f"'metered' (quota {SERVE_QUOTA}) and 'open'): tau, counts and "
+          f"indices equal phase 13's sequential results; wall {wall:.4f} s, "
+          f"p50 {stats.p50_s:.4f} s, p99 {stats.p99_s:.4f} s, "
+          f"threshold_select launches {launches} (in sequence "
+          f"{seq_launches}) ({card})")
+    print("  oracle_calls served / alone: " + ", ".join(
+        f"{name} {b.oracle_calls}/{a.oracle_calls}"
+        for (name, _), a, b in zip(SESSION_BATCH, seq, out))
+        + f"; served sum {charged} == records labeled "
+        f"{stats.records_labeled}")
+    print("  " + stats.format().replace("\n", "\n  "))
+
+
+def quiescent(srv, epoch: int, timeout: float = 300.0) -> None:
+    """Wait until every standing query has caught up to `epoch`, every
+    sentinel watch has audited it, and nothing is pending."""
+    deadline = time.monotonic() + timeout
+    while True:
+        check(srv._fatal is None, f"server scheduler died: {srv._fatal!r}")
+        sqs = srv._registry.standing
+        if all(sq.epoch >= epoch and not sq._busy for sq in sqs) \
+                and all(w[3] >= epoch for w in srv._watches) \
+                and not srv._registry.has_pending():
+            return
+        check(time.monotonic() < deadline,
+              f"standing catch-up to epoch {epoch} stalled")
+        time.sleep(0.005)
+
+
+def served_state(srv, root: pathlib.Path, tag: str) -> dict:
+    """What a restore must reproduce: taus, sink bytes, the tenant's
+    charge, and each watch's base key and last audited epoch."""
+    sqs = srv._registry.standing
+    for sq in sqs:
+        check(sq.last_error is None and sq.reemit_failures == 0,
+              f"{tag}: a standing query failed: {sq.last_error!r}")
+    return {"taus": [sq.tau for sq in sqs],
+            "sinks": [np.fromfile(sq.sink.path, np.uint8) for sq in sqs],
+            "charged": srv.stats().tenants["t"].oracle_charged,
+            "watches": [(w[2].tolist(), w[3]) for w in srv._watches]}
+
+
+def durable_run(shards, labels, root: pathlib.Path, seed: int, tag: str,
+                crash_at: Optional[dict], card: str):
+    """Steps 2 and 3's server: a standing RT and an audited standing RT
+    over the first 12 shards, certified and snapshotted, then shards
+    12-13 and 14-15 appended through the journal. With `crash_at` a
+    `CrashInjector` kills an append; returns (server, its state or None,
+    the injector)."""
+    eng = SelectionEngine(shards[:SESSION_SHARDS], num_bins=4096,
+                          workers=1, device=DEVICE)
+    srv = SelectionServer(eng, array_oracle(labels),
+                          durable=root / f"{tag}_durable",
+                          quotas={"t": 10**7}, sentinel_probe_budget=PROBE,
+                          sentinel_sigma=4.0)
+    rt = SESSION_BATCH[0][1]
+    for j, audit in enumerate((False, True)):
+        # one after the other: the audited RT's reference probe labels
+        # nothing a certification still needs, so the tenant's charge
+        # does not depend on the schedule
+        sq = srv.subscribe(rt, tenant="t", key=R.PRNGKey(seed + 31 + j),
+                           sink=pipeline.BitmaskStore(
+                               root / f"{tag}_{j}.bits"), audit=audit)
+        sq.wait_certified(timeout=300)
+    deadline = time.monotonic() + 300
+    while not srv._watches:        # the scheduler attaches the watch
+        check(time.monotonic() < deadline, f"{tag}: no sentinel watch")
+        time.sleep(0.005)
+    quiescent(srv, 0)
+    srv.snapshot()
+    inj = testing.CrashInjector(crash_at or {})
+    with inj:
+        for part in (shards[12:14], shards[14:16]):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            spies = [(recovery, "_to_host", "copy"), (np, "save",
+                                                      "serialize"),
+                     (zlib, "crc32", "crc"),
+                     (recovery.atomic, "atomic_write_bytes", "spool"),
+                     (srv.durable.journal, "append", "journal"),
+                     (srv.durable, "record_append", "recorded")]
+            with timing_spies(spies) as spent:
+                try:
+                    epoch = srv.append(part)
+                except testing.SimulatedCrash:
+                    print(f"{tag}: SimulatedCrash at {inj.fired_at} in the "
+                          f"append of epoch {srv.plane.epoch + 1} (journaled, "
+                          f"not installed); memory_allocated before it "
+                          f"{before} bytes")
+                    break
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            split = ", ".join(f"{what} {spent[k]:.4f}"
+                              for k, what in APPEND_SPLIT)
+            print(f"{tag}: journaled append of epoch {epoch} "
+                  f"({sum(p.numel() for p in part)} records): wall "
+                  f"{wall:.4f} s = record {spent['recorded']:.4f} s ({split}) "
+                  f"+ install {wall - spent['recorded']:.4f} s ({card})")
+            quiescent(srv, epoch)
+    if crash_at:
+        check(inj.fired, f"{tag}: the crash at {crash_at} never fired")
+        return srv, None, inj
+    spool = sum(f.stat().st_size for f in (root / f"{tag}_durable" /
+                                           "shards").iterdir())
+    print(f"{tag}: {spool} bytes spooled, {srv.durable.journal_bytes} "
+          f"journal bytes in {srv.durable.journal_records} records")
+    return srv, served_state(srv, root, tag), inj
+
+
+def restore_run(shards, labels, root: pathlib.Path, want: dict,
+                card: str) -> dict:
+    """Step 3's restore over the 12 base shards on the card: replay,
+    re-adoption and the standing catch-ups, checked against run 2."""
+    reset_counts(("score_hist", "threshold_select"))
+    marks = {}
+    replay = recovery.DurabilityPlane.replay_into
+
+    def timed_replay(self, plane):
+        marks["replay"] = (time.perf_counter(), sh_ops.launches.count)
+        out = replay(self, plane)
+        torch.cuda.synchronize()
+        marks["adopt"] = (time.perf_counter(), sh_ops.launches.count)
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(recovery.DurabilityPlane, "replay_into",
+                           timed_replay):
+        srv = SelectionServer.restore(
+            root / "crashed_durable", array_oracle(labels),
+            base_shards=shards[:SESSION_SHARDS],
+            engine_kw={"num_bins": 4096, "workers": 1},
+            quotas={"t": 10**7}, sentinel_probe_budget=PROBE,
+            sentinel_sigma=4.0)
+    t_done = time.perf_counter()
+    # resume: re-issue the appends the restored epoch shows missing (the
+    # crash came after the journal record, so replay applied both)
+    parts = (shards[12:14], shards[14:16])
+    reissued = len(parts) - srv.plane.epoch
+    for part in parts[srv.plane.epoch:]:
+        srv.append(part)
+    quiescent(srv, 2)
+    torch.cuda.synchronize()
+    t_caught = time.perf_counter()
+    replayed = marks["adopt"][1] - marks["replay"][1]
+    chunks = sum(-(-s.numel() // CHUNK) for s in shards[SESSION_SHARDS:])
+    catchups = ts_ops.launches.count
+    n_sq = len(srv._registry.standing)
+    got = served_state(srv, root, "restored")
+    check(srv.engine.device.type == "cuda",
+          f"restore built its engine on {srv.engine.device}")
+    check(reissued == 0, f"the restored corpus lacks {reissued} appends")
+    check((srv.recovered_epochs, srv.recovered_queries) == (2, 2),
+          f"recovered {srv.recovered_epochs} epochs, "
+          f"{srv.recovered_queries} queries")
+    check(replayed == chunks, f"the replay launched score_hist {replayed} "
+          f"times for {chunks} replayed chunks")
+    check(catchups == chunks * n_sq, f"the catch-ups launched "
+          f"threshold_select {catchups} times for {chunks} chunks x "
+          f"{n_sq} standing queries")
+    check(srv.stats().sentinel_triggers == 0, "the sentinel re-validated")
+    check(got["taus"] == want["taus"], f"restored taus {got['taus']} != "
+          f"{want['taus']}")
+    check(all(np.array_equal(a, b) for a, b in zip(got["sinks"],
+                                                   want["sinks"])),
+          "restored sink bits differ from the uncrashed run's")
+    check(got["charged"] == want["charged"], f"restored tenant charge "
+          f"{got['charged']} != {want['charged']}")
+    check(got["watches"] == want["watches"], f"restored watch (base key, "
+          f"last audited) {got['watches']} != {want['watches']}")
+    nxt = [(R.fold_in(np.asarray(k, np.uint32), last + 1).tolist(), last + 1)
+           for k, last in got["watches"]]
+    print(f"restore: recovered {srv.recovered_epochs} epochs and "
+          f"{srv.recovered_queries} standing queries; wall "
+          f"{t_done - t0:.4f} s = build {marks['replay'][0] - t0:.4f} + "
+          f"replay {marks['adopt'][0] - marks['replay'][0]:.4f} + adopt "
+          f"{t_done - marks['adopt'][0]:.4f}; catch-ups done "
+          f"{t_caught - t_done:.4f} s later ({card})")
+    print(f"restore: score_hist launches in the replay {replayed} for "
+          f"{chunks} replayed chunks; threshold_select launches in the "
+          f"catch-ups {catchups} ({chunks} chunks x {n_sq} standing "
+          f"queries); taus, sink bytes, tenant charge {got['charged']} and "
+          f"the watch (base key, last audited epoch) equal the uncrashed "
+          f"run's; next audit (key, epoch) {nxt}")
+    return {"server": srv, "launches": {"score_hist": sh_ops.launches.count,
+                                        "threshold_select": catchups}}
+
+
+def serve_phase(scores, labels, live: dict, seed: int, card: str) -> dict:
+    """Phase 14: the serving and durability planes at real size, on phase
+    13's corpus, keys and sequential results."""
+    shards = list(torch.tensor_split(scores, N_SHARDS))
+    keys = R.split(R.PRNGKey(seed + 13), len(SESSION_BATCH))
+    walls = {}
+    t0 = time.perf_counter()
+    served_batch(shards, labels, live["seq"], live["seq_select_launches"],
+                 keys, card)
+    walls["served batch"] = time.perf_counter() - t0
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_durable_"))
+    try:
+        t0 = time.perf_counter()
+        srv, want, _ = durable_run(shards, labels, root, seed, "uncrashed",
+                                   None, card)
+        srv.close()
+        walls["uncrashed run"] = time.perf_counter() - t0
+        print(f"uncrashed: taus {want['taus']}, tenant charge "
+              f"{want['charged']}, watches (base key, last audited) "
+              f"{want['watches']}")
+
+        t0 = time.perf_counter()
+        srv, _, _ = durable_run(shards, labels, root, seed, "crashed",
+                                {"post_journal_pre_install": 1}, card)
+        held = sum(st.flat.numel() * 4 for st in
+                   [srv.engine._state] + srv.engine._superseded)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        srv.close(abandon=True)
+        del srv
+        torch.cuda.synchronize()
+        after_close = torch.cuda.memory_allocated()
+        check(before - after_close >= held, f"close(abandon=True) freed "
+              f"{before - after_close} bytes of its engine's {held}")
+        restored = restore_run(shards, labels, root, want, card)
+        torch.cuda.synchronize()
+        after_restore = torch.cuda.memory_allocated()
+        restored["server"].close()
+        walls["crash, restore, resume"] = time.perf_counter() - t0
+        print(f"memory_allocated: {before} bytes before the crashed "
+              f"server's close, {after_close} after it (fell "
+              f"{before - after_close}, its epochs' flats {held}), "
+              f"{after_restore} after the restore")
+    finally:
+        shutil.rmtree(root)
+    launches = restored["launches"]
+    check(all(n > 0 for n in launches.values()),
+          f"phase 14's path launched {launches}")
+    print(f"phase 14 restore-path launches: {launches}")
+    print("phase 14 wall s: " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in walls.items())
+          + f" ({card})")
     return {"launches": launches, "walls": walls}
 
 
@@ -1727,9 +2070,13 @@ def main() -> None:
         torch.cuda.synchronize()
         print(f"corpus: phase 3's {N_RECORDS} scores drawn again on the "
               f"card in {time.perf_counter() - t0:.2f} s")
-        live_phase(scores, labels, args.seed, card)
-        del scores, labels
+        live = live_phase(scores, labels, args.seed, card)
     print(f"phase 13 wall: {phase.walls[live_name]:.3f} s ({card})")
+    serve_name = "14 the server, its journal and restore"
+    with phase(serve_name):
+        serve_phase(scores, labels, live, args.seed, card)
+        del scores, labels, live
+    print(f"phase 14 wall: {phase.walls[serve_name]:.3f} s ({card})")
     print(phase.total())
 
     rows = []

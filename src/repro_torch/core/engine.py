@@ -271,6 +271,18 @@ def _residency(raw: List, device: torch.device,
     return views, flat
 
 
+def _drop_corpus(st: "CorpusState") -> None:
+    """Drop every reference an epoch holds to its corpus: flat, shard
+    views, sketches, chunk masses, CDFs and plan."""
+    st.shards = []
+    st.shard_sketches = []
+    st.chunk_masses = []
+    st.sampling_cache = {}
+    st.sketch = None
+    st.flat = None
+    st.plan = None
+
+
 def state_from_reference(arrays: Dict[str, np.ndarray],
                          shards: Sequence) -> CorpusState:
     """Corpus state built from the JAX package's `CorpusState`, exported
@@ -507,14 +519,19 @@ class SelectionEngine:
             self._superseded = live
             self.epochs_freed += len(dead)
         for st in dead:
-            st.shards = []
-            st.shard_sketches = []
-            st.chunk_masses = []
-            st.sampling_cache = {}
-            st.sketch = None
-            st.flat = None
-            st.plan = None
+            _drop_corpus(st)
         return len(dead)
+
+    def _release(self) -> None:
+        """Drop every epoch's corpus, current and superseded, pinned or
+        not, as `gc_epochs` drops a dead one: the device memory goes back
+        to the allocator. `epoch`, `n_total` and the epoch counters stay
+        readable; no query runs after it. For an owner done with the
+        engine (`SelectionServer.close`)."""
+        with self._gc_lock:
+            states = [self._state] + self._superseded
+        for st in states:
+            _drop_corpus(st)
 
     @property
     def epochs_live(self) -> int:

@@ -4,7 +4,7 @@ The JAX package draws inside its query plans from ``jax.random`` keys, and a
 port query is held against it by handing both engines one key. So the port
 keeps jax's key format (``uint32[2]``) and reproduces, in numpy ``uint32``
 arithmetic, exactly the calls the selection path makes: `PRNGKey`, `split`,
-`uniform`, `randint` and `categorical`.
+`fold_in`, `uniform`, `randint` and `categorical`.
 
 Only jax's default mode, ``jax_threefry_partitionable=True``, is implemented:
 random bits for an array of shape ``(n,)`` are the threefry hash of the
@@ -91,6 +91,19 @@ def split(key, num: int = 2) -> np.ndarray:
     hi, lo = _counters((int(num),))
     b0, b1 = threefry2x32(key, hi, lo)
     return np.stack([b0, b1], axis=-1)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """A key derived from `key` and an integer, as ``jax.random.fold_in``:
+    the threefry hash of the one counter pair ``(0, data mod 2**32)``.
+
+    >>> fold_in(PRNGKey(0), 0x5E47).shape
+    (2,)
+    """
+    x0 = np.zeros(1, np.uint32)
+    x1 = np.asarray([int(data) & 0xFFFFFFFF], np.uint32)
+    b0, b1 = threefry2x32(key, x0, x1)
+    return np.concatenate([b0, b1])
 
 
 def random_bits(key, shape: Shape) -> np.ndarray:

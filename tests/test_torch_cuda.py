@@ -9,7 +9,8 @@ The CUDA kernels are held against their plain versions on the card, the
 card's engine against a CPU engine serving the same corpus state, and
 narrow models' scores (float32) and logits (bf16) through the kernels
 (flash_attention; linear_scan and flash_attention for the hybrid) against
-the same models with the plain versions.
+the same models with the plain versions, and a durable server's crash and
+restore on the card against its uncrashed run.
 """
 import dataclasses
 
@@ -22,6 +23,7 @@ from repro_torch import random as R  # noqa: E402
 from repro_torch.core.engine import SelectionEngine  # noqa: E402
 from repro_torch.core.oracle import array_oracle  # noqa: E402
 from repro_torch.core.queries import JointSUPGQuery, SUPGQuery  # noqa: E402
+from repro_torch.data.pipeline import BitmaskStore  # noqa: E402
 from repro_torch.data.synthetic import make_beta  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
@@ -33,6 +35,8 @@ from repro_torch.kernels.threshold_select import ops as ts_ops  # noqa: E402
 from repro_torch.kernels.threshold_select import ref as ts_ref  # noqa: E402
 from repro_torch.live import IngestPlane  # noqa: E402
 from repro_torch.models import attention, mamba, model  # noqa: E402
+from repro_torch.serve import SelectionServer  # noqa: E402
+from repro_torch.testing import CrashInjector, SimulatedCrash  # noqa: E402
 
 
 def _scores(n, seed, sentinel_frac=0.01):
@@ -745,3 +749,88 @@ def test_narrow_bf16_zamba_logits_through_the_kernels_match_plain(
     assert bool(torch.isfinite(got).all())
     ratio = float((got - want).abs().max()) / float(want.abs().max())
     assert ratio <= 3.5e-2
+
+
+def _durable_server(card, root, tag, shards, labels, crash_at=None):
+    """A durable server on the card over shards 0-2: two standing queries
+    on BitmaskStore sinks, certified and snapshotted, then shards 3 and 4
+    appended through the journal (a `CrashInjector` at `crash_at`)."""
+    srv = SelectionServer(
+        SelectionEngine(shards[:3], num_bins=4096, chunk_records=1 << 15,
+                        device=card),
+        array_oracle(labels), durable=root / f"{tag}_durable",
+        quotas={"t": 10**7})
+    sqs = []
+    for j, q in enumerate(_LIVE_QUERIES[:2]):
+        sqs.append(srv.subscribe(q, tenant="t", key=R.PRNGKey(20 + j),
+                                 sink=BitmaskStore(root / f"{tag}_{j}.bits")))
+        sqs[-1].wait_certified(timeout=300)
+    srv.snapshot()
+    with CrashInjector(crash_at or {}) as inj:
+        for epoch, part in enumerate(shards[3:5], start=1):
+            try:
+                srv.append(part)
+            except SimulatedCrash:
+                break
+            _caught_up(srv, epoch)
+    assert inj.fired == bool(crash_at)
+    return srv
+
+
+def _caught_up(srv, epoch, timeout=300):
+    import time
+    deadline = time.monotonic() + timeout
+    while not (all(sq.epoch >= epoch and not sq._busy
+                   for sq in srv._registry.standing)
+               and not srv._registry.has_pending()):
+        assert srv._fatal is None and time.monotonic() < deadline
+        time.sleep(0.005)
+
+
+@pytest.mark.cuda
+def test_card_server_crash_restore_equals_the_uncrashed_run(card,
+                                                           tmp_path):
+    """A durable server on the card killed at `post_journal_pre_install`
+    on its second append, abandoned (its corpus leaves the card) and
+    restored with no device named (so on cuda): 2 epochs and 2 standing
+    queries recovered, score_hist once per replayed chunk,
+    threshold_select once per appended chunk per standing query in the
+    catch-ups, and the uncrashed run's taus, sink bits and charge."""
+    shards, labels = _live_shards(card, n_shards=5)
+    srv = _durable_server(card, tmp_path, "ref", shards, labels)
+    want = ([sq.tau for sq in srv._registry.standing],
+            [np.fromfile(sq.sink.path, np.uint8)
+             for sq in srv._registry.standing],
+            srv.stats().tenants["t"].oracle_charged)
+    srv.close()
+    srv = _durable_server(card, tmp_path, "crash", shards, labels,
+                          {"post_journal_pre_install": 1})
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(card)
+    held = srv.engine._state.flat.numel() * 4
+    srv.close(abandon=True)
+    del srv
+    torch.cuda.synchronize()
+    assert before - torch.cuda.memory_allocated(card) >= held
+    hist0, sel0 = sh_ops.launches.count, ts_ops.launches.count
+    srv = SelectionServer.restore(
+        tmp_path / "crash_durable", array_oracle(labels),
+        base_shards=shards[:3],
+        engine_kw={"num_bins": 4096, "chunk_records": 1 << 15},
+        quotas={"t": 10**7})
+    try:
+        assert srv.engine.device.type == "cuda"
+        assert (srv.recovered_epochs, srv.recovered_queries) == (2, 2)
+        _caught_up(srv, 2)
+        chunks = [-(-s.numel() // (1 << 15)) for s in shards[:5]]
+        assert sh_ops.launches.count - hist0 == sum(chunks)  # build+replay
+        assert ts_ops.launches.count - sel0 == 2 * sum(chunks[3:])
+        got = ([sq.tau for sq in srv._registry.standing],
+               [np.fromfile(sq.sink.path, np.uint8)
+                for sq in srv._registry.standing],
+               srv.stats().tenants["t"].oracle_charged)
+    finally:
+        srv.close()
+    assert got[0] == want[0] and got[2] == want[2]
+    for a, b in zip(got[1], want[1]):
+        np.testing.assert_array_equal(a, b)

@@ -276,12 +276,17 @@ PORT_DOC_MODULES = [
     "repro_torch.core.sampling",
     "repro_torch.data.pipeline",
     "repro_torch.durable.atomic",
+    "repro_torch.durable.journal",
+    "repro_torch.durable.recovery",
     "repro_torch.kernels.score_hist.ops",
     "repro_torch.kernels.flash_attention.ops",
     "repro_torch.kernels.threshold_select.ops",
     "repro_torch.live.ingest",
     "repro_torch.live.standing",
     "repro_torch.live.sentinel",
+    "repro_torch.serve.limiter",
+    "repro_torch.serve.stats",
+    "repro_torch.testing.crash",
     "repro_torch.testing.faults",
 ]
 

@@ -79,3 +79,28 @@ def test_gumbel_bit_for_bit(seed, shape):
     want = _jax(jax.random.gumbel, _jax(jax.random.PRNGKey, seed), shape)
     assert got.dtype == np.float32 and got.shape == shape
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_bit_for_bit(seed):
+    """`fold_in` is ``jax.random.fold_in`` bit for bit: over random keys
+    and data, the sentinel's 0x5E47, and the audit's epochs 0-64 folded
+    into that base."""
+    rng = np.random.default_rng(seed & 0xFFFF)
+    keys = [_jax(jax.random.PRNGKey, seed)]
+    keys += [rng.integers(0, 2**32, 2, dtype=np.uint64).astype(np.uint32)
+             for _ in range(4)]
+    data = [0, 1, 0x5E47, 2**31, 2**32 - 1]
+    data += [int(d) for d in rng.integers(0, 2**32, 8, dtype=np.uint64)]
+    for k in keys:
+        for d in data:
+            got = R.fold_in(k, d)
+            assert got.dtype == np.uint32 and got.shape == (2,)
+            np.testing.assert_array_equal(got,
+                                          _jax(jax.random.fold_in, k, d))
+    base = R.fold_in(R.PRNGKey(seed), 0x5E47)
+    jbase = _jax(jax.random.fold_in, _jax(jax.random.PRNGKey, seed), 0x5E47)
+    np.testing.assert_array_equal(base, jbase)
+    for epoch in range(65):
+        np.testing.assert_array_equal(
+            R.fold_in(base, epoch), _jax(jax.random.fold_in, jbase, epoch))
