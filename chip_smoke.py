@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: kernels, engine, models.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: kernels, engine, models,
+the single-array query path and the distributed plane.
 
     python3 chip_smoke.py [--seed N]
 
@@ -176,6 +177,34 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     last audited epoch equal the uncrashed run's. The restore's wall
     (build, replay, adopt) and the phase's walls are printed beside the
     card's name and power limit.
+15. The single-array query path and the distributed plane, on phase 3's
+    corpus drawn again (2^27 Beta(0.01, 1) scores on the card, labels on
+    the host), budget 3000, delta 0.05. `queries.run_query` RT 0.9 (is,
+    uniform, noci), PT 0.8 (two-stage and one-stage) and
+    `run_joint_query` RT 0.9 / P 1.0 over keys 0-3: per query the wall,
+    tau, oracle calls, achieved recall or precision and the
+    threshold_select/threshold_count launches (1, or 2 for two-stage
+    PT); selected must equal union(labeled positives, {A >= tau} on the
+    card) exactly, the same query with the kernels' plain versions must
+    give the same tau and selection, and RT/PT spend at most the budget;
+    on a 2^20-record corpus each query on the card must equal the same
+    query on the CPU.
+    The sqrt draw's float32 CDF (XLA's blocked order on every device)
+    against a float64 one: the largest deviation and the records of
+    positive weight whose step is 0. Then `core.distributed` on ``nccl``
+    at world size 1
+    over the whole corpus (one score_hist launch for the sketch, one a
+    shard for 16 shard totals, one threshold_count a global count):
+    `global_sketch` bitwise `binned.build_sketch`, its counts the exact
+    int64 histogram rounded once to float32 (a float32 fold of the chunk
+    sketches is printed beside it: bin 0 holds more than 2^24 records),
+    `global_selection_count` at each RT's tau equal to |R2|, and a 2^20
+    -draw `two_level_sample` over the 16 shard totals, resolved with
+    `within_shard_probs`, estimating the positive rate within 20%; then
+    two ``gloo`` ranks sharing the card on CUDA tensors (spawned after
+    the build, half the corpus each): counts within two float32
+    roundings of exact, sums within 2e-6 |e| + n 2^-32 of float64, shard
+    totals within 1e-6, global counts exact.
 
 Each phase prints its wall time as it ends, and the line before the
 kernels line sums them.
@@ -210,13 +239,16 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+import torch.multiprocessing as tmp  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import live  # noqa: E402
 from repro_torch import random as R  # noqa: E402
 from repro_torch import testing  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import binned, queries, sampling  # noqa: E402
+from repro_torch.core import binned, bounds, queries, sampling  # noqa: E402
+from repro_torch.core import distributed as dplane  # noqa: E402
 from repro_torch.core import engine as engine_mod  # noqa: E402
 from repro_torch.core.engine import SelectionEngine  # noqa: E402
 from repro_torch.core.oracle import array_oracle  # noqa: E402
@@ -1310,10 +1342,6 @@ def _build_steps():
              "_sketch_shards"),
             ("per-chunk unit", binned, "chunk_sketch_into"),
             ("score_hist call", sh_ops, "score_hist"),
-            # The per-chunk steps of a build before score_hist took over
-            # the masses, so that one profile reads an older tree too.
-            ("per-chunk unit", binned, "chunk_sketch_stats"),
-            ("masses (chunk_raw_masses)", sampling, "chunk_raw_masses"),
             ("merge_sketches", binned, "merge_sketches"),
             ("weight_normalizers", binned, "weight_normalizers"),
             ("_sampling_state", SelectionEngine, "_sampling_state")]
@@ -1929,6 +1957,374 @@ def serve_phase(scores, labels, live: dict, seed: int, card: str) -> dict:
     return {"launches": launches, "walls": walls}
 
 
+# -- phase 15 ------------------------------------------------------------------
+
+# The single-array path (`queries.run_query` / `run_joint_query`) over the
+# whole corpus. Two-stage PT at 0.8, as in phase 13: at 0.9 it usually
+# certifies nothing at this size (PERF.md §7).
+ARRAY_QUERIES = [
+    ("RT is", SUPGQuery(target="recall", gamma=0.9, delta=0.05, budget=3000,
+                        method="is")),
+    ("RT uniform", SUPGQuery(target="recall", gamma=0.9, delta=0.05,
+                             budget=3000, method="uniform")),
+    ("RT noci", SUPGQuery(target="recall", gamma=0.9, delta=0.05,
+                          budget=3000, method="noci")),
+    ("PT is two-stage", SUPGQuery(target="precision", gamma=0.8, delta=0.05,
+                                  budget=3000, two_stage=True)),
+    ("PT is one-stage", SUPGQuery(target="precision", gamma=0.8, delta=0.05,
+                                  budget=3000, two_stage=False)),
+    ("JT", None),      # run_joint_query: RT 0.9 then P 1.0, stage budget 3000
+]
+ARRAY_KEYS = range(4)
+# threshold_select / threshold_count launches a query makes: R2, and PT's
+# two-stage |D'|.
+ARRAY_LAUNCHES = {"RT is": 1, "RT uniform": 1, "RT noci": 1,
+                  "PT is two-stage": 2, "PT is one-stage": 1, "JT": 1}
+TWO_LEVEL_DRAWS = 1 << 20
+GLOO_RANKS = 2
+# The two gloo ranks' sketch against float64 per-bin sums: each rank's
+# launch lies within 1e-6 |e| + n 2^-32 (phase 2's bar), and the float32
+# sum of the two ranks adds one rounding (2^-24 relative): 2e-6 |e| +
+# n 2^-32. Counts: each rank's exact count rounded once to float32, their
+# float32 sum rounded once more, so within 2^-22 of the exact count.
+GLOO_SUM_REL = 2e-6
+GLOO_COUNT_REL = 2.0 ** -22
+
+
+def recording_oracle(labels: np.ndarray):
+    """An oracle over host labels that also records the positives it
+    labeled (a query's R1 and, for JT, its verified candidates)."""
+    seen = []
+
+    def fn(idx):
+        idx = np.asarray(idx, np.int64)
+        lab = labels[idx]
+        seen.append(idx[lab > 0.5])
+        return lab
+
+    return fn, seen
+
+
+def array_query(name, q, key, scores, labels, device=None):
+    """One single-array query through the user entry point (on the card
+    unless `device` says otherwise): (result, wall s, the positives its
+    oracle labeled)."""
+    fn, seen = recording_oracle(labels)
+    t0 = time.perf_counter()
+    if name == "JT":
+        res = queries.run_joint_query(key, scores, fn, 0.9, 1.0,
+                                      stage_budget=3000, device=device)
+    else:
+        res = queries.run_query(key, scores, fn, q, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, np.unique(np.concatenate(seen + [np.empty(0,
+                                                                np.int64)]))
+
+
+def card_union(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Sorted union of two index sets, by ``torch.unique`` on the card
+    (numpy 2.3's hash-based ``np.unique`` takes seconds at millions)."""
+    both = torch.cat([torch.from_numpy(np.asarray(x, np.int64))
+                      for x in (a, b)]).to(DEVICE)
+    return torch.unique(both).cpu().numpy()
+
+
+@contextlib.contextmanager
+def plain_selection():
+    """The threshold kernels' plain versions, patched in where the query
+    path calls the kernels (`threshold_select`, `threshold_count`)."""
+    with mock.patch.object(ts_ops, "threshold_select",
+                           ts_ref.threshold_select_ref), \
+            mock.patch.object(ts_ops, "threshold_count",
+                              ts_ref.threshold_count_ref):
+        yield
+
+
+def cdf_deviation(scores: torch.Tensor) -> None:
+    """The draw's float32 CDF (XLA's blocked order, `bounds.blocked_cumsum`)
+    against a float64 prefix sum of the same weights, and the records of
+    positive weight that it gives a step of 0."""
+    probs = sampling.sqrt_proxy_weights(scores)
+    cdf64 = torch.cumsum(probs.double(), 0)
+    cdf64 = cdf64 / cdf64[-1]
+    cdf32 = bounds.blocked_cumsum(probs)
+    cdf32 = cdf32 / cdf32[-1]
+    dev = float((cdf32.double() - cdf64).abs().max())
+    flat = int(((cdf32[1:] == cdf32[:-1]) & (probs[1:] > 0)).sum())
+    print(f"float32 CDF (blocked, the draw's): largest deviation from "
+          f"float64 {dev:.4g} (mean increment {1.0 / scores.numel():.4g}, "
+          f"half an ulp of 0.5 {2.0 ** -25:.4g}); {flat} records of positive "
+          "weight get a step of 0 (never drawn)")
+    del probs, cdf64, cdf32
+
+
+def single_array_phase(scores, labels, seed) -> dict:
+    """Part 1 of phase 15: RT/PT/JT over the whole corpus, each query
+    held against union(R1, {A >= tau}) on the card and against the same
+    query with the threshold kernels' plain versions; returns the R2 size
+    at each RT's tau."""
+    truth = labels > 0.5
+    r2_sizes = {}
+    for k in ARRAY_KEYS:
+        key = R.PRNGKey(seed + k)
+        for name, q in ARRAY_QUERIES:
+            reset_counts(["threshold_select"])
+            res, wall, pos = array_query(name, q, key, scores, labels)
+            launches = ts_ops.launches.count
+            check(launches == ARRAY_LAUNCHES[name],
+                  f"{name} key {k}: {launches} threshold_select/"
+                  f"threshold_count launches, expected "
+                  f"{ARRAY_LAUNCHES[name]}")
+            tau = res.stage2_tau if name == "JT" else res.tau
+            r2 = torch.nonzero(scores >= tau).reshape(-1).cpu().numpy()
+            if name == "JT":
+                want = card_union(pos, r2[truth[r2]])
+                achieved = (f"precision "
+                            f"{queries.precision_of(res.selected, truth):.4f}"
+                            f", recall "
+                            f"{queries.recall_of(res.selected, truth):.4f}")
+            else:
+                check(res.oracle_calls <= q.budget,
+                      f"{name} key {k} spent {res.oracle_calls}")
+                want = card_union(pos, r2)
+                check(res.n_sampled_positives == pos.size,
+                      f"{name} key {k}: sampled positives")
+                metric = (queries.recall_of if q.target == "recall"
+                          else queries.precision_of)
+                achieved = f"{q.target} {metric(res.selected, truth):.4f}"
+            check(np.array_equal(res.selected, want),
+                  f"{name} key {k}: selected != union(R1, A >= tau)")
+            if name.startswith("RT"):
+                r2_sizes[(name, k)] = (tau, r2.size)
+            with plain_selection():
+                plain, _, _ = array_query(name, q, key, scores, labels)
+            check(ts_ops.launches.count == launches,
+                  f"{name} key {k}: the plain run launched a kernel")
+            plain_tau = plain.stage2_tau if name == "JT" else plain.tau
+            check(plain_tau == tau and np.array_equal(plain.selected,
+                                                      res.selected),
+                  f"{name} key {k}: kernels vs plain versions differ")
+            print(f"{name} key {k}: wall {wall:.4f} s, tau {tau:.6g}, "
+                  f"oracle calls {res.oracle_calls}, {achieved}, "
+                  f"{res.selected.size} selected; threshold_select/"
+                  f"threshold_count launches {launches}; == plain")
+    return r2_sizes
+
+
+def array_agreement(seed: int) -> None:
+    """The card's single-array queries against the CPU's on one small
+    corpus: the card draws with the CPU's bits, so tau, selection and
+    oracle calls must agree exactly."""
+    scores, labels = make_beta_on_device(1 << 20, 0.01, 1.0, seed=seed + 1,
+                                         device="cpu")
+    on_card = scores.to(DEVICE)
+    for name, q in ARRAY_QUERIES:
+        a, _, _ = array_query(name, q, R.PRNGKey(seed), on_card, labels)
+        b, _, _ = array_query(name, q, R.PRNGKey(seed), scores, labels,
+                              device="cpu")
+        check(np.array_equal(a.selected, b.selected)
+              and a.oracle_calls == b.oracle_calls
+              and (a.stage2_tau == b.stage2_tau if name == "JT"
+                   else a.tau == b.tau),
+              f"card vs cpu single-array {name}")
+    print(f"small corpus ({1 << 20} records): card == CPU for each "
+          "single-array query (tau, selected, oracle calls)")
+
+
+def _exact_hist(scores: torch.Tensor, bins: int):
+    """Exact int64 per-bin counts and float64 Σ sqrt(A), Σ A of the
+    records with A >= 0, on the card."""
+    s = scores[scores >= 0]
+    ids = sh_ref.bin_index(s, bins)
+    a = torch.clamp(s, 0.0, 1.0).double()
+    counts = torch.bincount(ids, minlength=bins)
+    sums = [torch.zeros(bins, dtype=torch.float64, device=s.device)
+            .index_add_(0, ids, v) for v in (torch.sqrt(a), a)]
+    return counts, sums
+
+
+def nccl_phase(scores, labels, r2_sizes, seed, root: pathlib.Path) -> None:
+    """Part 2a of phase 15: the distributed plane on nccl at world size 1
+    over the whole corpus."""
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(root / "nccl_store"), 1), rank=0, world_size=1,
+        device_id=torch.device(DEVICE, 0))
+    try:
+        check(dist.get_backend() == "nccl", "the group is not nccl")
+        reset_counts(["score_hist", "threshold_select"])
+        t0 = time.perf_counter()
+        sketch = dplane.global_sketch(scores)
+        shards = list(torch.tensor_split(scores, N_SHARDS))
+        totals = torch.cat([dplane.shard_weight_totals(sh) for sh in shards])
+        counts_at = {nk: int(dplane.global_selection_count(scores, tau))
+                     for nk, (tau, _) in r2_sizes.items()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"score_hist": sh_ops.launches.count,
+                    "threshold_select": ts_ops.launches.count}
+        check(launches == {"score_hist": 1 + N_SHARDS,
+                           "threshold_select": len(r2_sizes)},
+              f"nccl path launched {launches}")
+        print(f"nccl, world size 1: global_sketch, 16 shard totals and "
+              f"{len(r2_sizes)} global counts in {wall:.4f} s; launches "
+              f"{launches}")
+
+        want = binned.build_sketch(scores)
+        check(all(torch.equal(a, b) for a, b in zip(sketch, want)),
+              "global_sketch != binned.build_sketch")
+        exact, _ = _exact_hist(scores, binned.DEFAULT_BINS)
+        check(torch.equal(sketch.counts, exact.float()),
+              "global sketch counts != exact counts rounded to float32")
+        folded = binned.merge_sketches(*[
+            binned.build_sketch(c) for c in torch.split(scores, CHUNK)])
+        diff = (folded.counts.double() - exact.double()).abs()
+        print(f"global_sketch bitwise binned.build_sketch; counts == the "
+              f"exact int64 histogram rounded once (bin 0: "
+              f"{int(exact[0])} records); a float32 fold of "
+              f"{N_RECORDS // CHUNK} chunk sketches differs from it by "
+              f"{float(diff[0]):.0f} in bin 0, {float(diff.max()):.0f} at "
+              "most")
+        for nk, (tau, size) in r2_sizes.items():
+            check(counts_at[nk] == size,
+                  f"global_selection_count at {nk} tau {tau}: "
+                  f"{counts_at[nk]} != {size}")
+        print(f"global_selection_count == |R2| at each RT's tau "
+              f"({len(r2_sizes)} taus)")
+
+        t0 = time.perf_counter()
+        ids, keys = dplane.two_level_sample(R.PRNGKey(seed), totals,
+                                            TWO_LEVEL_DRAWS)
+        t_alloc = time.perf_counter() - t0
+        z, n = float(totals[:, 0].sum()), float(totals[:, 1].sum())
+        est, offset = [], 0
+        for i, sh in enumerate(shards):
+            k = int((ids == i).sum())
+            if k:
+                p, m = dplane.within_shard_probs(sh, z, n)
+                d = sampling.sample_weighted(keys[int(np.argmax(ids == i))],
+                                             p, k).indices
+                est.append(labels[offset + d.cpu().numpy()]
+                           * m[d].cpu().numpy())
+            offset += sh.numel()
+        got, rate = float(np.mean(np.concatenate(est))), float(labels.mean())
+        check(abs(got - rate) <= 0.2 * rate,
+              f"two-level estimate {got} vs positive rate {rate}")
+        print(f"two_level_sample: {TWO_LEVEL_DRAWS} draws over "
+              f"{N_SHARDS} shard totals in {t_alloc:.2f} s on the host; "
+              f"mean(label * m) {got:.6f} vs positive rate {rate:.6f}")
+    finally:
+        dist.destroy_process_group()
+
+
+def _gloo_rank(rank: int, world: int, root: str, seed: int,
+               taus: list) -> None:
+    """One of the gloo ranks that share the card: half the corpus each,
+    every collective of the plane, checked against exact sums over the
+    whole corpus; writes what it measured to ``rank<r>.json``."""
+    root = pathlib.Path(root)
+    scores, _ = make_beta_on_device(N_RECORDS, 0.01, 1.0, seed=seed,
+                                    device=DEVICE)
+    half = torch.tensor_split(scores, world)[rank].clone()
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(root / "gloo_store"), world), rank=rank, world_size=world)
+    try:
+        check(dist.get_backend() == "gloo", "the group is not gloo")
+        reset_counts(["score_hist", "threshold_select"])
+        sketch = dplane.global_sketch(half)
+        totals = dplane.shard_weight_totals(half, "sqrt")
+        counts_at = [int(dplane.global_selection_count(half, t))
+                     for t in taus]
+        sel = dplane.local_selection(half, taus[0])
+        torch.cuda.synchronize()
+        launches = {"score_hist": sh_ops.launches.count,
+                    "threshold_select": ts_ops.launches.count}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    check(launches == {"score_hist": 2, "threshold_select": len(taus)},
+          f"gloo rank {rank} launched {launches}")
+    counts, (sum_w, sum_a) = _exact_hist(scores, binned.DEFAULT_BINS)
+    c = counts.double()
+    count_err = float(((sketch.counts.double() - c).abs()
+                       / c.clamp_min(1)).max())
+    check(bool(((sketch.counts.double() - c).abs()
+                <= GLOO_COUNT_REL * c).all()), "gloo counts")
+    sum_err = 0.0
+    for got, e in ((sketch.sum_w, sum_w), (sketch.sum_a, sum_a)):
+        err = (got.double() - e).abs()
+        bar = GLOO_SUM_REL * e.abs() + c * 2.0 ** -32
+        check(bool((err <= bar).all()), "gloo sums")
+        sum_err = max(sum_err, float((err / bar.clamp_min(1e-30)).max()))
+    halves = torch.tensor_split(scores, world)
+    want_rows = [float(torch.sqrt(torch.clamp(h, 0, 1).double()).sum())
+                 for h in halves]
+    rows_rel = max(abs(float(totals[i, 0]) - w) / w
+                   for i, w in enumerate(want_rows))
+    check(rows_rel <= 1e-6 and [float(totals[i, 1]) for i in range(world)]
+          == [float(np.float32(h.numel())) for h in halves],
+          f"gloo shard totals off by {rows_rel}")
+    exact_at = [int((scores >= t).sum()) for t in taus]
+    check(counts_at == exact_at, f"gloo counts {counts_at} != {exact_at}")
+    check(torch.equal(sel, half >= taus[0]), "local_selection")
+    (root / f"rank{rank}.json").write_text(json.dumps({
+        "launches": launches, "count_rel": count_err,
+        "sum_err_over_bar": sum_err, "totals_rel": rows_rel,
+        "bin0_count": float(sketch.counts[0]), "bin0_exact": int(counts[0]),
+        "counts_at": counts_at}))
+
+
+def gloo_phase(seed: int, taus: list, root: pathlib.Path) -> None:
+    """Part 2b of phase 15: two gloo ranks on CUDA tensors, each holding
+    half the corpus, spawned after the kernels were built (the ranks load
+    the built libraries)."""
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(_gloo_rank, args=(GLOO_RANKS, str(root), seed,
+                                                taus),
+                              nprocs=GLOO_RANKS, join=False,
+                              start_method="spawn")
+    deadline = time.monotonic() + 300
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            check(False, "gloo ranks did not end in 300 s")
+    for r in range(GLOO_RANKS):
+        got = json.loads((root / f"rank{r}.json").read_text())
+        print(f"gloo rank {r} of {GLOO_RANKS} on CUDA tensors (half the "
+              f"corpus): launches {got['launches']}; counts within "
+              f"{got['count_rel']:.3g} of exact (bin 0 {got['bin0_count']:.0f}"
+              f" vs {got['bin0_exact']}), sums at most "
+              f"{got['sum_err_over_bar']:.3g} of their bar, shard totals "
+              f"within {got['totals_rel']:.3g} of float64, global counts "
+              f"exact {got['counts_at']}")
+    print(f"gloo ranks: wall {time.perf_counter() - t0:.2f} s, processes "
+          "started and joined")
+
+
+def array_phase(seed: int, card: str) -> None:
+    """Phase 15: the single-array path and the distributed plane on phase
+    3's corpus."""
+    t0 = time.perf_counter()
+    scores, labels = make_beta_on_device(N_RECORDS, 0.01, 1.0, seed=seed,
+                                         device=DEVICE)
+    torch.cuda.synchronize()
+    print(f"corpus: phase 3's {N_RECORDS} scores drawn again on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    r2_sizes = single_array_phase(scores, labels, seed)
+    print(f"single-array queries ({len(ARRAY_KEYS)} keys, with their plain "
+          f"reruns): {time.perf_counter() - t0:.2f} s ({card})")
+    array_agreement(seed)
+    cdf_deviation(scores)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        root = pathlib.Path(tmpdir)
+        nccl_phase(scores, labels, r2_sizes, seed, root)
+        del scores, labels
+        torch.cuda.empty_cache()
+        gloo_phase(seed, sorted({t for t, _ in r2_sizes.values()}), root)
+
+
 class Phases:
     """Wall time of each phase, printed as it ends and summed at the end."""
 
@@ -2077,6 +2473,10 @@ def main() -> None:
         serve_phase(scores, labels, live, args.seed, card)
         del scores, labels, live
     print(f"phase 14 wall: {phase.walls[serve_name]:.3f} s ({card})")
+    array_name = "15 single-array queries and the distributed plane"
+    with phase(array_name):
+        array_phase(args.seed, card)
+    print(f"phase 15 wall: {phase.walls[array_name]:.3f} s ({card})")
     print(phase.total())
 
     rows = []

@@ -3,7 +3,8 @@ statistical plane and (in `repro_torch.core.engine`, imported explicitly)
 the selection engine.
 
 Public API:
-  SUPGQuery / JointSUPGQuery                 query specs (Section 3, App. A)
+  SUPGQuery / run_query / run_joint_query    query semantics (Section 3)
+  JointSUPGQuery / QueryResult / JointResult JT specs (App. A) and results
   precision_of / recall_of                   result metrics
   OracleClient / BatchingOracle              batched labeling channel +
   BudgetLedger / as_oracle_client            per-query budget views
@@ -17,8 +18,9 @@ from repro_torch.core.oracle import (BatchingOracle, BudgetedOracle,
                                      DrainHandle, OracleClient,
                                      OracleRequest, Ticket, array_oracle,
                                      as_oracle_client)
-from repro_torch.core.queries import (JointSUPGQuery, SUPGQuery,
-                                      precision_of, recall_of)
+from repro_torch.core.queries import (JointResult, JointSUPGQuery,
+                                      QueryResult, SUPGQuery, precision_of,
+                                      recall_of, run_joint_query, run_query)
 from repro_torch.core.resilience import (CircuitBreaker, CircuitOpenError,
                                          OracleError, OracleFatalError,
                                          OracleMalformedError,
@@ -34,5 +36,6 @@ __all__ = [
     "CircuitBreaker", "CircuitOpenError", "OracleError", "OracleFatalError",
     "OracleMalformedError", "OracleTimeoutError", "OracleTransientError",
     "RetryPolicy", "is_retryable",
-    "SUPGQuery", "JointSUPGQuery", "precision_of", "recall_of",
+    "SUPGQuery", "QueryResult", "JointResult", "JointSUPGQuery",
+    "run_query", "run_joint_query", "precision_of", "recall_of",
 ]

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.core import bounds
 from repro_torch.kernels.score_hist import ops as hist_ops
+from repro_torch.kernels.score_hist import ref as hist_ref
 
 DEFAULT_BINS = 4096
 
@@ -37,6 +38,13 @@ class ScoreSketch(NamedTuple):
     def num_bins(self) -> int:
         """Number of bins B."""
         return int(self.counts.shape[0])
+
+
+def bin_index(scores, num_bins: int = DEFAULT_BINS) -> torch.Tensor:
+    """Int32 bin id in [0, B) of each score; bin b covers [b/B, (b+1)/B),
+    scores clipped to [0, 1]."""
+    return hist_ref.bin_index(torch.as_tensor(scores), num_bins).to(
+        torch.int32)
 
 
 def empty_sketch(num_bins: int, device) -> ScoreSketch:
@@ -90,6 +98,16 @@ def rank_to_threshold(sketch: ScoreSketch, rank: int) -> float:
     j = int(torch.argmax(reached.to(torch.uint8))) if bool(reached.any()) \
         else b - 1
     return float(np.float32(b - 1 - j) / np.float32(b))
+
+
+def selection_size(sketch: ScoreSketch, tau) -> torch.Tensor:
+    """Upper bound on |{x : A(x) >= tau}| from bin counts (bin-granular):
+    the count of every bin from tau's down (a 0-d float32 tensor)."""
+    b = sketch.num_bins
+    lo_bin = int(np.floor(np.float32(np.clip(np.float32(tau), 0.0, 1.0))
+                          * np.float32(b)))
+    keep = (torch.arange(b, device=sketch.counts.device) >= lo_bin)
+    return bounds.tree_sum(sketch.counts * keep.to(torch.float32))
 
 
 def weight_normalizers(sketch: ScoreSketch):

@@ -110,6 +110,15 @@ def _bits32(b: int, like: torch.Tensor) -> torch.Tensor:
         torch.float32)
 
 
+def flush32(x: torch.Tensor) -> torch.Tensor:
+    """Float32 subnormals as zero (signed), as XLA's CPU code reads its
+    inputs and writes its results (denormals-are-zero, flush-to-zero). A
+    Beta(0.01, 1) corpus holds about 40% scores below 2^-126, which the
+    reference's jnp samplers take as 0."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    return torch.where(x.abs() < _bits32(_F32_MIN_NORMAL, x), x * 0.0, x)
+
+
 def xla_log32(x) -> torch.Tensor:
     """Float32 natural log, bit for bit ``jnp.log`` on XLA's CPU, on any
     device (a tensor stays where it lies; anything else becomes a CPU
@@ -185,10 +194,88 @@ def gaussian_width(sigma, s, delta) -> torch.Tensor:
     return torch.where(s > 0, w, _f32(float("inf"), w))
 
 
+def ub(mu, sigma, s, delta) -> torch.Tensor:
+    """Upper confidence bound UB(mu, sigma, s, delta) — Eq. (7), as the
+    reference computes it outside ``jit``: ``s`` (an int or a tensor of
+    sizes) is a float32 tensor, divided by."""
+    sigma = torch.as_tensor(sigma, dtype=torch.float32)
+    return torch.as_tensor(mu, dtype=torch.float32) + gaussian_width(
+        sigma, _f32(s, sigma), delta)
+
+
 def lb(mu, sigma, s, delta) -> torch.Tensor:
-    """Lower confidence bound LB(mu, sigma, s, delta) — Eq. (8)."""
+    """Lower confidence bound LB(mu, sigma, s, delta) — Eq. (8), ``s`` as
+    in `ub`."""
+    sigma = torch.as_tensor(sigma, dtype=torch.float32)
     return torch.as_tensor(mu, dtype=torch.float32) - gaussian_width(
-        sigma, s, delta)
+        sigma, _f32(s, sigma), delta)
+
+
+def union_bound_split(delta, k) -> torch.Tensor:
+    """delta/k failure-probability split for k simultaneous uses of
+    Lemma 1 (float32)."""
+    delta = torch.as_tensor(delta, dtype=torch.float32)
+    return delta / _f32(k, delta)
+
+
+def _vector(z) -> torch.Tensor:
+    z = torch.as_tensor(z, dtype=torch.float32)
+    if z.dim() != 1:
+        raise ValueError(f"takes a 1-D sample, got shape {tuple(z.shape)}")
+    return z
+
+
+def sample_mean_std(z):
+    """Plug-in (mu_hat, sigma_hat) of a 1-D sample, sigma_hat with the
+    biased 1/n variance (Section 5), as the reference's ``jnp.mean`` and
+    ``jnp.std`` (each one jitted computation): XLA's summation order; the
+    mean a product with the float32 reciprocal of n, the variance a
+    division by n. Up to 32 records XLA fuses the square into the
+    variance's sum, which contracts each step into an FMA; past that the
+    squares are rounded first and summed in `tree_sum`'s order."""
+    z = _vector(z)
+    mu = tree_sum(z) * reciprocal32(z.numel(), z)
+    d = z - mu
+    if z.numel() <= _SUM_WINDOW:
+        total = _f32(0.0, z)
+        for x in d:
+            total = fma32(x, x, total)
+    else:
+        total = tree_sum(torch.square(d))
+    return mu, sqrt32(total / _f32(z.numel(), z))
+
+
+def weighted_mean_std(z, weights):
+    """Mean/std of a 1-D importance-reweighted sample given multiplicities
+    (with-replacement draws can repeat records)."""
+    z, w = _vector(z), _vector(weights)
+    tot = torch.clamp_min(tree_sum(w), 1e-30)
+    mu = tree_sum(w * z) / tot
+    var = tree_sum(w * torch.square(z - mu)) / tot
+    return mu, sqrt32(var)
+
+
+def prefix_mean_std(z):
+    """(mu, sigma, n) of every prefix z[:i+1] of a 1-D array, all in one
+    pass: entry i describes prefix length i+1."""
+    z = _vector(z)
+    n = torch.arange(1, z.numel() + 1, dtype=torch.float32, device=z.device)
+    mu = blocked_cumsum(z) / n
+    var = torch.clamp_min(blocked_cumsum(z * z) / n - mu * mu, 0.0)
+    return mu, sqrt32(var), n
+
+
+def masked_prefix_mean_std(z, mask):
+    """Prefix statistics over the entries where ``mask`` is True: entry i
+    gives (mu, sigma, n) over {z[j] : j <= i, mask[j]} (PT's Z(tau), a
+    subset of the sample prefix)."""
+    z = _vector(z)
+    m = torch.as_tensor(mask).to(device=z.device, dtype=torch.float32)
+    n = blocked_cumsum(m)
+    safe_n = torch.clamp_min(n, 1.0)
+    mu = blocked_cumsum(z * m) / safe_n
+    var = torch.clamp_min(blocked_cumsum(z * z * m) / safe_n - mu * mu, 0.0)
+    return mu, sqrt32(var), n
 
 
 def sample_sum_std(z: torch.Tensor):

@@ -4,7 +4,8 @@
   U-CI-R / IS-CI-R    : (importance-reweighted) CI-corrected recall target.
   U-CI-P              : per-candidate precision LBs with a delta/M union
                         bound over M = ceil(s/m) candidates.
-  IS-CI-P stage 1     : `pt_stage1_nmatch` upper-bounds n_match.
+  IS-CI-P stage 1     : `pt_stage1_nmatch` upper-bounds n_match;
+                        `dprime_cutoff_score` turns its rank into D'.
 
 Every estimator is a pure function of the labeled sample (a few thousand
 records at most), so it runs wherever its inputs lie; the engine hands it
@@ -170,3 +171,13 @@ def pt_stage1_nmatch(o_s0, m_s0, n_total, gamma, delta):
     rank = torch.clamp(torch.ceil(n_match / _f32(gamma)),
                        min=_f32(1.0), max=n).to(torch.int32)
     return n_match, rank
+
+
+def dprime_cutoff_score(scores: torch.Tensor, rank) -> torch.Tensor:
+    """tau with |{A >= tau}| ~= rank: the rank-th largest score (ranks
+    clipped to [1, n]), a 0-d float32 tensor on the scores' device. The
+    reference sorts the whole array; `torch.topk` picks the same element,
+    and on the card it is far faster than `torch.kthvalue`."""
+    scores = torch.as_tensor(scores, dtype=torch.float32).reshape(-1)
+    idx = min(max(int(rank) - 1, 0), scores.numel() - 1)
+    return torch.topk(scores, idx + 1).values[-1]

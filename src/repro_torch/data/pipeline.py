@@ -13,13 +13,17 @@ package (it is numpy and threads, and imports nothing of JAX):
     `IndexSink`, memmap-packed `BitmaskStore`, or `CallbackSink`) as
     shard-local int64 host indices, so a query never allocates a
     full-corpus boolean mask. Sinks carry an explicit thread-safety
-    contract (see `SelectionSink`).
+    contract (see `SelectionSink`); `SelectionStream` turns a
+    `CallbackSink` into an iterator;
+  * `parallel_map`, `DeterministicSource` and `Prefetcher` are the batch
+    plumbing of the host side.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
 import os
+import queue
 import threading
 from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
                     Sequence, Tuple, TypeVar)
@@ -283,6 +287,88 @@ def run_fused(walks: Sequence[ChunkWalk],
         for it in fused:
             run_item(it)
     return errors
+
+
+def parallel_map(fn: Callable[[_T], _R], items: Iterable[_T],
+                 workers: int = 1,
+                 pool: Optional[WorkerPool] = None) -> List[_R]:
+    """Map `fn` over `items`, preserving order; threaded when workers > 1.
+
+    With `pool` given, the work rides that persistent pool; otherwise a
+    scoped pool lives for this one call. With workers <= 1 this is a plain
+    in-order loop — identical results, no thread overhead: work items
+    carry their output slot and never depend on completion order.
+
+    >>> parallel_map(lambda x: x * x, range(5), workers=3)
+    [0, 1, 4, 9, 16]
+    """
+    if pool is not None:
+        return pool.map(fn, items)
+    items = list(items)
+    if workers <= 1 or len(items) <= 1:
+        return [fn(it) for it in items]
+    with WorkerPool(workers) as scoped:
+        return scoped.map(fn, items)
+
+
+class DeterministicSource:
+    """Batch source: batch = f(seed, step), sharded across hosts (host
+    `shard_index` of `num_shards` takes every num_shards-th row)."""
+
+    def __init__(self, make_batch: Callable[[np.random.Generator, int], dict],
+                 seed: int, shard_index: int = 0, num_shards: int = 1):
+        self._make = make_batch
+        self.seed = seed
+        self.shard_index = shard_index
+        self.num_shards = num_shards
+
+    def batch_at(self, step: int) -> dict:
+        """The batch of `step`, this host's rows."""
+        rng = np.random.default_rng((self.seed, step))
+        full = self._make(rng, step)
+        return {k: v[self.shard_index::self.num_shards]
+                for k, v in full.items()}
+
+    def iter_from(self, start_step: int) -> Iterator[dict]:
+        """Batches from `start_step` on, without end."""
+        step = start_step
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
+class Prefetcher:
+    """Background-thread prefetch of a batch iterator (depth-bounded); an
+    error in the iterator is raised at the consumer's next `next`."""
+
+    _SENTINEL = object()
+
+    def __init__(self, it: Iterator, depth: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._err: Optional[BaseException] = None
+
+        def run():
+            try:
+                for item in it:
+                    self._q.put(item)
+            except BaseException as e:  # noqa: BLE001 — surfaced on get
+                self._err = e
+            finally:
+                self._q.put(self._SENTINEL)
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._SENTINEL:
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item
 
 
 class ScoreStore:
@@ -686,3 +772,89 @@ class CallbackSink(SelectionSink):
 
     def _consume(self, shard_id, local_idx, folded):
         self._fn(shard_id, self.offsets[shard_id] + local_idx, folded)
+
+
+class _StreamCancelled(Exception):
+    """Raised inside the producer when the consumer closed the stream."""
+
+
+class SelectionStream:
+    """Iterator inversion of `CallbackSink`: consume a streamed selection
+    as `(shard_id, global_ids, folded)` chunks while the engine produces
+    them from a background thread.
+
+        with SelectionStream(
+                lambda sink: engine.run(key, oracle, q, sink=sink)) as st:
+            for shard_id, gids, folded in st:
+                ...                    # incremental consumption
+        result = st.result             # ShardedSelection after exhaustion
+
+    The queue is depth-bounded, so a slow consumer backpressures the
+    emission loop instead of buffering the whole selection. A consumer
+    that stops early must call `close()` (the context manager does) —
+    it cancels the producer at its next chunk and reaps the thread;
+    `result` stays None for a cancelled stream.
+    """
+
+    _SENTINEL = object()
+
+    def __init__(self, run_fn: Callable[[SelectionSink], object],
+                 depth: int = 8):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._err: Optional[BaseException] = None
+        self._closed = False
+        self._done = False
+        self.result = None
+
+        def on_chunk(sh, gids, folded):
+            if self._closed:
+                raise _StreamCancelled
+            self._q.put((sh, gids, folded))
+
+        def produce():
+            try:
+                self.result = run_fn(CallbackSink(on_chunk))
+            except _StreamCancelled:
+                pass
+            except BaseException as e:  # noqa: BLE001 — surfaced on get
+                self._err = e
+            finally:
+                self._q.put(self._SENTINEL)
+
+        self._thread = threading.Thread(target=produce, daemon=True)
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._done:
+            raise StopIteration
+        item = self._q.get()
+        if item is self._SENTINEL:
+            self._done = True
+            self._thread.join()
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item
+
+    def close(self):
+        """Abandon the stream: cancel the producer at its next chunk and
+        drain the queue so a blocked put() can finish. Safe to call at any
+        point, including after exhaustion."""
+        if self._done:
+            return
+        self._closed = True
+        while True:
+            if self._q.get() is self._SENTINEL:
+                break
+        self._thread.join()
+        self._done = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

@@ -7,7 +7,9 @@ rate are set by (alpha, beta). The paper's pairs: (0.01, 1) with TPR
 numpy (the JAX package's generator, value for value); `make_beta_on_device`
 draws the same law on a device. `make_drift_pair` (and its device twin)
 gives Table 3's drift pair: the Beta(0.01, 1) corpus and a Beta(0.01, 2)
-shift.
+shift. `make_miscalibrated` (sharpened scores) and `make_adversarial`
+(an anti-correlated proxy) are the robustness corpora, value for value the
+JAX package's.
 
 Token corpora for the model plane: `make_token_corpus` plants the
 `MARKER` tri-gram in a subset of random token records, and
@@ -65,6 +67,28 @@ def make_drift_pair(n=1_000_000, seed=0):
     package's pair, value for value)."""
     return (make_beta(n, 0.01, 1.0, seed=seed),
             make_beta(n, 0.01, 2.0, seed=seed + 1))
+
+
+def make_miscalibrated(n=1_000_000, alpha=0.01, beta=1.0, seed=0,
+                       temperature=3.0) -> BetaDataset:
+    """A proxy that is *correlated but miscalibrated* (scores sharpened to
+    A^(1/temperature)): guarantees must hold anyway (robustness tests)."""
+    rng = np.random.default_rng(seed)
+    probs = rng.beta(alpha, beta, n).astype(np.float32)
+    labels = (rng.random(n) < probs).astype(np.float32)
+    scores = probs ** (1.0 / temperature)
+    return BetaDataset(scores=scores, labels=labels, alpha=alpha, beta=beta)
+
+
+def make_adversarial(n=100_000, tpr=0.01, seed=0) -> BetaDataset:
+    """An anti-correlated proxy: high scores on negatives. Defensive mixing
+    must still deliver validity (quality will be poor — that's expected)."""
+    rng = np.random.default_rng(seed)
+    labels = (rng.random(n) < tpr).astype(np.float32)
+    scores = np.where(labels > 0.5,
+                      rng.beta(1, 20, n), rng.beta(20, 1, n)).astype(
+                          np.float32)
+    return BetaDataset(scores=scores, labels=labels, alpha=0, beta=0)
 
 
 def make_drift_pair_on_device(n: int, seed: int = 0, device="cuda") \

@@ -1,6 +1,8 @@
 """Wrapper of the fused threshold selection: the CUDA kernel
 ``csrc/threshold_select.cu`` for a CUDA tensor, the plain version
-(`ref.threshold_select_ref`) for a CPU one.
+(`ref.threshold_select_ref`) for a CPU one. `select_at_least` and
+`count_at_least` give {A >= tau} for any tau: the kernel's set plus, where
+tau < 0, the records in [tau, 0) by a plain compare.
 
 >>> import torch
 >>> threshold_select(torch.tensor([-1.0, 0.2, 0.7, 0.9]), 0.5).tolist()
@@ -156,3 +158,32 @@ def threshold_count(scores: torch.Tensor, tau: float) -> torch.Tensor:
     if scores.numel() == 0:
         return torch.zeros((), dtype=torch.int64, device=scores.device)
     return _launch(scores, tau, count_only=True)
+
+
+def _below_zero(scores: torch.Tensor, tau: float) -> torch.Tensor:
+    """Mask of {tau <= A < 0}: the records that `threshold_select` and
+    `threshold_count` (which keep A >= max(tau, 0)) leave out where
+    tau < 0."""
+    return (scores < 0) & (scores >= tau)
+
+
+def select_at_least(scores: torch.Tensor, tau: float) -> torch.Tensor:
+    """Ascending int64 indices of {A >= tau} on the scores' device: one
+    `threshold_select` launch on the card, the records in [tau, 0) added
+    by a plain compare where tau < 0."""
+    idx = threshold_select(scores, tau)
+    if tau < 0:
+        below = torch.nonzero(_below_zero(scores, tau)).reshape(-1)
+        if below.numel():
+            idx = torch.sort(torch.cat([below, idx])).values
+    return idx
+
+
+def count_at_least(scores: torch.Tensor, tau: float) -> torch.Tensor:
+    """|{A >= tau}|, exact, as a 0-d int64 tensor on the scores' device:
+    one `threshold_count` launch on the card (no host sync), plus the
+    records in [tau, 0) where tau < 0."""
+    count = threshold_count(scores, tau)
+    if tau < 0:
+        count = count + _below_zero(scores, tau).sum()
+    return count

@@ -9,10 +9,15 @@ The CUDA kernels are held against their plain versions on the card, the
 card's engine against a CPU engine serving the same corpus state, and
 narrow models' scores (float32) and logits (bf16) through the kernels
 (flash_attention; linear_scan and flash_attention for the hybrid) against
-the same models with the plain versions, and a durable server's crash and
-restore on the card against its uncrashed run.
+the same models with the plain versions, a durable server's crash and
+restore on the card against its uncrashed run, and the single-array query
+path and the distributed plane (nccl at world size 1, two gloo ranks on
+CUDA tensors) as phase 15 of ``chip_smoke.py`` checks them.
 """
 import dataclasses
+import pathlib
+import time
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -20,6 +25,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
 from repro_torch import random as R  # noqa: E402
+from repro_torch.core import binned  # noqa: E402
+from repro_torch.core import distributed as dplane  # noqa: E402
+from repro_torch.core import queries as qpath  # noqa: E402
 from repro_torch.core.engine import SelectionEngine  # noqa: E402
 from repro_torch.core.oracle import array_oracle  # noqa: E402
 from repro_torch.core.queries import JointSUPGQuery, SUPGQuery  # noqa: E402
@@ -834,3 +842,192 @@ def test_card_server_crash_restore_equals_the_uncrashed_run(card,
     assert got[0] == want[0] and got[2] == want[2]
     for a, b in zip(got[1], want[1]):
         np.testing.assert_array_equal(a, b)
+
+
+# -- phase 15 at a small size: the single-array path, the distributed plane --
+
+_ARRAY_QUERIES = {
+    "rt-is": SUPGQuery(target="recall", gamma=0.9, budget=2000),
+    "rt-uniform": SUPGQuery(target="recall", gamma=0.9, budget=2000,
+                            method="uniform"),
+    "rt-noci": SUPGQuery(target="recall", gamma=0.9, budget=2000,
+                         method="noci"),
+    "pt-two-stage": SUPGQuery(target="precision", gamma=0.8, budget=2000),
+    "pt-one-stage": SUPGQuery(target="precision", gamma=0.8, budget=2000,
+                              two_stage=False),
+    "jt": None,
+}
+_ARRAY_LAUNCHES = {"rt-is": 1, "rt-uniform": 1, "rt-noci": 1,
+                   "pt-two-stage": 2, "pt-one-stage": 1, "jt": 1}
+
+
+def _recorded_query(name, key, scores, labels):
+    seen = []
+
+    def fn(idx):
+        idx = np.asarray(idx, np.int64)
+        seen.append(idx[labels[idx] > 0.5])
+        return labels[idx]
+
+    dev = scores.device
+    if name == "jt":
+        res = qpath.run_joint_query(key, scores, fn, 0.9, 1.0,
+                                    stage_budget=2000, device=dev)
+    else:
+        res = qpath.run_query(key, scores, fn, _ARRAY_QUERIES[name],
+                              device=dev)
+    return res, np.unique(np.concatenate(seen))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_ARRAY_QUERIES))
+def test_card_run_query_through_the_kernels_matches_plain(card, name):
+    """On the card (the default device): selected is union(R1, {A >= tau})
+    exactly, the threshold kernels launch as the path says, the budget
+    holds, and the same query with the kernels' plain versions gives the
+    same tau and selection."""
+    ds = make_beta(400_000, 0.01, 1.0, seed=15)
+    scores = torch.from_numpy(ds.scores).to(card)
+    for k in range(2):
+        ts_ops.launches.reset()
+        res, pos = _recorded_query(name, R.PRNGKey(k), scores, ds.labels)
+        assert ts_ops.launches.count == _ARRAY_LAUNCHES[name]
+        tau = res.stage2_tau if name == "jt" else res.tau
+        r2 = torch.nonzero(scores >= tau).reshape(-1).cpu().numpy()
+        if name == "jt":
+            want = np.union1d(pos, r2[ds.labels[r2] > 0.5])
+        else:
+            assert res.oracle_calls <= 2000
+            assert res.n_sampled_positives == pos.size
+            want = np.union1d(pos, r2)
+        np.testing.assert_array_equal(res.selected, want)
+        with mock.patch.object(ts_ops, "threshold_select",
+                               ts_ref.threshold_select_ref), \
+                mock.patch.object(ts_ops, "threshold_count",
+                                  ts_ref.threshold_count_ref):
+            plain, _ = _recorded_query(name, R.PRNGKey(k), scores,
+                                       ds.labels)
+        assert ts_ops.launches.count == _ARRAY_LAUNCHES[name]
+        assert (plain.stage2_tau if name == "jt" else plain.tau) == tau
+        np.testing.assert_array_equal(plain.selected, res.selected)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_ARRAY_QUERIES))
+def test_card_run_query_matches_cpu(card, name):
+    """The card draws with the CPU's bits (the blocked CDF, float64 square
+    roots and FMAs, IEEE division), so a query on the card equals the same
+    query on the CPU: tau, selection and oracle calls."""
+    ds = make_beta(400_000, 0.01, 1.0, seed=16)
+    for k in range(2):
+        got, _ = _recorded_query(name, R.PRNGKey(k),
+                                 torch.from_numpy(ds.scores).to(card),
+                                 ds.labels)
+        want, _ = _recorded_query(name, R.PRNGKey(k),
+                                  torch.from_numpy(ds.scores), ds.labels)
+        for f in ("tau", "stage2_tau", "corrected_target", "oracle_calls"):
+            assert getattr(got, f, None) == getattr(want, f, None), f
+        np.testing.assert_array_equal(got.selected, want.selected)
+
+
+@pytest.mark.cuda
+def test_card_selection_below_zero(card):
+    """threshold_select keeps A >= max(tau, 0); the query path's R2 and
+    |D'| add the records in [tau, 0) where tau < 0."""
+    s = np.random.default_rng(9).uniform(-1, 1, 300_000).astype(np.float32)
+    t = torch.from_numpy(s).to(card)
+    for tau in (float("-inf"), -0.5, -1e-30, 0.0, 0.5):
+        want = np.nonzero(s >= tau)[0]
+        np.testing.assert_array_equal(
+            ts_ops.select_at_least(t, tau).cpu().numpy(), want)
+        assert int(ts_ops.count_at_least(t, tau)) == want.size
+
+
+def _exact_hist(scores, bins):
+    s = scores[scores >= 0]
+    ids = sh_ref.bin_index(s, bins)
+    a = torch.clamp(s, 0.0, 1.0).double()
+    return torch.bincount(ids, minlength=bins), [
+        torch.zeros(bins, dtype=torch.float64, device=s.device)
+        .index_add_(0, ids, v) for v in (torch.sqrt(a), a)]
+
+
+@pytest.mark.cuda
+def test_card_distributed_plane_on_nccl_world_one(card, tmp_path):
+    import torch.distributed as dist
+    scores = torch.from_numpy(_scores(1 << 22, 16)).to(card)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    try:
+        assert dist.get_backend() == "nccl"
+        sh_ops.launches.reset()
+        ts_ops.launches.reset()
+        sketch = dplane.global_sketch(scores)
+        totals = dplane.shard_weight_totals(scores)
+        count = dplane.global_selection_count(scores, 0.3)
+        assert (sh_ops.launches.count, ts_ops.launches.count) == (2, 1)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(sketch, binned.build_sketch(scores)):
+        assert torch.equal(a, b)
+    exact, _ = _exact_hist(scores, binned.DEFAULT_BINS)
+    assert torch.equal(sketch.counts, exact.float())
+    assert count.dtype == torch.int64
+    assert int(count) == int((scores >= 0.3).sum())
+    want = float(torch.sqrt(torch.clamp(scores, 0, 1).double()).sum())
+    assert abs(float(totals[0, 0]) - want) <= 1e-6 * want
+    assert float(totals[0, 1]) == scores.numel()
+
+
+def _gloo_card_rank(rank, world, root):
+    import torch.distributed as dist
+    root = pathlib.Path(root)
+    scores = torch.from_numpy(_scores(1 << 22, 17)).to("cuda")
+    half = torch.tensor_split(scores, world)[rank].clone()
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(root / "store"), world), rank=rank, world_size=world)
+    try:
+        out = {"sketch": torch.stack(list(dplane.global_sketch(half))).cpu(),
+               "totals": dplane.shard_weight_totals(half).cpu(),
+               "count": int(dplane.global_selection_count(half, 0.3)),
+               "launches": (sh_ops.launches.count, ts_ops.launches.count)}
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, root / f"rank{rank}.pt")
+
+
+@pytest.mark.cuda
+def test_card_distributed_plane_two_gloo_ranks_on_cuda_tensors(card,
+                                                                 tmp_path):
+    """Two gloo ranks share the card, half the scores each (the kernels
+    are built first: the ranks load the libraries). Counts within two
+    float32 roundings of the exact ones, sums within 2e-6 |e| + n 2^-32
+    of float64, the global count exact."""
+    import torch.multiprocessing as tmp
+    s = torch.from_numpy(_scores(1 << 22, 17)).to(card)
+    sh_ops.score_hist(s[:1000], 4096)
+    ts_ops.threshold_count(s[:1000], 0.3)
+    ctx = tmp.start_processes(_gloo_card_rank, args=(2, str(tmp_path)),
+                              nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + 180
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail("gloo ranks did not end in 180 s")
+    counts, sums = _exact_hist(s, 4096)
+    c = counts.double().cpu()
+    for r in range(2):
+        out = torch.load(tmp_path / f"rank{r}.pt")
+        assert out["launches"] == (2, 1)
+        got = out["sketch"].double()
+        assert bool(((got[0] - c).abs() <= 2.0 ** -22 * c).all())
+        for row, e in zip((1, 2), sums):
+            e = e.cpu()
+            assert bool(((got[row] - e).abs()
+                         <= 2e-6 * e.abs() + c * 2.0 ** -32).all())
+        assert out["count"] == int((s >= 0.3).sum())
+        for i, h in enumerate(torch.tensor_split(s, 2)):
+            want = float(torch.sqrt(torch.clamp(h, 0, 1).double()).sum())
+            assert abs(float(out["totals"][i, 0]) - want) <= 1e-6 * want

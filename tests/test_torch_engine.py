@@ -272,6 +272,7 @@ PORT_DOC_MODULES = [
     "repro_torch.random",
     "repro_torch.core.engine",
     "repro_torch.core.oracle",
+    "repro_torch.core.queries",
     "repro_torch.core.resilience",
     "repro_torch.core.sampling",
     "repro_torch.data.pipeline",

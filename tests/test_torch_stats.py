@@ -294,3 +294,88 @@ def test_make_beta_matches_reference_and_device_law():
     assert float((scores < 1 / 4096).double().mean()) == pytest.approx(
         4096 ** -0.01, abs=0.005)
     assert labels.mean() == pytest.approx(float(scores.mean()), rel=0.15)
+
+
+# -- the single-array path's bounds and binned leftovers ----------------------
+
+@settings(max_examples=40, deadline=None)
+@given(st.sampled_from([1, 2, 31, 33, 1000, 4097]), st.integers(0, 2**31 - 1))
+def test_bounds_leftovers_match_reference(n, seed):
+    """The eager reference's mean/std (mean by the reciprocal of n, the
+    variance by a division), weighted and prefix statistics, UB/LB with
+    s an int or a tensor, and the union-bound split: bit for bit. A few
+    lengths around XLA's reduction windows (32) and scan blocks (16), so
+    the reference compiles each shape once."""
+    rng = np.random.default_rng(seed)
+    z = (rng.random(n) * (rng.random(n) < 0.3) * rng.random() * 50).astype(
+        np.float32)
+    w = rng.integers(0, 4, n).astype(np.float32)
+    mask = rng.random(n) < 0.5
+    pairs = [
+        (bounds.sample_mean_std(_t(z)), jbounds.sample_mean_std(z)),
+        (bounds.weighted_mean_std(_t(z), _t(w)),
+         jbounds.weighted_mean_std(z, w)),
+        (bounds.prefix_mean_std(_t(z)), jbounds.prefix_mean_std(z)),
+        (bounds.masked_prefix_mean_std(_t(z), _t(mask)),
+         jbounds.masked_prefix_mean_std(z, mask)),
+        ((bounds.ub(0.3, 0.7, n, 0.05),), (jbounds.ub(0.3, 0.7, n, 0.05),)),
+        ((bounds.ub(_t(z), _t(z) * 0.5, _t(w), 0.01),),
+         (jbounds.ub(z, z * 0.5, w, 0.01),)),
+        ((bounds.lb(_t(z), _t(z) * 0.5, _t(w), 0.05),),
+         (jbounds.lb(z, z * 0.5, w, 0.05),)),
+        ((bounds.lb(0.3, 0.7, n, 0.05),), (jbounds.lb(0.3, 0.7, n, 0.05),)),
+        ((bounds.union_bound_split(0.05, n),),
+         (jbounds.union_bound_split(0.05, n),)),
+    ]
+    for got, want in pairs:
+        for g, r in zip(got, want):
+            _eq(g, r)
+
+
+@pytest.mark.parametrize("n", [3, 7, 31, 32, 33, 64, 100])
+def test_sample_mean_std_matches_jnp_std_around_the_fused_window(n):
+    """Up to 32 records XLA fuses the square into the variance's sum (each
+    step an FMA); past that it rounds the squares first. Bit for bit on
+    either side, over samples where the two orders differ."""
+    rng = np.random.default_rng(n)
+    for _ in range(40):
+        z = (rng.normal(size=n) * rng.random() * 10).astype(np.float32)
+        mu, sigma = bounds.sample_mean_std(_t(z))
+        _eq(mu, jnp.mean(z))
+        _eq(sigma, jnp.std(z))
+
+
+def test_sample_mean_std_takes_a_vector_only():
+    with pytest.raises(ValueError, match="1-D"):
+        bounds.sample_mean_std(torch.ones(2, 3))
+
+
+def test_flush32_reads_subnormals_as_zero():
+    x = np.asarray([1e-40, -1e-40, 1.2e-38, -0.0, 3.0, np.nan, np.inf],
+                   np.float32)
+    got = bounds.flush32(_t(x)).numpy()
+    np.testing.assert_array_equal(got[:2], [0.0, 0.0])
+    assert np.signbit(got[1]) and not np.signbit(got[0])
+    np.testing.assert_array_equal(got[2:5], x[2:5])
+    assert np.isnan(got[5]) and got[6] == np.inf
+
+
+@pytest.mark.parametrize("bins", [64, 1000, 4096])
+def test_bin_index_and_selection_size(bins):
+    rng = np.random.default_rng(bins)
+    s = rng.beta(0.3, 1.0, 50_000).astype(np.float32)
+    s[:100], s[100:110], s[110:120] = -1.0, 1.0, 2.0
+    _eq(binned.bin_index(_t(s), bins), jbinned.bin_index(s, bins))
+    assert binned.bin_index(_t(s), bins).dtype == torch.int32
+    sk = binned.build_sketch(_t(s), bins)
+    jsk = jbinned.build_sketch(s, bins, use_kernel=False)
+    for tau in (-1.0, 0.0, 1e-7, 0.1, 0.33333334, 0.5, 0.999, 1.0, 1.5,
+                float(np.float32(7 / bins))):
+        _eq(binned.selection_size(sk, tau), jbinned.selection_size(jsk, tau))
+    assert float(binned.selection_size(sk, 0.0)) == 49_900
+
+
+def test_chunk_raw_masses_match_reference():
+    s = np.random.default_rng(12).beta(0.05, 1.0, 9000).astype(np.float32)
+    s[:90] = -1.0
+    assert sampling.chunk_raw_masses(s) == jsampling.chunk_raw_masses(s)
