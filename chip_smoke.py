@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: kernels, engine, models,
-the single-array query path and the distributed plane.
+the single-array query path, the distributed plane and decode.
 
     python3 chip_smoke.py [--seed N]
 
@@ -205,11 +205,48 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     the build, half the corpus each): counts within two float32
     roundings of exact, sums within 2e-6 |e| + n 2^-32 of float64, shard
     totals within 1e-6, global counts exact.
+16. The full rwkv6-7b model (32 RWKV6 blocks, d 4096, bf16, 7.6e9
+    weights drawn from --seed by `model.init`): one prefill at (4, 4096)
+    through `make_serve_prefill` with exactly 32 linear_scan launches,
+    all on the step route (RWKV6's bonus u and a decay per channel), its
+    mfu; the bf16 last-position logits against the plain scan within
+    `RWKV_BF16_LOGIT_TOL`; a 2^12-record corpus (vocab 65536) scored in
+    calls of 256 records and selected as in phase 7 (32 step-route
+    launches a call); the step kernel timed at the prefill shape (4, 64,
+    4096, 64, 64) with RWKV6's inputs beside its bound and plain version
+    (its row in the kernels line) and the cost of casting v to float32;
+    then the model cast to float32 in place (the bf16 weights freed), and
+    at (2, 1024) (`RWKV_F32_SHAPE`) each of its 32 blocks, on the input
+    the kernel's run gave it, against the same block with the plain scan
+    within 2e-5 of the block's largest |output|; the model's logits with
+    the kernel, the plain scan and the plain scan in float64 are printed
+    (the random-init model carries float32 rounding far past 2e-5: see
+    the note at `RWKV_BF16_LOGIT_TOL`).
+17. Decode at full width for smollm-360m, zamba2-1.2b and rwkv6-7b
+    (`make_serve_decode`, plain PyTorch: no kernel of the TPU's runs in a
+    step). Consistency: four rows from `init_caches`, starting at
+    positions 0, 5, 11 and 17 (each decodes its prefix alone, then the
+    rows step together at their own positions), 32 steps, every step's
+    logits against the same model's prefill (through the kernels) at that
+    position: bf16 within `DECODE_BF16_TOL`, the float32 copy within
+    2e-5 of the largest |logit|; rwkv6-7b's logits are printed, and each
+    of its blocks decodes the input its prefill block saw, held to that
+    block's output (bf16 `DECODE_BF16_TOL`, float32
+    `RWKV_DECODE_F32_TOL`). Times: ms a step at pos = cache length -
+    1 on caches of random contents, tokens/s and the bytes bound (weights,
+    the KV caches `decode_attention` reads, the states read and written,
+    at 3.35 TB/s) for each cell of `DECODE_CELLS` (smollm and zamba2 at
+    32 rows x 32768, rwkv6 at 128 rows, zamba2 and rwkv6 at 1 row x
+    524288), the peak device memory (under 70 GB), and one step under
+    torch.profiler: kernels, the device's busy share and 0 device-to-host
+    copies.
 
 Each phase prints its wall time as it ends, and the line before the
 kernels line sums them.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}`` (a row for each kernel:
+linear_scan's chunked kernel and its step kernel each have one); the last
+line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -268,8 +305,10 @@ from repro_torch.kernels.score_hist import ops as sh_ops  # noqa: E402
 from repro_torch.kernels.score_hist import ref as sh_ref  # noqa: E402
 from repro_torch.kernels.threshold_select import ops as ts_ops  # noqa: E402
 from repro_torch.kernels.threshold_select import ref as ts_ref  # noqa: E402
-from repro_torch.launch.serve import make_serve_prefill  # noqa: E402
-from repro_torch.models import attention, mamba, transformer  # noqa: E402
+from repro_torch.launch.serve import (make_serve_decode,  # noqa: E402
+                                      make_serve_prefill)
+from repro_torch.models import (attention, layers, mamba,  # noqa: E402
+                                rwkv, transformer)
 from repro_torch.models import model as modellib  # noqa: E402
 from repro_torch.serve import SelectionServer  # noqa: E402
 
@@ -283,6 +322,7 @@ TF32_OPS_PER_S = 495e12        # H100 SXM, TF32 dense on the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM, bf16 dense on the tensor cores
 ARCH = "smollm-360m"
 ZAMBA = "zamba2-1.2b"
+RWKV = "rwkv6-7b"
 FA_PREFILL = (4, 4096, 15, 5, 64)     # B, S, H, KV, dh: smollm-360m prefill
 FA_SCORING = (256, 128, 15, 5, 64)    # the scoring batch
 N_CORPUS = 1 << 15                    # token records scored and selected
@@ -341,8 +381,22 @@ BF16_LOGIT_TOL = 3e-2
 # the largest.
 ZAMBA_BF16_LOGIT_TOL = 4.5e-2
 ZAMBA_F32_LOGIT_TOL = 2e-5
+# The same for rwkv6-7b (phase 16). bf16, the last-position logits at
+# (4, 4096), kernel against the plain scan: 4.78e-2 to 4.95e-2 of the
+# largest |logit| at --seed 0, 1 and 2 on an H100 80GB HBM3 at 700 W; the
+# bar is twice the largest. float32: the random-init rwkv6-7b carries a
+# change at float32 rounding through 32 blocks far past 2e-5 of the
+# largest |logit| (its plain scan in float32 against the same in float64
+# moves the logits at (2, 1024) by 4.4e-4, and a decode against the
+# prefill by up to 0.30 at early positions, where a head's group norm
+# divides a small rank-one output), so its float32 model is held one
+# block at a time, each block on the input the kernel's run gave it,
+# against zamba2's bar: 1.48e-6 to 1.61e-6 of a block's largest |output|
+# over those seeds, same card.
+RWKV_BF16_LOGIT_TOL = 1e-1
 LOGIT_TOL = {ARCH: (BF16_LOGIT_TOL, F32_LOGIT_TOL),
-             ZAMBA: (ZAMBA_BF16_LOGIT_TOL, ZAMBA_F32_LOGIT_TOL)}
+             ZAMBA: (ZAMBA_BF16_LOGIT_TOL, ZAMBA_F32_LOGIT_TOL),
+             RWKV: (RWKV_BF16_LOGIT_TOL, ZAMBA_F32_LOGIT_TOL)}
 # Operations each kernel does per record, counted from its source:
 # score_hist compares, clips, scales, converts and takes a square root
 # (8) and adds both float64 mass terms (2, counted at the float32 rate:
@@ -364,6 +418,41 @@ LS_SCORING = (256, 64, 128, 64, 64)   # the scoring batch
 FA_ZAMBA = (4, 4096, 32, 32, 64)      # zamba2's shared attention block
 FA_ZAMBA_SCORING = (256, 128, 32, 32, 64)
 N_ZAMBA_CORPUS = 1 << 13              # token records zamba2 scores
+N_RWKV_CORPUS = 1 << 12               # token records rwkv6 scores
+LS_RWKV = (4, 64, 4096, 64, 64)       # rwkv6-7b's prefill scan
+# The float32 rwkv6-7b (30.4 GB of weights) is held to the plain scan at
+# (B, S) = (2, 1024), not at the prefill's (4, 4096): the plain scan runs
+# step by step from the host, 32 blocks of 4096 steps.
+RWKV_F32_SHAPE = (2, 1024)
+# Decode (phase 17): rows start at these positions (each decodes its
+# prefix alone first), then DECODE_STEPS steps together, in caches of
+# DECODE_CACHE positions. Every step's logits against the prefill's at
+# that position: float32 within DECODE_F32_TOL of the largest |logit|
+# (the target the port's CPU tests hold it to; smollm measured 1.81e-6,
+# zamba2 6.23e-6 at --seed 0 on an H100 80GB HBM3 at 700 W); bf16 within
+# DECODE_BF16_TOL, at about 2.5 times the largest reading at --seed 0,
+# 1 and 2, same card: smollm 1.73e-2 to 1.91e-2, zamba2 4.04e-2 to
+# 4.28e-2. rwkv6-7b's logits are printed, not held (see the rwkv6 note
+# above: 0.30 float32, 0.72 bf16 at seed 0); each of its blocks decodes
+# the input its prefill block saw and is held to that block's output:
+# float32 within RWKV_DECODE_F32_TOL of the block's largest |output|,
+# 4.71e-6 to 1.25e-5 over the seeds (position 0's small heads), four
+# times the largest; bf16 9.85e-3 to 1.14e-2, DECODE_BF16_TOL[RWKV]
+# about 2.6 times the largest.
+DECODE_OFFSETS = (0, 5, 11, 17)
+DECODE_STEPS = 32
+DECODE_CACHE = 64
+DECODE_F32_TOL = 2e-5
+RWKV_DECODE_F32_TOL = 5e-5
+DECODE_BF16_TOL = {ARCH: 5e-2, ZAMBA: 1e-1, RWKV: 3e-2}
+# (rows, cache length) of each model's timed decode cells: decode_32k's
+# length at 32 rows, not its 128 (128 rows of smollm's cache are 172 GB),
+# rwkv6's O(1) state at 128, and long_500k (1 row, 524288 positions) for
+# the sub-quadratic two.
+DECODE_CELLS = {ARCH: ((32, 32768),),
+                ZAMBA: ((32, 32768), (1, 524288)),
+                RWKV: ((128, 32768), (1, 524288))}
+DECODE_PEAK_BYTES = 70e9
 # linear_scan against its plain version (phase 9). At the reference's
 # shapes (dk 16 or 8), the reference's own atol = 1e-4
 # (tests/test_kernels.py). At dk = dv = 64 the step kernel computes the
@@ -403,13 +492,15 @@ def scan_routes() -> dict:
     return dict(ls_ops.launches.routes)
 
 
-def check_scan_routes(expected: int, where: str) -> None:
-    """Every linear_scan launch since the reset went through the chunked
+def check_scan_routes(expected: int, where: str,
+                      route: str = "chunked") -> None:
+    """Every linear_scan launch since the reset went through `route`'s
     kernel, `expected` of them."""
     routes = scan_routes()
-    check(routes == {"chunked": expected, "step": 0},
+    want = {"chunked": 0, "step": 0, route: expected}
+    check(routes == want,
           f"{where}: linear_scan launches by route {routes}, expected "
-          f"{expected} chunked")
+          f"{expected} {route}")
     print(f"{where}: linear_scan launches by route {routes}")
 
 
@@ -734,6 +825,8 @@ def model_flops(cfg, batch: int, seq: int) -> float:
     and head 5 · N · hd (k·v, the decay's multiply-add, q·S's
     multiply-add; the count of linear_scan's bound), float32 operations
     on the CUDA cores counted at the bf16 peak like the rest.
+    RWKV6: 2 · non-embedding params · tokens and each block's wkv scan,
+    5 · hd² per token and head, counted the same way; no attention.
     """
     non_embedding = modellib.count_params_analytic(cfg) \
         - cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
@@ -750,6 +843,10 @@ def model_flops(cfg, batch: int, seq: int) -> float:
         n, hd = cfg.ssm_state_dim, cfg.ssm_head_dim
         heads = cfg.d_inner // hd
         scan = 5.0 * n * hd * heads * tokens * cfg.num_layers
+    if cfg.block == "rwkv":
+        attention_runs = 0
+        hd = cfg.ssm_head_dim
+        scan = 5.0 * hd * cfg.d_model * tokens * cfg.num_layers
     return (2.0 * non_embedding * tokens
             + 2.0 * batch * cfg.num_heads * seq * seq * cfg.head_dim
             * attention_runs + scan)
@@ -769,9 +866,12 @@ def init_model(cfg, seed: int):
     return model
 
 
-# The model's kernels: where each is looked up, and its plain version.
-PLAIN = {"flash_attention": (attention, plain_attention),
-         "linear_scan": (mamba, ls_ref.linear_scan_ref)}
+# The model's kernels: the modules that look each up, and its plain
+# version.
+PLAIN = {"flash_attention": ((attention,), plain_attention),
+         "linear_scan": ((mamba, rwkv), ls_ref.linear_scan_ref)}
+# The linear_scan kernel each family's blocks launch on the card.
+SCAN_ROUTE = {"mamba": "chunked", "rwkv": "step"}
 
 
 @contextlib.contextmanager
@@ -781,9 +881,10 @@ def plain_paths(names=tuple(PLAIN), scan=ls_ref.linear_scan_ref):
     before = {name: COUNTERS[name].count for name in names}
     with contextlib.ExitStack() as stack:
         for name in names:
-            module, plain = PLAIN[name]
-            stack.enter_context(mock.patch.object(
-                module, name, scan if name == "linear_scan" else plain))
+            modules, plain = PLAIN[name]
+            for module in modules:
+                stack.enter_context(mock.patch.object(
+                    module, name, scan if name == "linear_scan" else plain))
         yield
     torch.cuda.synchronize()
     check(all(COUNTERS[name].count == n for name, n in before.items()),
@@ -817,11 +918,12 @@ def bf16_gap_sources(model, tokens, names, kernels, plain, scale) -> None:
               f"largest |logit|")
 
 
-def model_phase(model, cfg, seed: int, per_prefill: dict) -> None:
-    """Phases 6 and 10: one full-width prefill through
+def model_phase(model, cfg, seed: int, per_prefill: dict,
+                f32_copy: bool = True) -> None:
+    """Phases 6, 10 and 16: one full-width prefill through
     `make_serve_prefill`, launching each kernel of `per_prefill` exactly
-    that often; then the bf16 model and its float32 copy, each with the
-    kernels against the plain versions."""
+    that often; then the bf16 model, and with `f32_copy` its float32 copy,
+    each with the kernels against the plain versions."""
     bf16_tol, f32_tol = LOGIT_TOL[cfg.name]
     b, s = FA_PREFILL[:2]
     tokens = torch.randint(0, cfg.vocab_size, (b, s), device=DEVICE,
@@ -848,7 +950,8 @@ def model_phase(model, cfg, seed: int, per_prefill: dict) -> None:
           f"{wall:.4f} s, {b * s / wall:.1f} tokens/s, mfu {mfu:.4f}, "
           f"launches {launches}, scores {scores.tolist()}")
     if "linear_scan" in per_prefill:
-        check_scan_routes(per_prefill["linear_scan"], "the prefill")
+        check_scan_routes(per_prefill["linear_scan"], "the prefill",
+                          SCAN_ROUTE[cfg.block])
 
     # The bf16 model itself: its last-position logits with the kernels
     # against the same model with the plain versions.
@@ -869,6 +972,8 @@ def model_phase(model, cfg, seed: int, per_prefill: dict) -> None:
         bf16_gap_sources(model, tokens, per_prefill, bf16_kernel,
                          bf16_plain, bf16_scale)
 
+    if not f32_copy:
+        return
     f32 = copy.deepcopy(model).float()
     f32.cfg = dataclasses.replace(cfg, dtype="float32")
     with_kernel = modellib.last_logits(f32, tokens)
@@ -954,7 +1059,8 @@ def score_select_phase(model, cfg, seed: int, n_corpus: int,
           f"{queries.precision_of(sel_idx, truth):.4f}")
     print(f"score-then-select path launches: {launches}")
     if "linear_scan" in per_call:
-        check_scan_routes(launches["linear_scan"], "scoring")
+        check_scan_routes(launches["linear_scan"], "scoring",
+                          SCAN_ROUTE[cfg.block])
     return launches
 
 
@@ -2325,6 +2431,411 @@ def array_phase(seed: int, card: str) -> None:
         gloo_phase(seed, sorted({t for t, _ in r2_sizes.values()}), root)
 
 
+# -- phase 16 ------------------------------------------------------------------
+
+def rwkv_scan_inputs(shape, g):
+    """linear_scan's inputs as an RWKV6 block hands them over
+    (`rwkv.time_mix`): r and k bf16, (B,S,H,hd) seen as (B,H,S,hd); v the
+    same in float32 (its bf16 values cast up); the decay per channel w =
+    exp(-exp(w0 + 0.5 · normal)) around the init's w0 = -6, float32, the
+    same layout; the bonus u (H,hd) normal at scale 0.1, the init's law."""
+    b, h, s, dk, dv = shape
+
+    def heads(t):
+        return t.transpose(1, 2)
+
+    def normal(*size):
+        return torch.randn(*size, generator=g, device=DEVICE)
+    r = heads(normal(b, s, h, dk).to(torch.bfloat16))
+    k = heads((normal(b, s, h, dk) / 8).to(torch.bfloat16))
+    v = heads(normal(b, s, h, dv).to(torch.bfloat16).float())
+    w = heads(torch.exp(-torch.exp(-6.0 + 0.5 * normal(b, s, h, dk))))
+    return r, k, v, w, normal(h, dk) * 0.1
+
+
+def rwkv_scan_row(shape, seed: int) -> dict:
+    """The step kernel at `shape` with RWKV6's inputs (`rwkv_scan_inputs`):
+    its time, its largest |kernel - plain| of o (against the plain
+    recurrence in float64, SCAN_REL of the largest |o|, as phase 9), the
+    plain version's time and the bound: the larger of the bytes (each
+    input element read once, o and the float32 state written once) over
+    the HBM rate and the step form's 5 float32 operations per state
+    element a step over the float32 rate."""
+    b, h, s, dk, dv = shape
+    q, k, v, w, u = rwkv_scan_inputs(shape, torch.Generator(
+        device=DEVICE).manual_seed(seed + 23))
+    check(ls_ops.route(q, k, v, w, u) == "step",
+          f"linear_scan routes RWKV6's inputs at {shape} to "
+          f"{ls_ops.route(q, k, v, w, u)}")
+    got = ls_ops.linear_scan(q, k, v, w, u)
+    arbiter = ls_ref.linear_scan_ref(q, k, v, w, u,
+                                     compute_dtype=torch.float64)
+    err = float((got[0].double() - arbiter[0]).abs().max())
+    scale = float(arbiter[0].abs().max())
+    check(bool(torch.isfinite(got[0]).all()) and err <= SCAN_REL * scale,
+          f"linear_scan RWKV6 at {shape}: o differs from the float64 plain "
+          f"recurrence by {err:.4g} (largest |o| {scale:.4g})")
+    del arbiter
+    ms = cuda_ms(lambda: ls_ops.linear_scan(q, k, v, w, u), 20)
+    plain_ms = cuda_ms(lambda: ls_ref.linear_scan_ref(q, k, v, w, u), 1)
+    moved = sum(distinct_bytes(t) for t in (q, k, v, w, u)) \
+        + 4 * b * h * s * dv + 4 * b * h * dk * dv
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 5 * b * h * s * dk * dv / FP32_OPS_PER_S * 1e3
+    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes \
+        else (t_bytes, "bytes")
+    print(f"linear_scan at (B, H, S, dk, dv) = {shape}, rwkv6 layout (bf16 r "
+          f"and k, float32 v and w as transposed views, bonus u): step "
+          f"kernel {ms:.6g} ms, bound {b_ms:.6g} ms ({b_by}): bytes "
+          f"{t_bytes:.6g} ms, float32 operations {t_ops:.6g} ms; share of "
+          f"the bound reached {b_ms / ms:.3f}; plain version "
+          f"{plain_ms:.6g} ms; max |kernel - float64| of o {err:.4g} "
+          f"(largest |o| {scale:.4g}, bar {SCAN_REL * scale:.4g})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def v_cast_ms(cfg, b: int, s: int, seed: int) -> None:
+    """What the cast of a bf16 model's v to float32 before the kernel
+    costs a block: the cast's device time at the prefill shape, beside
+    the step kernel's."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 29)
+    h, hd = cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim
+    v = torch.randn(b, s, h, hd, generator=g, device=DEVICE).to(
+        torch.bfloat16).transpose(1, 2)
+    ms = cuda_ms(lambda: v.float(), 20)
+    print(f"rwkv6 v cast to float32 before the kernel, ({b}, {h}, {s}, "
+          f"{hd}) bf16: {ms:.6g} ms a block, {ms * cfg.num_layers:.6g} ms a "
+          f"prefill ({cfg.num_layers} blocks); bytes at the HBM rate "
+          f"{v.numel() * 6 / HBM_BYTES_PER_S * 1e3:.6g} ms")
+
+
+def rwkv_phase(seed: int, card: str) -> dict:
+    """Phase 16: rwkv6-7b at full width. A prefill through
+    `make_serve_prefill` (32 linear_scan launches, all on the step route)
+    and its bf16 logits against the plain scan; score, then select; the
+    step kernel's row at the prefill shape; then the model cast to float32
+    in place (the bf16 weights freed), each block of a prefill at the cut
+    shape RWKV_F32_SHAPE against the same block with the plain scan, and
+    the model's logits (`rwkv_f32_sensitivity`). Returns the kernels
+    line's row for the step kernel."""
+    cfg = get_config(RWKV)
+    per_prefill = {"linear_scan": cfg.num_layers}
+    model = init_model(cfg, seed)
+    model_phase(model, cfg, seed, per_prefill, f32_copy=False)
+    launches = score_select_phase(model, cfg, seed, N_RWKV_CORPUS,
+                                  per_prefill)["linear_scan"]
+    row = rwkv_scan_row(LS_RWKV, seed)
+    v_cast_ms(cfg, LS_RWKV[0], LS_RWKV[2], seed)
+    f32 = model.float()            # in place: the bf16 weights go
+    f32.cfg = dataclasses.replace(cfg, dtype="float32")
+    b, s = RWKV_F32_SHAPE
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=DEVICE,
+                           generator=torch.Generator(device=DEVICE)
+                           .manual_seed(seed + 1))
+    rwkv_blocks_vs_plain(f32, f32.cfg, tokens, LOGIT_TOL[RWKV][1])
+    rwkv_f32_sensitivity(f32, tokens)
+    del model, f32
+    print(f"phase 16 linear_scan step-route launches on the score-then-"
+          f"select path: {launches} ({card})")
+    return {"launches": launches, **row}
+
+
+def record_rwkv_blocks(model, tokens) -> list:
+    """(input, output) of every RWKV6 block in a prefill of `tokens`
+    through the kernels, in order."""
+    seen = []
+    real = rwkv.rwkv_block
+
+    def recording(p, cfg, x, state=None):
+        y, new_state = real(p, cfg, x, state)
+        seen.append((x, y))
+        return y, new_state
+    with mock.patch.object(rwkv, "rwkv_block", recording):
+        modellib.last_logits(model, tokens)
+    return seen
+
+
+def ratio_to_largest(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def rwkv_blocks_vs_plain(model, cfg, tokens, tol: float) -> float:
+    """Each block of a prefill through the kernels against the same block
+    with the plain scan, on the input the kernels' run gave it: within
+    `tol` of the block output's largest magnitude. (The float32 model's
+    logits cannot be held so: see `rwkv_f32_sensitivity`.)"""
+    worst = 0.0
+    seen = record_rwkv_blocks(model, tokens)
+    with torch.inference_mode(), plain_paths(("linear_scan",)):
+        for i, (blk, (x, y)) in enumerate(zip(model.body.blocks, seen)):
+            plain, _ = rwkv.rwkv_block(blk, cfg, x)
+            r = ratio_to_largest(y, plain)
+            check(bool(torch.isfinite(y).all()) and r <= tol,
+                  f"{cfg.name} block {i}: kernel vs plain scan {r:.4g} of "
+                  f"the largest |output| (tol {tol})")
+            worst = max(worst, r)
+    print(f"{cfg.name} float32, each of {len(seen)} blocks of a prefill of "
+          f"tokens {tuple(tokens.shape)} on its own input, kernel vs plain "
+          f"scan: max |difference| {worst:.4g} of the block's largest "
+          f"|output| (tol {tol})")
+    return worst
+
+
+def rwkv_f32_sensitivity(model, tokens) -> None:
+    """The float32 model's last-position logits with the kernel, with the
+    plain scan, and with the plain scan in float64: how far two float32
+    computations of the same model lie apart. Printed, not held: through
+    32 blocks the random-init RWKV6 carries a change at float32 rounding
+    to differences far above 2e-5 of the largest |logit| (most at early
+    positions; per-head group norms of small outputs), so the blocks are
+    held one at a time (`rwkv_blocks_vs_plain`)."""
+    kernel = modellib.last_logits(model, tokens)
+    with plain_paths(("linear_scan",)):
+        plain = modellib.last_logits(model, tokens)
+    with plain_paths(("linear_scan",), scan=functools.partial(
+            ls_ref.linear_scan_ref, compute_dtype=torch.float64)):
+        exact = modellib.last_logits(model, tokens)
+    print(f"{model.cfg.name} last-position logits of tokens "
+          f"{tuple(tokens.shape)}, as shares of the largest |logit|: kernel "
+          f"vs plain scan {ratio_to_largest(kernel, plain):.4g}, plain scan "
+          f"vs plain scan in float64 {ratio_to_largest(plain, exact):.4g}, "
+          f"kernel vs float64 {ratio_to_largest(kernel, exact):.4g}")
+
+
+# -- phase 17 ------------------------------------------------------------------
+
+def rwkv_blocks_decode(model, cfg, seed: int, tol: float,
+                       label: str) -> float:
+    """Each RWKV6 block decoding, from `init_rwkv_state`, the input the
+    block saw in a prefill through the kernels, one token at a time:
+    every step's output against the prefill block's output at that
+    position, within `tol` of its largest magnitude."""
+    rows, length = len(DECODE_OFFSETS), max(DECODE_OFFSETS) + DECODE_STEPS
+    tokens = torch.randint(0, cfg.vocab_size, (rows, length), device=DEVICE,
+                           generator=torch.Generator(device=DEVICE)
+                           .manual_seed(seed + 31))
+    worst = 0.0
+    seen = record_rwkv_blocks(model, tokens)
+    with torch.inference_mode():
+        for i, (blk, (x, y)) in enumerate(zip(model.body.blocks, seen)):
+            state = rwkv.init_rwkv_state(cfg, rows, layers.dtype_of(cfg),
+                                         device=DEVICE)
+            for t in range(length):
+                out, state = rwkv.rwkv_block(blk, cfg, x[:, t:t + 1], state)
+                r = ratio_to_largest(out[:, 0], y[:, t])
+                check(bool(torch.isfinite(out).all()) and r <= tol,
+                      f"{cfg.name} {label} block {i} decode at position "
+                      f"{t}: {r:.4g} of the prefill block's largest |output|"
+                      f" (tol {tol})")
+                worst = max(worst, r)
+    print(f"{cfg.name} {label} model, each of {len(seen)} blocks decoding "
+          f"its prefill input ({rows} rows, {length} positions) from a zero "
+          f"state against the prefill block (through the kernel): max "
+          f"|difference| {worst:.4g} of the block's largest |output| (tol "
+          f"{tol})")
+    return worst
+
+
+def merge_row(dst, src, row: int) -> None:
+    """Row `row` of every tensor of caches `dst` := row 0 of `src`'s."""
+    with torch.inference_mode():
+        for (_, d), (_, s_) in zip(named_tensors(dst), named_tensors(src)):
+            d[row] = s_[0]
+
+
+def decode_consistency(model, cfg, seed: int, tol: float, label: str):
+    """Each row's decode from `init_caches` against the same model's
+    prefill (through the kernels) at every position. Row r first decodes
+    its first DECODE_OFFSETS[r] tokens alone; its caches go into row r of
+    one batch, which then takes DECODE_STEPS steps through
+    `make_serve_decode` with every row at its own position. Every step's
+    logits must lie within `tol` of the largest |prefill logit| at that
+    step (with `tol` None they are printed, not held); returns the largest
+    ratio."""
+    rows, steps = len(DECODE_OFFSETS), DECODE_STEPS
+    length = max(DECODE_OFFSETS) + steps
+    dt = layers.dtype_of(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (rows, length), device=DEVICE,
+                           generator=torch.Generator(device=DEVICE)
+                           .manual_seed(seed + 31))
+    prefill = modellib.apply_train(model, tokens)        # (B,S,V) float32
+    serve_decode = make_serve_decode(cfg)
+    worst = 0.0
+
+    def compare(got, want, where):
+        nonlocal worst
+        ratio = float((got - want).abs().max()) / float(want.abs().max())
+        check(bool(torch.isfinite(got).all())
+              and (tol is None or ratio <= tol),
+              f"{cfg.name} {label} decode {where}: max |decode - prefill| "
+              f"{ratio:.4g} of the largest |logit| (tol {tol})")
+        worst = max(worst, ratio)
+    caches = modellib.init_caches(cfg, rows, DECODE_CACHE, dt)
+    for r, off in enumerate(DECODE_OFFSETS):
+        alone = modellib.init_caches(cfg, 1, DECODE_CACHE, dt)
+        for i in range(off):
+            lo, alone = serve_decode(model, {
+                "tokens": tokens[r:r + 1, i:i + 1],
+                "pos": torch.full((1,), i, device=DEVICE)}, alone)
+            compare(lo[0, 0], prefill[r, i], f"row {r} alone, position {i}")
+        merge_row(caches, alone, r)
+    offsets = torch.tensor(DECODE_OFFSETS, device=DEVICE)
+    every = torch.arange(rows, device=DEVICE)
+    for i in range(steps):
+        pos = offsets + i
+        batch = {"tokens": tokens[every, pos][:, None], "pos": pos}
+        lo, caches = serve_decode(model, batch, caches)
+        compare(lo[:, 0], prefill[every, pos], f"step {i}")
+    print(f"{cfg.name} {label} model: {rows} rows from positions "
+          f"{list(DECODE_OFFSETS)}, {steps} steps through make_serve_decode "
+          f"against the prefill through the kernels: max |decode - prefill| "
+          f"{worst:.4g} of the largest |logit| "
+          + (f"(tol {tol})" if tol is not None else
+             "(not held: see the block check)"))
+    return worst
+
+
+def named_tensors(tree, name=None):
+    """(key, tensor) for every tensor of a nested dict/list cache
+    structure, the key its innermost dict key."""
+    if isinstance(tree, dict):
+        return [kt for k, v in tree.items() for kt in named_tensors(v, k)]
+    if isinstance(tree, list):
+        return [kt for v in tree for kt in named_tensors(v, name)]
+    return [(name, tree)]
+
+
+def decode_bound(model, cfg, caches, rows: int) -> tuple:
+    """(bound_ms, bound_by, (weight, KV, state bytes), ops) of one decode
+    step: every weight read once (of an untied embedding only the rows'
+    entries), every KV cache read whole by `decode_attention`, every
+    recurrent state (conv tail, token shifts, SSM or wkv state) read and
+    written once, the logits written; over the HBM rate. Against it the
+    operations: `model_flops` of one token a row, the head's
+    2 · rows · d · V and the attention's 2 · rows · H · S · dh for each
+    of K and V a run, at the bf16 rate."""
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    if not cfg.tie_embeddings:
+        table = model.embed.table
+        weights -= table.numel() * table.element_size()
+        weights += rows * table.shape[1] * table.element_size()
+    kv, states, attn_ops = 0, 0, 0.0
+    for key, t in named_tensors(caches):
+        if key in ("k", "v"):
+            kv += t.numel() * t.element_size()
+            attn_ops += 2.0 * rows * cfg.num_heads * t.shape[1] \
+                * cfg.head_dim
+        else:
+            states += 2 * t.numel() * t.element_size()
+    moved = weights + kv + states + 4 * rows * cfg.vocab_size
+    ops = model_flops(cfg, rows, 1) + 2.0 * rows * cfg.d_model \
+        * cfg.vocab_size + attn_ops
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, (weights, kv, states), ops
+
+
+def decode_times(model, cfg, rows: int, length: int, seed: int,
+                 card: str) -> dict:
+    """ms a `make_serve_decode` step at pos = length - 1, on caches of
+    random contents, tokens/s and the bytes bound; the step's peak device
+    memory; then one step under torch.profiler: kernels launched, the
+    device's busy share, and device-to-host copies (must be 0)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 37)
+    caches = modellib.init_caches(cfg, rows, length, layers.dtype_of(cfg))
+    with torch.inference_mode():
+        for _, t in named_tensors(caches):
+            t.normal_(0.0, 0.5, generator=g)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, 1),
+                                     device=DEVICE, generator=g),
+             "pos": torch.full((rows,), length - 1, device=DEVICE)}
+    serve_decode = make_serve_decode(cfg)
+    reps = 10 if rows * length <= 1 << 22 else 4
+    ms = cuda_ms(lambda: serve_decode(model, batch, caches), reps)
+    peak = torch.cuda.max_memory_allocated()
+    b_ms, b_by, (weights, kv, states), ops = decode_bound(model, cfg, caches,
+                                                        rows)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        logits, _ = serve_decode(model, batch, caches)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    kernels = [(e.key, e.self_device_time_total, e.count) for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy_us = sum(t for _, t, _ in kernels)
+    copies = {way: sum(e.count for e in events
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and way in e.key) for way in ("DtoH", "HtoD")}
+    check(bool(torch.isfinite(logits).all())
+          and logits.shape == (rows, 1, cfg.vocab_size),
+          f"{cfg.name} decode logits at ({rows}, {length})")
+    check(peak < DECODE_PEAK_BYTES,
+          f"{cfg.name} decode at ({rows}, {length}): peak device memory "
+          f"{peak / 1e9:.2f} GB")
+    check(copies["DtoH"] == 0,
+          f"{cfg.name} decode step made {copies['DtoH']} device-to-host "
+          "copies")
+    print(f"{cfg.name} decode, {rows} rows, cache length {length}, pos "
+          f"{length - 1}: {ms:.4f} ms a step, {rows / ms * 1e3:.1f} tokens/s; "
+          f"bound {b_ms:.4f} ms ({b_by}: weights {weights / 1e9:.3f} GB, KV "
+          f"caches {kv / 1e9:.3f} GB, states read and written "
+          f"{states / 1e9:.3f} GB at 3.35 TB/s; {ops / 1e12:.3f} TFLOP at "
+          f"the bf16 peak), share of the bound reached {b_ms / ms:.3f}; peak "
+          f"device memory {peak / 1e9:.2f} GB ({card})")
+    if kernels:
+        print(f"  one step under the profiler: wall {wall_us / 1e3:.3f} ms, "
+              f"{sum(n for _, _, n in kernels)} kernels, device busy "
+              f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.3f} of the "
+              f"wall), {copies['DtoH']} device-to-host and {copies['HtoD']} "
+              f"host-to-device copies; top kernels:")
+        for name, t, n in sorted(kernels, key=lambda k: -k[1])[:6]:
+            print(f"  {t / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
+    else:
+        print("  one step under the profiler: no device time recorded")
+    del caches, logits
+    return {"ms": ms, "bound_ms": b_ms, "peak_gb": peak / 1e9}
+
+
+def decode_phase(seed: int, card: str) -> None:
+    """Phase 17: decode at full width for smollm-360m, zamba2-1.2b and
+    rwkv6-7b: consistency with the prefill in float32 and bf16, then the
+    step times of each (model, rows, cache length) cell of DECODE_CELLS."""
+    for arch in (ARCH, ZAMBA, RWKV):
+        cfg = get_config(arch)
+        model = init_model(cfg, seed)
+        by_block = arch == RWKV
+        decode_consistency(model, cfg, seed, None if by_block
+                           else DECODE_BF16_TOL[arch], "bf16")
+        if by_block:
+            rwkv_blocks_decode(model, cfg, seed, DECODE_BF16_TOL[arch],
+                               "bf16")
+        for rows, length in DECODE_CELLS[arch]:
+            decode_times(model, cfg, rows, length, seed, card)
+        if by_block:
+            f32 = model.float()    # in place: the bf16 weights go
+        else:
+            f32 = copy.deepcopy(model).float()
+        del model
+        f32.cfg = dataclasses.replace(cfg, dtype="float32")
+        decode_consistency(f32, f32.cfg, seed, None if by_block
+                           else DECODE_F32_TOL, "float32")
+        if by_block:
+            rwkv_blocks_decode(f32, f32.cfg, seed, RWKV_DECODE_F32_TOL,
+                               "float32")
+        del f32
+        torch.cuda.empty_cache()
+
+
 class Phases:
     """Wall time of each phase, printed as it ends and summed at the end."""
 
@@ -2477,6 +2988,14 @@ def main() -> None:
     with phase(array_name):
         array_phase(args.seed, card)
     print(f"phase 15 wall: {phase.walls[array_name]:.3f} s ({card})")
+    rwkv_name = "16 rwkv6-7b prefill, score and select"
+    with phase(rwkv_name):
+        step_row = rwkv_phase(args.seed, card)
+    print(f"phase 16 wall: {phase.walls[rwkv_name]:.3f} s ({card})")
+    decode_name = "17 decode"
+    with phase(decode_name):
+        decode_phase(args.seed, card)
+    print(f"phase 17 wall: {phase.walls[decode_name]:.3f} s ({card})")
     print(phase.total())
 
     rows = []
@@ -2505,6 +3024,10 @@ def main() -> None:
                              "linear_scan.py:108",
                  "launches": ls_launches, "max_abs_err": ls_err,
                  **ls_rows[LS_PREFILL]})
+    rows.append({"name": "linear_scan_step", "route": "cuda",
+                 "source": "src/repro_torch/csrc/linear_scan.cu",
+                 "replaces": "src/repro/kernels/linear_scan/"
+                             "linear_scan.py:108", **step_row})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,14 +1,16 @@
 """Architecture registry of the port: the configurations whose model the
-port runs. ``smollm-360m`` (dense) and ``zamba2-1.2b`` (hybrid Mamba2 with
-a shared attention block) are ported so far; the JAX package's other
-architectures wait for their slices (ROADMAP §1)."""
+port runs, for prefill and decode. ``smollm-360m`` (dense), ``zamba2-1.2b``
+(hybrid Mamba2 with a shared attention block) and ``rwkv6-7b`` (RWKV6,
+attention-free) are ported so far; the JAX package's other architectures
+(MoE, MLA, multi-codebook) wait for their slices (ROADMAP §1)."""
 from __future__ import annotations
 
-from repro_torch.configs import smollm_360m, zamba2_1_2b
+from repro_torch.configs import rwkv6_7b, smollm_360m, zamba2_1_2b
 from repro_torch.configs.base import (SHAPES, SHAPES_BY_NAME, ModelConfig,
                                       ShapeConfig, shape_applicable)
 
-_MODULES = {"smollm-360m": smollm_360m, "zamba2-1.2b": zamba2_1_2b}
+_MODULES = {"smollm-360m": smollm_360m, "zamba2-1.2b": zamba2_1_2b,
+            "rwkv6-7b": rwkv6_7b}
 
 ARCH_IDS = tuple(_MODULES)
 

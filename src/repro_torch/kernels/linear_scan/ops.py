@@ -19,8 +19,8 @@ cost nothing: Mamba2 passes its B and C, shared by all heads, as
 ``(B,H,S)[..., None].expand(B,H,S,N)`` (stride 0 over the state dim), and
 neither is materialized. o is allocated in v's memory layout. On the card
 q and k share a dtype (bf16 or float32), and v and w are float32 (Mamba2's
-v = dt·x is float32 in either model dtype); a bf16 v waits for a model
-that makes one.
+v = dt·x is float32 in either model dtype; an RWKV6 block casts its bf16
+v up before the call, `models.rwkv.time_mix`).
 
 >>> import torch
 >>> one = torch.ones(1, 1, 3, 1)

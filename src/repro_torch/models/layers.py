@@ -13,6 +13,8 @@ dtype; norms, activations and softmax run in float32.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -140,10 +142,19 @@ def rope_frequencies(head_dim, theta):
     return 1.0 / (theta ** exponents)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_frequencies(head_dim, theta, device):
+    """`rope_frequencies` on `device`, copied there once: a copy from the
+    host at every call would wait for the device each time. A normal
+    tensor, though the first call may come in inference mode."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(rope_frequencies(head_dim, theta)).to(
+            device)
+
+
 def rope_angles(positions, head_dim, theta):
     """positions: (...,) int -> (..., head_dim/2) angles, float32."""
-    freqs = torch.from_numpy(rope_frequencies(head_dim, theta))
-    freqs = freqs.to(positions.device)
+    freqs = _device_frequencies(head_dim, theta, positions.device)
     return positions.float()[..., None] * freqs
 
 

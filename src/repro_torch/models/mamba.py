@@ -1,5 +1,6 @@
-"""Mamba2 (SSD) block for prefill: the JAX package's ``models/mamba.py``
-``_dims``, ``init_mamba_block``, ``_causal_conv`` and ``mamba_block``.
+"""Mamba2 (SSD) block: the JAX package's ``models/mamba.py`` ``_dims``,
+``init_mamba_block``, ``_causal_conv``, ``mamba_block`` and
+``init_mamba_state``.
 
 Block (arXiv:2405.21060, as used by Zamba2):
   in_proj -> [z | x | B | C | dt]     (d_inner, d_inner, N, N, H)
@@ -11,10 +12,14 @@ Block (arXiv:2405.21060, as used by Zamba2):
 Where the reference runs ``scan_ops.linear_scan_chunked`` (its jnp analogue
 of the Pallas kernel), the port calls the hand-written `linear_scan`
 kernel with q = C, k = B, v = dt·x and the scalar decay per head, B, C and
-the decay passed as broadcast views (n_groups = 1). Prefill starts from a
-zero state, as the reference's does. The decode state (``init_mamba_state``)
-and a one-token step with a carried state wait for the decode slice
-(ROADMAP §1).
+the decay passed as broadcast views (n_groups = 1). A prefill starts from a
+zero state, as the reference's does, and returns the state it ends in.
+Decode state: the conv tail (B, width-1, conv channels) and the SSM state
+(B, H, N, hd) in float32. A one-token step with a carried state runs
+``scan_ops.step`` (plain PyTorch, as the reference's is jnp) and writes
+the new state into the given tensors in place; the reference returns new
+ones. A prefill from a carried state (the reference's chunked scan with an
+initial state) is not ported: the kernel starts from zero.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.linear_scan.ops import linear_scan
-from repro_torch.models import layers
+from repro_torch.models import layers, scan_ops
 from repro_torch.models.layers import dense_init, matmul
 
 
@@ -58,25 +63,36 @@ def init_mamba_block(cfg, *, generator, device):
         out_proj=dense_init(generator, d_inner, d, dt, device))
 
 
-def _causal_conv(x, w, b):
-    """Depthwise causal conv from a zero tail. x: (B,S,C), w: (W,C), b: (C,)
-    -> silu(conv + b) in x's dtype: the sum of W shifted scalings in x's
-    dtype, as the reference computes it."""
+def _causal_conv(x, w, b, tail=None):
+    """Depthwise causal conv. x: (B,S,C), w: (W,C), b: (C,); tail:
+    (B,W-1,C), the inputs before x, or None for zeros -> (silu(conv + b)
+    in x's dtype, the new tail: the last W-1 inputs). The conv is the sum
+    of W shifted scalings in x's dtype, as the reference computes it."""
     width, s = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, width - 1, 0))
+    if tail is None:
+        xp = F.pad(x, (0, 0, width - 1, 0))
+    else:
+        xp = torch.cat([tail, x], dim=1)
     y = sum(xp[:, i:i + s, :] * w[i] for i in range(width))
-    return F.silu((y + b).float()).to(x.dtype)
+    return F.silu((y + b).float()).to(x.dtype), xp[:, s:, :]
 
 
-def mamba_block(p, cfg, x):
-    """x: (B,S,d) -> x + the block's output, from a zero state."""
+def mamba_block(p, cfg, x, state=None):
+    """x: (B,S,d) -> (x + the block's output, state). With `state` None the
+    block runs the `linear_scan` kernel from a zero state and returns the
+    state it ends in (conv tail, SSM state); with a state (S must be 1) it
+    steps that state, written in place, and returns it."""
     b, s, _ = x.shape
     d_inner, hd, h, n, conv_ch = _dims(cfg)
+    if state is not None and s != 1:
+        raise ValueError(f"a carried state steps one token, got S = {s}; "
+                         f"a prefill starts from a zero state (state=None)")
     xn = layers.rms_norm(p.ln, x, cfg.norm_eps)
     zxbcdt = matmul(xn, p.in_proj)
     z = zxbcdt[..., :d_inner]
-    xbc = _causal_conv(zxbcdt[..., d_inner:d_inner + conv_ch], p.conv_w,
-                       p.conv_b)
+    xbc, tail = _causal_conv(zxbcdt[..., d_inner:d_inner + conv_ch],
+                             p.conv_w, p.conv_b,
+                             None if state is None else state["conv"])
     dt_raw = zxbcdt[..., -h:].float()
     xs = xbc[..., :d_inner].reshape(b, s, h, hd)
     bb = xbc[..., d_inner:d_inner + n]                    # (B,S,N) group=1
@@ -91,10 +107,27 @@ def mamba_block(p, cfg, x):
     k = bb[:, None].expand(b, h, s, n)
     v = (xs * dt_v[..., None]).transpose(1, 2)            # (B,H,S,hd)
     w = a.transpose(1, 2)[..., None].expand(b, h, s, n)
-    o, _ = linear_scan(q, k, v, w)
+    if state is None:
+        o, ssm = linear_scan(q, k, v, w)
+        state = {"conv": tail, "ssm": ssm}
+    else:
+        _, o = scan_ops.step(state["ssm"], q[:, :, 0], k[:, :, 0],
+                             v[:, :, 0], w[:, :, 0])
+        o = o[:, :, None, :]
+        state["conv"].copy_(tail)
 
     y = o.transpose(1, 2) + xs * p.d_skip[:, None]
     y = y.reshape(b, s, d_inner)
     y = y.float() * F.silu(z.float())
     y = layers.rms_norm(p.out_norm, y.to(x.dtype), cfg.norm_eps)
-    return x + matmul(y, p.out_proj)
+    return x + matmul(y, p.out_proj), state
+
+
+def init_mamba_state(cfg, batch, dtype=torch.float32, *, device):
+    """Zeroed decode state of one block: ``conv`` (B, W-1, conv channels)
+    in `dtype` and ``ssm`` (B, H, N, hd) in float32."""
+    _, hd, h, n, conv_ch = _dims(cfg)
+    return {"conv": torch.zeros(batch, cfg.ssm_conv_width - 1, conv_ch,
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros(batch, h, n, hd, dtype=torch.float32,
+                               device=device)}

@@ -1,18 +1,31 @@
-"""Top-level model API for proxy scoring (the JAX package's
+"""Top-level model API for proxy scoring and decode (the JAX package's
 ``models/model.py``):
 
     model  = init(cfg, generator=g)                   an nn.Module, on cuda
     logits = apply_train(model, tokens)               (B,S,V) float32
     scores = proxy_scores(model, tokens, target)      (B,) in [0,1]
+    caches = init_caches(cfg, batch, seq_len)         zeroed, on cuda
+    logits, caches = apply_decode(model, tokens, caches, pos)
     model  = params_from_reference(arrays, cfg)       the reference's weights
+    caches = caches_from_reference(arrays, cfg)       the reference's caches
 
 The proxy-score head is how the SUPG plane consumes a model: the score of a
 record is the model's probability mass on a designated predicate token at
 the last position, the A(x) the paper assumes (Sec 4.1: "executes the
 proxy model over the complete set of records"). The model carries its
-config as ``model.cfg``. Dense attention and hybrid Mamba2 (Zamba2) models
-so far; decode, the loss and the other families wait for their slices
-(ROADMAP §1).
+config as ``model.cfg``. Dense attention, hybrid Mamba2 (Zamba2) and RWKV6
+models so far; the loss and the MoE, MLA and multi-codebook families wait
+for their slices (ROADMAP §1).
+
+Decode caches are nested dicts and lists of tensors, one entry per block
+(and for the hybrid one attention cache per invocation of the shared
+block), where the reference stacks them on leading axes. `apply_decode`
+writes them in place and returns the same structure; the reference returns
+new caches (written in place by XLA under donation). Both `init_caches` and
+`apply_decode` run under `torch.inference_mode`, so caches made by one are
+updated by the other; caches from `caches_from_reference` are ordinary
+tensors, which inference mode may update too. A decode step makes no host
+sync: no read-back, no branch on a tensor's value.
 """
 from __future__ import annotations
 
@@ -21,7 +34,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models import layers, transformer
+from repro_torch.models import attention, layers, mamba, rwkv, transformer
 
 
 # --------------------------------------------------------------------------
@@ -48,6 +61,21 @@ def init(cfg, *, generator: torch.Generator, device=None) -> nn.Module:
     return model
 
 
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array (bf16 included) as a tensor of the same dtype."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device,
+                                                         torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _take(d, i):
+    """Slice i of every array of a nested dict stacked on a leading axis."""
+    return {k: _take(v, i) if isinstance(v, dict) else v[i]
+            for k, v in d.items()}
+
+
 def params_from_reference(arrays, cfg, *, device=None) -> nn.Module:
     """The port's model holding the reference's weights.
 
@@ -57,37 +85,26 @@ def params_from_reference(arrays, cfg, *, device=None) -> nn.Module:
     the port computes ``x @ w`` as the reference does, so nothing is
     transposed. The one change of layout: the reference stacks the blocks'
     weights on leading axes (``transformer._split_stack``); block i here
-    holds slice i of each. A dense body's ``blocks`` are stacked on L; a
-    hybrid's ``mamba_super`` on (super-blocks, blocks a super-block), its
-    ``mamba_tail`` on the tail's blocks, and its ``shared_attn`` is not
-    stacked. ``device=None`` means ``cuda``."""
+    holds slice i of each. A dense or RWKV6 body's ``blocks`` are stacked
+    on L; a hybrid's ``mamba_super`` on (super-blocks, blocks a
+    super-block), its ``mamba_tail`` on the tail's blocks, and its
+    ``shared_attn`` is not stacked. ``device=None`` means ``cuda``."""
     dev = resolve_device(device)
     transformer.check_supported(cfg)
 
-    def tensor(a):
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.astype(np.float32)).to(
-                dev, torch.bfloat16)
-        return torch.from_numpy(np.array(a)).to(dev)
-
     def tree(d):
         return layers.params(**{
-            name: tree(v) if isinstance(v, dict) else tensor(v)
+            name: tree(v) if isinstance(v, dict) else _tensor(v, dev)
             for name, v in d.items()})
 
-    def take(d, i):
-        return {k: take(v, i) if isinstance(v, dict) else v[i]
-                for k, v in d.items()}
-
     def blocks(d, n):
-        return nn.ModuleList(tree(take(d, i)) for i in range(n))
+        return nn.ModuleList(tree(_take(d, i)) for i in range(n))
 
     body = arrays["body"]
     if cfg.block == "mamba":
         n_super, per_super, tail = transformer.zamba_layout(cfg)
         parts = {"mamba_super": nn.ModuleList(
-            blocks(take(body["mamba_super"], i), per_super)
+            blocks(_take(body["mamba_super"], i), per_super)
             for i in range(n_super)),
             "shared_attn": tree(body["shared_attn"])}
         if tail:
@@ -143,17 +160,106 @@ def proxy_scores(model, tokens, target_token=1) -> torch.Tensor:
     return p[..., target_token]
 
 
+@torch.inference_mode()
+def apply_decode(model, tokens, caches, pos):
+    """tokens: (B,1) ints, pos: (B,) ints (each row's position) ->
+    (logits (B,1,V) float32, caches), `caches` written in place."""
+    dev = model.embed.table.device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    pos = torch.as_tensor(pos, device=dev).long()
+    x = layers.embed(model.embed, tokens)
+    x, caches = transformer.body_decode(model.body, model.cfg, x, caches,
+                                        pos)
+    x = layers.rms_norm(model.ln_f, x, model.cfg.norm_eps)
+    return _head(model, x), caches
+
+
+# --------------------------------------------------------------------------
+# Cache construction
+# --------------------------------------------------------------------------
+
+def _attn_cache(cfg, batch, seq_len, dtype, device):
+    spec = attention.gqa_cache_spec(cfg, batch, seq_len, dtype)
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in spec.items()}
+
+
+@torch.inference_mode()
+def init_caches(cfg, batch, seq_len, dtype=torch.bfloat16, *, device=None):
+    """Zeroed decode caches of `cfg` for `batch` rows and `seq_len`
+    positions, as `apply_decode` takes them. Dense: ``blocks``, a KV cache
+    a block. RWKV6: ``blocks``, a state a block. Hybrid: ``mamba_super``
+    (a list of lists of Mamba2 states), ``shared_attn`` (a KV cache for
+    each invocation of the shared block) and ``mamba_tail``. KV caches,
+    conv tails and token shifts are in `dtype` (bf16 by default, as the
+    reference's), the recurrent states float32. ``device=None`` means
+    ``cuda``."""
+    dev = resolve_device(device)
+    transformer.check_supported(cfg)
+    if cfg.block == "rwkv":
+        return {"blocks": [rwkv.init_rwkv_state(cfg, batch, dtype, device=dev)
+                           for _ in range(cfg.num_layers)]}
+    if cfg.block == "mamba":
+        n_super, per_super, tail = transformer.zamba_layout(cfg)
+
+        def states(n):
+            return [mamba.init_mamba_state(cfg, batch, dtype, device=dev)
+                    for _ in range(n)]
+        caches = {"mamba_super": [states(per_super) for _ in range(n_super)],
+                  "shared_attn": [_attn_cache(cfg, batch, seq_len, dtype, dev)
+                                  for _ in range(n_super)]}
+        if tail:
+            caches["mamba_tail"] = states(tail)
+        return caches
+    return {"blocks": [_attn_cache(cfg, batch, seq_len, dtype, dev)
+                       for _ in range(cfg.num_layers)]}
+
+
+def caches_from_reference(arrays, cfg, *, device=None):
+    """The port's caches holding the reference's: `arrays` is the JAX
+    package's ``init_caches``/``apply_decode`` cache pytree as nested dicts
+    of numpy arrays, stacked on leading axes (the blocks; for the hybrid's
+    Mamba2 states the super-blocks, then the blocks of one). Entry i of a
+    list here holds slice i; every array keeps its dtype. ``device=None``
+    means ``cuda``."""
+    dev = resolve_device(device)
+    transformer.check_supported(cfg)
+
+    def tree(d):
+        return {k: tree(v) if isinstance(v, dict) else _tensor(v, dev)
+                for k, v in d.items()}
+
+    def entries(d, n):
+        return [tree(_take(d, i)) for i in range(n)]
+    if cfg.block != "mamba":
+        return {"blocks": entries(arrays["blocks"], cfg.num_layers)}
+    n_super, per_super, tail = transformer.zamba_layout(cfg)
+    caches = {"mamba_super": [entries(_take(arrays["mamba_super"], i),
+                                      per_super) for i in range(n_super)],
+              "shared_attn": entries(arrays["shared_attn"], n_super)}
+    if tail:
+        caches["mamba_tail"] = entries(arrays["mamba_tail"], tail)
+    return caches
+
+
 # --------------------------------------------------------------------------
 # Analytic parameter counts (roofline denominators)
 # --------------------------------------------------------------------------
 
 def count_params_analytic(cfg):
     """Parameter count from the config alone, by the reference's formula
-    for the families the port runs (dense attention, hybrid Mamba2). The
-    hybrid's shared block counts once, however often it runs."""
+    for the families the port runs (dense attention, hybrid Mamba2,
+    RWKV6). The hybrid's shared block counts once, however often it runs.
+    RWKV6 counts the projections and the low-rank mixes, not the vectors
+    (mixes, decay base, bonus, norms), as the reference does."""
     transformer.check_supported(cfg)
     d, hd = cfg.d_model, cfg.head_dim
     total = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    if cfg.block == "rwkv":
+        lora = cfg.rwkv_lora_dim
+        per = 5 * d * d + d * cfg.d_ff * 2 + d * d   # tm + cm projections
+        per += 5 * lora * d * 2 + 2 * lora * d * 2
+        return total + cfg.num_layers * per
     attn = d * hd * (cfg.num_heads + 2 * cfg.num_kv_heads) \
         + cfg.num_heads * hd * d
     mlp = 3 * d * (cfg.dense_d_ff or cfg.d_ff)

@@ -10,9 +10,11 @@ card's engine against a CPU engine serving the same corpus state, and
 narrow models' scores (float32) and logits (bf16) through the kernels
 (flash_attention; linear_scan and flash_attention for the hybrid) against
 the same models with the plain versions, a durable server's crash and
-restore on the card against its uncrashed run, and the single-array query
+restore on the card against its uncrashed run, the single-array query
 path and the distributed plane (nccl at world size 1, two gloo ranks on
-CUDA tensors) as phase 15 of ``chip_smoke.py`` checks them.
+CUDA tensors) as phase 15 of ``chip_smoke.py`` checks them, and smoke-size
+RWKV6 prefills (the step kernel) and decode steps of the three families on
+the card against the same models on the CPU.
 """
 import dataclasses
 import pathlib
@@ -1031,3 +1033,86 @@ def test_card_distributed_plane_two_gloo_ranks_on_cuda_tensors(card,
         for i, h in enumerate(torch.tensor_split(s, 2)):
             want = float(torch.sqrt(torch.clamp(h, 0, 1).double()).sum())
             assert abs(float(out["totals"][i, 0]) - want) <= 1e-6 * want
+
+
+# -- RWKV6 and decode -------------------------------------------------------------
+
+def _cpu_and_card(arch, card, seed=0):
+    """The smoke config's float32 model drawn on the CPU from `seed`, and
+    the same weights on the card."""
+    cfg = configs.get_smoke_config(arch)
+    m = model.init(cfg, generator=torch.Generator().manual_seed(seed),
+                   device="cpu")
+    on_card = model.init(cfg, generator=torch.Generator().manual_seed(seed),
+                         device="cpu").to(card)
+    on_card.cfg = cfg
+    return cfg, m, on_card
+
+
+@pytest.mark.cuda
+def test_rwkv_prefill_on_the_card_matches_cpu(card):
+    """A smoke-size RWKV6 prefill through the step kernel against the same
+    model on the CPU (the plain scan): logits within 2e-5 of the largest
+    |logit|, one step-route launch a block."""
+    cfg, cpu_model, card_model = _cpu_and_card("rwkv6-7b", card)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 70))
+    ls_ops.launches.reset()
+    got = model.apply_train(card_model, tokens).cpu()
+    assert dict(ls_ops.launches.routes) == {"chunked": 0,
+                                            "step": cfg.num_layers}
+    want = model.apply_train(cpu_model, tokens)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=2e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_rwkv_prefill_launches_the_step_route_once_a_block(card):
+    """rwkv6's blocks hand linear_scan bf16 r and k, float32 v and w as
+    transposed views and the bonus u: `ops.route` sends them to the step
+    kernel, once a block, in bf16 as in float32."""
+    cfg = dataclasses.replace(configs.get_smoke_config("rwkv6-7b"),
+                              dtype="bfloat16")
+    m = model.init(cfg, generator=torch.Generator(device=card).manual_seed(2),
+                   device=card)
+    ls_ops.launches.reset()
+    scores = model.proxy_scores(m, np.ones((4, 33), np.int64))
+    assert dict(ls_ops.launches.routes) == {"chunked": 0,
+                                            "step": cfg.num_layers}
+    assert bool(((scores > 0) & (scores < 1)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-360m", "zamba2-1.2b", "rwkv6-7b"])
+def test_decode_on_the_card_matches_cpu(card, arch):
+    """Four decode steps from `init_caches` on the card against the same
+    steps on the CPU, rows at their own positions: logits within 2e-5 of
+    the largest |logit|, and every cache after the last step within 2e-5
+    of its largest |value|."""
+    cfg, cpu_model, card_model = _cpu_and_card(arch, card, 3)
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (3, 4))
+    caches = {"cpu": model.init_caches(cfg, 3, 8, torch.float32,
+                                       device="cpu"),
+              "card": model.init_caches(cfg, 3, 8, torch.float32,
+                                        device=card)}
+    for i in range(4):
+        pos = np.array([i, i + 2, i + 4])
+        want, caches["cpu"] = model.apply_decode(
+            cpu_model, tokens[:, i:i + 1], caches["cpu"], pos)
+        got, caches["card"] = model.apply_decode(
+            card_model, torch.from_numpy(tokens[:, i:i + 1]).to(card),
+            caches["card"], torch.from_numpy(pos).to(card))
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=2e-5 * float(want.abs().max()))
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [t for v in tree.values() for t in leaves(v)]
+        if isinstance(tree, list):
+            return [t for v in tree for t in leaves(v)]
+        return [tree]
+    for got, want in zip(leaves(caches["card"]), leaves(caches["cpu"])):
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(
+            got.cpu(), want, rtol=0,
+            atol=2e-5 * max(float(want.abs().max()), 1e-30))

@@ -102,12 +102,20 @@ def test_rms_norm_matches_reference(shape):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("head_dim,theta", [(64, 10_000.0), (20, 500_000.0),
-                                            (128, 10_000.0)])
-def test_apply_rope_matches_reference(head_dim, theta):
+@pytest.mark.parametrize("head_dim,theta,decode", [
+    (64, 10_000.0, False), (20, 500_000.0, False), (128, 10_000.0, False),
+    (64, 10_000.0, True)])
+def test_apply_rope_matches_reference(head_dim, theta, decode):
+    """Prefill positions (B,S) = arange(S) a row, and decode's (B,1): one
+    position a row, each its own, out to 32767 (`gqa_decode` passes
+    ``pos[:, None]``)."""
     rng = np.random.default_rng(head_dim)
-    x = rng.standard_normal((2, 37, 3, head_dim)).astype(np.float32)
-    pos = _positions(2, 37)
+    if decode:
+        x = rng.standard_normal((5, 1, 3, head_dim)).astype(np.float32)
+        pos = np.array([[0], [1], [4095], [20000], [32767]])
+    else:
+        x = rng.standard_normal((2, 37, 3, head_dim)).astype(np.float32)
+        pos = _positions(2, 37)
     want = jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
     got = layers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
                             theta)
@@ -268,7 +276,7 @@ def test_init_without_a_device_needs_cuda():
 
 
 @pytest.mark.parametrize("change", [dict(moe=True), dict(use_mla=True),
-                                    dict(block="rwkv"),
+                                    dict(moe=True, moe_layer_step=2),
                                     dict(num_codebooks=4)])
 def test_unported_families_raise(change):
     cfg = dataclasses.replace(SMOKE, **change)
@@ -294,7 +302,7 @@ def test_count_params_analytic_matches_reference(case):
 
 
 def test_registry_holds_the_ported_arch():
-    assert configs.ARCH_IDS == ("smollm-360m", "zamba2-1.2b")
+    assert configs.ARCH_IDS == ("smollm-360m", "zamba2-1.2b", "rwkv6-7b")
     cfg = configs.get_config("smollm-360m")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jconfigs.get_config("smollm-360m"))
@@ -312,8 +320,9 @@ def test_registry_holds_the_ported_arch():
 @pytest.mark.parametrize("get", [configs.get_config,
                                  configs.get_smoke_config])
 def test_registry_names_the_known_archs(get):
-    with pytest.raises(KeyError, match="smollm-360m.*zamba2-1.2b"):
-        get("rwkv6-7b")
+    with pytest.raises(KeyError,
+                       match="rwkv6-7b.*smollm-360m.*zamba2-1.2b"):
+        get("yi-6b")
 
 
 # -- token corpora ---------------------------------------------------------------
