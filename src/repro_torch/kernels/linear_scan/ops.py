@@ -1,26 +1,27 @@
 """Wrapper of the linear scan kernels: on CUDA tensors, the chunked
 tensor-core kernel ``csrc/linear_scan_chunked.cu`` for Mamba2's inputs and
-the step kernel ``csrc/linear_scan.cu`` for every other input; the plain
-version (`ref.linear_scan_ref`) for CPU ones.
+the chunked kernel with a decay per channel ``csrc/linear_scan.cu`` for
+every other input; the plain version (`ref.linear_scan_ref`) for CPU ones.
 
 `route` picks the CUDA kernel from the inputs' structure before the launch:
-the chunked kernel where u is None (Mamba2's read after the update), w has
-dim stride 0 (a scalar decay per step), dk and dv are at most 64 and q, k
-are bf16 or float32, and where its row copies can read q, k and v as they
-lie (dim stride 1, rows on 16-byte boundaries, dv a multiple of 4 and dk
-of 16 bytes); the step kernel otherwise (RWKV6's bonus u, a decay per state
-row). Neither falls back to the other: a launch that fails raises.
-`launches` counts both kernels' launches, `launches.routes` each route's.
+``"chunked"`` where u is None (Mamba2's read after the update), w has dim
+stride 0 (a scalar decay per step), dk and dv are at most 64, q, k are
+bf16 or float32, v is float32, and where its row copies can read q, k and
+v as they lie (dim stride 1, rows on 16-byte boundaries, dv a multiple of
+4 and dk of 16 bytes); ``"channel"`` otherwise (RWKV6's bonus u, a decay
+per state row, bf16 v, any strides). Neither falls back to the other: a
+launch that fails raises. `launches` counts both kernels' launches,
+`launches.routes` each route's.
 
 Tensors are in the JAX package's (B,H,S,d) layout (``kernels/linear_scan``).
-The kernel reads q, k, w and v through their strides, so broadcast views
+The kernels read q, k, w and v through their strides, so broadcast views
 cost nothing: Mamba2 passes its B and C, shared by all heads, as
 ``(B,S,N)[:, None].expand(B,H,S,N)`` and its scalar decay per head as
 ``(B,H,S)[..., None].expand(B,H,S,N)`` (stride 0 over the state dim), and
-neither is materialized. o is allocated in v's memory layout. On the card
-q and k share a dtype (bf16 or float32), and v and w are float32 (Mamba2's
-v = dt·x is float32 in either model dtype; an RWKV6 block casts its bf16
-v up before the call, `models.rwkv.time_mix`).
+neither is materialized. o is allocated in v's memory layout and dtype. On
+the card q and k share a dtype (bf16 or float32), v is bf16 or float32
+(Mamba2's v = dt·x is float32 in either model dtype; an RWKV6 block hands
+over its bf16 v, `models.rwkv.time_mix`) and w is float32.
 
 >>> import torch
 >>> one = torch.ones(1, 1, 3, 1)
@@ -41,20 +42,22 @@ from repro_torch.kernels.linear_scan import ref
 MAX_DIM = 64               # dk and dv a block's state holds
 DTYPES = (torch.bfloat16, torch.float32)
 
-launches = _build.LaunchCounter(routes=("chunked", "step"))
-# Each route's library, ``csrc/<name>.cu``, and the pointers its launch
-# takes before (batch, heads, seq, dk, dv, qk_bf16, strides, stream):
-# q, k, v, w, o, state, and the step kernel's u after w.
-LIBS = {"chunked": ("linear_scan_chunked", 6), "step": ("linear_scan", 7)}
+launches = _build.LaunchCounter(routes=("chunked", "channel"))
+# Each route's library, ``csrc/<name>.cu``, the pointers its launch takes
+# (q, k, v, w, o, state, and the channel kernel's u after w) and the ints
+# after them (batch, heads, seq, dk, dv, qk_bf16, and the channel kernel's
+# v_bf16), before (strides, stream).
+LIBS = {"chunked": ("linear_scan_chunked", 6, 6),
+        "channel": ("linear_scan", 7, 7)}
 
 
 @functools.lru_cache(maxsize=None)
 def _entry_points(which: str):
     """`which` route's (launch, error_string), bound once."""
-    name, n_ptr = LIBS[which]
+    name, n_ptr, n_int = LIBS[which]
     lib = _build.load(name)
     launch = getattr(lib, f"{name}_launch")
-    launch.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [
+    launch.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
         ctypes.c_void_p, ctypes.c_void_p]
     launch.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
@@ -75,15 +78,15 @@ def _rows_copyable(t: torch.Tensor) -> bool:
 
 def route(q, k, v, w, u=None) -> str:
     """The CUDA kernel that `linear_scan` launches for these inputs:
-    ``"chunked"`` for Mamba2's (see the module docstring), ``"step"``
+    ``"chunked"`` for Mamba2's (see the module docstring), ``"channel"``
     otherwise. A function of shapes, dtypes and strides only, so it runs
     on CPU tensors too."""
     mamba2 = (u is None and w.stride(-1) == 0 and q.dtype in DTYPES
-              and k.dtype == q.dtype
+              and k.dtype == q.dtype and v.dtype == torch.float32
               and q.shape[-1] <= MAX_DIM and v.shape[-1] <= MAX_DIM)
     if mamba2 and all(_rows_copyable(t) for t in (q, k, v)):
         return "chunked"
-    return "step"
+    return "channel"
 
 
 def _check(q, k, v, w, u) -> None:
@@ -105,9 +108,10 @@ def _check(q, k, v, w, u) -> None:
     if q.dtype not in DTYPES or k.dtype != q.dtype:
         raise ValueError(f"q and k must share a dtype of {DTYPES}, got "
                          f"{q.dtype}, {k.dtype}")
-    if v.dtype != torch.float32 or w.dtype != torch.float32:
-        raise ValueError(f"v and w must be float32, got {v.dtype}, "
-                         f"{w.dtype}")
+    if v.dtype not in DTYPES:
+        raise ValueError(f"v must be one of {DTYPES}, got {v.dtype}")
+    if w.dtype != torch.float32:
+        raise ValueError(f"w must be float32, got {w.dtype}")
     if u is not None and u.shape != (h, dk):
         raise ValueError(f"u must be (H,dk) = {(h, dk)}, got "
                          f"{tuple(u.shape)}")
@@ -138,13 +142,15 @@ def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             device=q.device)
         uf = None if u is None else u.float().contiguous()
         ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr()]
-        if which == "step":
+        flags = [int(q.dtype == torch.bfloat16)]
+        if which == "channel":
             ptrs.append(None if uf is None else uf.data_ptr())
+            flags.append(int(v.dtype == torch.bfloat16))
         strides = (ctypes.c_longlong * 20)(
             *(x for t in (q, k, v, w, o) for x in t.stride()))
         status = launch(
-            *ptrs, o.data_ptr(), state.data_ptr(), b, h, s, dk, dv,
-            int(q.dtype == torch.bfloat16), ctypes.addressof(strides),
+            *ptrs, o.data_ptr(), state.data_ptr(), b, h, s, dk, dv, *flags,
+            ctypes.addressof(strides),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, error_string, LIBS[which][0])
     launches.bump(which)

@@ -14,14 +14,14 @@ dtype, wkv (B,H,hd,hd) in float32.
 Where the reference's prefill runs ``scan_ops.linear_scan_chunked`` (its
 jnp analogue of the Pallas kernel), the port calls the hand-written
 `linear_scan` kernel in its RWKV6 mode (bonus u, a decay per state row),
-from a zero state; on the card that is the step route. The kernel takes v
-in float32: a bf16 model's v is cast up before the call and o cast back to
-v's dtype after, which changes no value (the reference's scan computes in
-float32 inside and returns o in v's dtype). A one-token step with a carried
-state runs ``scan_ops.step`` (plain PyTorch, as the reference's is jnp) and
-writes the new states into the given tensors in place; the reference
-returns new ones. A prefill from a carried wkv state is not ported: the
-kernel starts from zero.
+from a zero state; on the card that is the channel route (the chunked
+kernel with a decay per channel). v goes in as it is, bf16 in a bf16
+model, and o comes back in v's dtype: the kernel and its plain version
+compute in float32 inside and round o once, as the reference's scan does.
+A one-token step with a carried state runs ``scan_ops.step`` (plain
+PyTorch, as the reference's is jnp) and writes the new states into the
+given tensors in place; the reference returns new ones. A prefill from a
+carried wkv state is not ported: the kernel starts from zero.
 """
 from __future__ import annotations
 
@@ -123,8 +123,7 @@ def time_mix(p, cfg, x, shift_state=None, wkv_state=None):
     w = heads(torch.exp(logw))              # float32, a decay per channel
 
     if wkv_state is None:
-        o, wkv_state = linear_scan(r, k, v.float(), w, p.u)
-        o = o.to(v.dtype)
+        o, wkv_state = linear_scan(r, k, v, w, p.u)
     else:
         _, o = scan_ops.step(wkv_state, r[:, :, 0], k[:, :, 0], v[:, :, 0],
                              w[:, :, 0], p.u)

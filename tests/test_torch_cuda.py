@@ -13,7 +13,7 @@ the same models with the plain versions, a durable server's crash and
 restore on the card against its uncrashed run, the single-array query
 path and the distributed plane (nccl at world size 1, two gloo ranks on
 CUDA tensors) as phase 15 of ``chip_smoke.py`` checks them, and smoke-size
-RWKV6 prefills (the step kernel) and decode steps of the three families on
+RWKV6 prefills (the channel kernel) and decode steps of the three families on
 the card against the same models on the CPU.
 """
 import dataclasses
@@ -27,7 +27,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
 from repro_torch import random as R  # noqa: E402
-from repro_torch.core import binned  # noqa: E402
+from repro_torch.core import binned, sampling  # noqa: E402
 from repro_torch.core import distributed as dplane  # noqa: E402
 from repro_torch.core import queries as qpath  # noqa: E402
 from repro_torch.core.engine import SelectionEngine  # noqa: E402
@@ -338,6 +338,59 @@ def test_card_engine_matches_cpu_engine(card):
                 np.testing.assert_array_equal(a.indices(i), b.indices(i))
 
 
+# The main path's plan: 2^22-record chunks (`chip_smoke.py` phase 3), two
+# of them a shard.
+_MAIN_CHUNK = 1 << 22
+
+
+@pytest.mark.cuda
+def test_card_chunk_cdf_repeats_bitwise_at_main_path_chunks(card):
+    """`draw_sample`'s within-chunk resolve at the main path's 2^22-record
+    chunks: `sampling.normalized_cdf` of a chunk's defensive probabilities
+    on the card, and whole draws, give the same bits every time."""
+    ds = make_beta(2 * _MAIN_CHUNK, 0.01, 1.0, seed=6)
+    with SelectionEngine([ds.scores], num_bins=4096,
+                         chunk_records=_MAIN_CHUNK, device=card,
+                         workers=4) as eng:
+        st = eng._state
+        for start in (0, _MAIN_CHUNK):
+            p = sampling.defensive_probs(
+                eng._span(st.shards[0], start, start + _MAIN_CHUNK), "sqrt",
+                st.z["sqrt"], eng.kappa, st.n_total)
+            first = sampling.normalized_cdf(p)
+            assert first.device.type == "cuda" and first.numel() == _MAIN_CHUNK
+            for _ in range(8):
+                assert torch.equal(sampling.normalized_cdf(p), first)
+        idx, m = eng.draw_sample(R.PRNGKey(3), 4000)
+        for _ in range(4):
+            again = eng.draw_sample(R.PRNGKey(3), 4000)
+            np.testing.assert_array_equal(again[0], idx)
+            np.testing.assert_array_equal(again[1], m)
+
+
+@pytest.mark.cuda
+def test_card_draw_matches_cpu_engine_at_main_path_chunks(card):
+    """From one corpus state, the card's `draw_sample` and a CPU engine's
+    give the same records and weights at the main path's 2^22-record
+    chunks, as RT and PT queries then give the same tau."""
+    ds = make_beta(2 * _MAIN_CHUNK, 0.01, 1.0, seed=7)
+    shards = np.array_split(ds.scores, 2)
+    oracle = array_oracle(ds.labels)
+    with SelectionEngine(shards, num_bins=4096, chunk_records=_MAIN_CHUNK,
+                         device="cpu") as cpu, \
+            SelectionEngine.from_state(cpu._state, device=card,
+                                       workers=4) as gpu:
+        for key in (2, 9):
+            a = cpu.draw_sample(R.PRNGKey(key), 3000)
+            b = gpu.draw_sample(R.PRNGKey(key), 3000)
+            np.testing.assert_array_equal(a[0], b[0])
+            np.testing.assert_array_equal(a[1], b[1])
+        for q in (SUPGQuery(target="recall", gamma=0.9, budget=2000),
+                  SUPGQuery(target="precision", gamma=0.8, budget=2000)):
+            assert cpu.run(R.PRNGKey(1), oracle, q).tau == \
+                gpu.run(R.PRNGKey(1), oracle, q).tau
+
+
 _LIVE_QUERIES = [SUPGQuery(target="recall", gamma=0.9, budget=2000),
                  SUPGQuery(target="precision", gamma=0.8, budget=2000),
                  JointSUPGQuery(gamma_recall=0.8, stage_budget=2000)]
@@ -619,13 +672,17 @@ def _mamba_scan_inputs(card, b, h, s, n, hd, seed, law, dtype):
 
 
 # linear_scan against its plain version: the reference's atol = 1e-4
-# (tests/test_kernels.py) plus rtol 1e-5. The step kernel computes the same
-# float32 recurrence step by step and differs only in the order of each
-# step's q·S sum, a few float32 ulps of |o| (up to about 10 at dk = 64).
-# The chunked kernel computes the chunked form with split-TF32 products:
-# on Zamba2's bf16 path within 4.4e-7 of the largest |o| of the plain
-# version (chip_smoke.py phase 9, --seed 0, 1, 2, H100 80GB HBM3 at 700 W).
+# (tests/test_kernels.py) plus rtol 1e-5. Both kernels compute chunked forms
+# with split-TF32 products: on Zamba2's bf16 path the chunked kernel lies
+# within 4.4e-7 of the largest |o| of the plain version (chip_smoke.py
+# phase 9, --seed 0, 1, 2, H100 80GB HBM3 at 700 W), and phase 9 holds the
+# channel kernel to 1e-6 of the largest |output|.
 SCAN_TOL = dict(atol=1e-4, rtol=1e-5)
+# With bf16 v, o comes back in bf16: within one bf16 ulp of the float64
+# recurrence's o (the rounding of o, half an ulp, and the kernel's float32
+# error beside it) plus SCAN_REL of its largest |o|, phase 9's bar; the
+# float32 state within SCAN_REL of its largest |value|.
+SCAN_REL = 1e-6
 
 
 @pytest.mark.cuda
@@ -648,7 +705,7 @@ def test_linear_scan_kernel_matches_plain(card, b, h, s, dk, dv, w_const,
     the chunked kernel at a chunk's edges (S = 63, 64, 65), S = 1, decays
     of 1e-6 early in each chunk, float32 q and k, dk, dv below 64, and
     zamba2-1.2b's scoring and prefill layouts at small B (with u, the
-    same views go to the step kernel); bitwise identical across
+    same views go to the channel kernel); bitwise identical across
     launches."""
     if layout == "plain":
         q, k, v, w, u = _scan_inputs(card, b, h, s, dk, dv, s + dk, w_const)
@@ -657,7 +714,7 @@ def test_linear_scan_kernel_matches_plain(card, b, h, s, dk, dv, w_const,
             card, b, h, s, dk, dv, s + dk, w_const,
             torch.float32 if layout == "mamba f32" else torch.bfloat16)
     uu = u if bonus else None
-    route = "chunked" if layout != "plain" and not bonus else "step"
+    route = "chunked" if layout != "plain" and not bonus else "channel"
     assert ls_ops.route(q, k, v, w, uu) == route
     before = ls_ops.launches.count
     on_route = ls_ops.launches.routes[route]
@@ -671,6 +728,75 @@ def test_linear_scan_kernel_matches_plain(card, b, h, s, dk, dv, w_const,
     assert st.dtype == torch.float32
     torch.testing.assert_close(o, po, **SCAN_TOL)
     torch.testing.assert_close(st, pst, **SCAN_TOL)
+    assert torch.equal(o, o2) and torch.equal(st, st2)
+
+
+def _rwkv_scan_inputs(card, b, h, s, d, seed, vdtype):
+    """RWKV6's layout as `time_mix` hands it over: r, k and v (B,S,H,hd)
+    seen as (B,H,S,hd), r and k bf16, v in `vdtype`, the decay per channel
+    exp(-exp(w0 + 0.5 · normal)) around w0 = -6 in float32, the bonus u
+    at scale 0.1."""
+    rng = np.random.default_rng(seed)
+
+    def heads(x, dtype):
+        return torch.tensor(x, dtype=torch.float32, device=card).to(
+            dtype).transpose(1, 2)
+    r = heads(rng.standard_normal((b, s, h, d)), torch.bfloat16)
+    k = heads(rng.standard_normal((b, s, h, d)) / 8, torch.bfloat16)
+    v = heads(rng.standard_normal((b, s, h, d)), vdtype)
+    w = heads(np.exp(-np.exp(-6.0 + 0.5 * rng.standard_normal((b, s, h, d)))),
+              torch.float32)
+    u = torch.tensor(rng.standard_normal((h, d)) * 0.1, dtype=torch.float32,
+                     device=card)
+    return r, k, v, w, u
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at each |x| (2^-7 of its power of two)."""
+    return torch.pow(2.0, torch.floor(torch.log2(x.abs().clamp_min(
+        1e-30))) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "rwkv", "rwkv ragged", "rwkv S=1", "plain 33x40", "plain 16x24",
+    "plain w=0.05", "float32 q"])
+@pytest.mark.parametrize("bonus", [False, True])
+def test_linear_scan_kernel_takes_bf16_v(card, case, bonus):
+    """bf16 v through the channel kernel, o back in bf16: RWKV6's views at
+    S = 300, a ragged S = 1000 and S = 1; the reference's law at dk, dv =
+    33 x 40 and 16 x 24 and w = 0.05; float32 q and k. o within one bf16
+    ulp of the float64 recurrence's plus SCAN_REL of its largest |o|, the
+    float32 state within SCAN_REL of its largest |value|; bitwise
+    identical across launches."""
+    if case.startswith("rwkv"):
+        s = {"rwkv": 300, "rwkv ragged": 1000, "rwkv S=1": 1}[case]
+        q, k, v, w, u = _rwkv_scan_inputs(card, 2, 8, s, 64, s, torch.bfloat16)
+    else:
+        shape = {"plain 33x40": (3, 2, 77, 33, 40),
+                 "plain 16x24": (2, 2, 130, 16, 24),
+                 "plain w=0.05": (1, 4, 300, 64, 64),
+                 "float32 q": (2, 3, 200, 64, 64)}[case]
+        q, k, v, w, u = _scan_inputs(card, *shape, sum(shape),
+                                     0.05 if case == "plain w=0.05" else None)
+        v = v.to(torch.bfloat16)
+        if case != "float32 q":
+            q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    uu = u if bonus else None
+    assert ls_ops.route(q, k, v, w, uu) == "channel"
+    on_route = ls_ops.launches.routes["channel"]
+    o, st = ls_ops.linear_scan(q, k, v, w, uu)
+    o2, st2 = ls_ops.linear_scan(q, k, v, w, uu)
+    ao, ast = ls_ref.linear_scan_ref(q, k, v.double(), w, uu,
+                                     compute_dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert ls_ops.launches.routes["channel"] == on_route + 2
+    assert o.dtype == torch.bfloat16 and o.shape == v.shape
+    assert o.stride() == v.stride() and st.dtype == torch.float32
+    err = (o.double() - ao).abs()
+    assert bool((err <= _bf16_ulp(ao) + SCAN_REL * ao.abs().max()).all())
+    assert float((st.double() - ast).abs().max()) <= \
+        SCAN_REL * float(ast.abs().max())
     assert torch.equal(o, o2) and torch.equal(st, st2)
 
 
@@ -1051,15 +1177,15 @@ def _cpu_and_card(arch, card, seed=0):
 
 @pytest.mark.cuda
 def test_rwkv_prefill_on_the_card_matches_cpu(card):
-    """A smoke-size RWKV6 prefill through the step kernel against the same
-    model on the CPU (the plain scan): logits within 2e-5 of the largest
-    |logit|, one step-route launch a block."""
+    """A smoke-size RWKV6 prefill through the channel kernel against the
+    same model on the CPU (the plain scan): logits within 2e-5 of the
+    largest |logit|, one channel-route launch a block."""
     cfg, cpu_model, card_model = _cpu_and_card("rwkv6-7b", card)
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 70))
     ls_ops.launches.reset()
     got = model.apply_train(card_model, tokens).cpu()
     assert dict(ls_ops.launches.routes) == {"chunked": 0,
-                                            "step": cfg.num_layers}
+                                            "channel": cfg.num_layers}
     want = model.apply_train(cpu_model, tokens)
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=0,
@@ -1068,9 +1194,9 @@ def test_rwkv_prefill_on_the_card_matches_cpu(card):
 
 @pytest.mark.cuda
 def test_rwkv_prefill_launches_the_step_route_once_a_block(card):
-    """rwkv6's blocks hand linear_scan bf16 r and k, float32 v and w as
-    transposed views and the bonus u: `ops.route` sends them to the step
-    kernel, once a block, in bf16 as in float32."""
+    """rwkv6's blocks hand linear_scan r, k and v in the model's dtype and
+    float32 w as transposed views and the bonus u: `ops.route` sends them
+    to the channel kernel, once a block, in bf16 as in float32."""
     cfg = dataclasses.replace(configs.get_smoke_config("rwkv6-7b"),
                               dtype="bfloat16")
     m = model.init(cfg, generator=torch.Generator(device=card).manual_seed(2),
@@ -1078,7 +1204,7 @@ def test_rwkv_prefill_launches_the_step_route_once_a_block(card):
     ls_ops.launches.reset()
     scores = model.proxy_scores(m, np.ones((4, 33), np.int64))
     assert dict(ls_ops.launches.routes) == {"chunked": 0,
-                                            "step": cfg.num_layers}
+                                            "channel": cfg.num_layers}
     assert bool(((scores > 0) & (scores < 1)).all())
 
 

@@ -17,7 +17,7 @@ Tolerances, float32 throughout:
   call only), and no farther from the reference's own chunked scan than
   that recurrence is, plus the same 2e-5. The port's prefill runs the exact
   recurrence step by step (the `linear_scan` kernel's plain version here,
-  its step route on the card);
+  its channel route on the card);
 * proxy scores: rtol 1e-4 (a score is exp of a logit difference).
 """
 import dataclasses
@@ -226,9 +226,9 @@ def test_proxy_scores_match_reference(decays, target, s):
 
 def test_prefill_runs_linear_scan_once_a_block_on_the_step_route():
     """Every RWKV6 block calls linear_scan once, with the bonus u and a
-    decay per channel: 32 calls in an rwkv6-7b prefill, each on the step
-    kernel's route (`ls_ops.route`, a function of shapes, dtypes and
-    strides, so it runs on CPU tensors)."""
+    decay per channel: 32 calls in an rwkv6-7b prefill, each on the
+    channel kernel's route (`ls_ops.route`, a function of shapes, dtypes
+    and strides, so it runs on CPU tensors)."""
     routes = []
 
     def counting(q, k, v, w, u=None):
@@ -241,8 +241,42 @@ def test_prefill_runs_linear_scan_once_a_block_on_the_step_route():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(rwkv, "linear_scan", counting)
         model.proxy_scores(m, _tokens(SMOKE, 2, 8, 0))
-    assert routes == ["step"] * SMOKE.num_layers
+    assert routes == ["channel"] * SMOKE.num_layers
     assert configs.get_config(ARCH).num_layers == 32
+
+
+@pytest.mark.parametrize("s", [1, 21])
+def test_time_mix_hands_bf16_v_straight_to_the_scan(s):
+    """A bf16 model's `time_mix` gives linear_scan v in bf16 and takes o
+    back in bf16, with no cast either way: on the CPU the scan's o and
+    state, and the block's output, are the same bits as with v cast to
+    float32 before the scan and o cast back to bf16 after."""
+    cfg = dataclasses.replace(SMOKE, dtype="bfloat16")
+    m = model.init(cfg, generator=torch.Generator().manual_seed(5),
+                   device="cpu")
+    x = torch.from_numpy(np.random.default_rng(s).standard_normal(
+        (2, s, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    seen = []
+
+    def straight(q, k, v, w, u=None):
+        o, st = ls_ops.linear_scan(q, k, v, w, u)
+        seen.append((v.dtype, o, st))
+        return o, st
+
+    def cast(q, k, v, w, u=None):
+        o, st = ls_ops.linear_scan(q, k, v.float(), w, u)
+        seen.append((v.dtype, o.to(v.dtype), st))
+        return o.to(v.dtype), st
+    got = {}
+    for name, scan in (("straight", straight), ("cast", cast)):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(rwkv, "linear_scan", scan)
+            got[name] = rwkv.time_mix(m.body.blocks[0], cfg, x)
+    (v_dtype, o, st), (_, o_cast, st_cast) = seen
+    assert v_dtype == o.dtype == torch.bfloat16
+    assert torch.equal(o, o_cast) and torch.equal(st, st_cast)
+    for a, b in zip(got["straight"], got["cast"]):
+        assert torch.equal(a, b)
 
 
 # -- init, weights, configs ---------------------------------------------------

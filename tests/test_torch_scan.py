@@ -164,7 +164,7 @@ def test_linear_scan_float64_arbiter_agrees():
     (dict(kshape=(1, 2, 8, 5)), "share a shape"),
     (dict(dtype=torch.float16), "share a dtype"),
     (dict(wdtype=torch.bfloat16), "w must be float32"),
-    (dict(vdtype=torch.bfloat16), "v and w must be float32"),
+    (dict(vdtype=torch.float16), "v must be one of"),
     (dict(ushape=(3, 4)), "u must be")])
 def test_wrapper_refuses_what_the_kernel_does_not_take(change, match):
     """The checks the wrapper runs before a launch on the card."""
@@ -177,6 +177,18 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(change, match):
     w = k.to(change.get("wdtype", k.dtype))
     with pytest.raises(ValueError, match=match):
         ops._check(q, k, v, w, u)
+
+
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("vdtype", [torch.bfloat16, torch.float32])
+def test_wrapper_takes_bf16_or_float32_v(qdtype, vdtype):
+    """The card's kernels take v in bf16 or float32 (o comes back in v's
+    dtype), whatever q and k are."""
+    q = torch.zeros(1, 2, 8, 4, dtype=qdtype)
+    v = torch.zeros(1, 2, 8, 6, dtype=vdtype)
+    ops._check(q, q, v, torch.zeros(1, 2, 8, 4), torch.zeros(2, 4))
+    o, st = ops.linear_scan(q, q, v, torch.ones(1, 2, 8, 4))
+    assert o.dtype == vdtype and st.dtype == torch.float32
 
 
 def test_wrapper_refuses_mixed_devices():
@@ -281,6 +293,110 @@ def test_chunked_algebra_equals_the_recurrence(c, s, law):
         assert err <= 1e-12 * float(x.abs().max()), (err, law)
 
 
+# -- the channel kernel's algebra ------------------------------------------
+
+CHANNEL_CHUNK = 16       # steps a chunk of csrc/linear_scan.cu
+
+
+def _channel_f64(q, k, v, w, u, c=CHANNEL_CHUNK):
+    """The algebra of the channel CUDA kernel (``csrc/linear_scan.cu``) in
+    float64, for a decay per channel: chunks of c steps, the last padded
+    with zero rows and decays of 1; in each, per channel and by running
+    products only (no ratio, no log), pre_i = w_0 ··· w_{i-1} (to w_i with
+    u None), suf_j = w_{j+1} ··· w_{c-1}, A = w_0 ··· w_{c-1}, and down
+    each row of M, M[i, j] = Σ_d q_id k_jd w_{j+1,d} ··· w_{i-1,d} for
+    j < i (to w_i with u None), M[i, i] = q_i · (u ⊙ k_i) (q_i · k_i with
+    u None); then
+
+        o = (q ⊙ pre) S + M v,   S <- diag(A) S + (k ⊙ suf)ᵀ v.
+    """
+    f = torch.float64
+    q, k, v = (torch.as_tensor(x).to(f) for x in (q, k, v))
+    w = torch.as_tensor(w).to(f).clamp(ref.W_MIN, 1.0)
+    b, h, s, dk = q.shape
+    after = u is None
+    bonus = torch.ones(h, dk, dtype=f) if after else torch.as_tensor(u).to(f)
+    pad = -s % c
+    q, k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
+    w = torch.nn.functional.pad(w, (0, 0, 0, pad), value=1.0)
+    state = torch.zeros(b, h, dk, v.shape[-1], dtype=f)
+    out = []
+    for t0 in range(0, s + pad, c):
+        cq, ck, x, cw = (t[:, :, t0:t0 + c] for t in (q, k, v, w))
+        run, pre = torch.ones(b, h, dk, dtype=f), []
+        for i in range(c):
+            if after:
+                run = run * cw[:, :, i]
+            pre.append(run)
+            if not after:
+                run = run * cw[:, :, i]
+        run, suf = torch.ones(b, h, dk, dtype=f), [None] * c
+        for j in reversed(range(c)):
+            suf[j] = run
+            run = run * cw[:, :, j]
+        mmat = torch.zeros(b, h, c, c, dtype=f)
+        for i in range(c):
+            mmat[..., i, i] = (cq[:, :, i] * bonus * ck[:, :, i]).sum(-1)
+            t = cq[:, :, i] * cw[:, :, i] if after else cq[:, :, i]
+            for j in range(i - 1, -1, -1):
+                mmat[..., i, j] = (t * ck[:, :, j]).sum(-1)
+                t = t * cw[:, :, j]
+        out.append((cq * torch.stack(pre, 2)) @ state + mmat @ x)
+        state = run[..., None] * state \
+            + (ck * torch.stack(suf, 2)).transpose(-1, -2) @ x
+    return torch.cat(out, dim=2)[:, :, :s], state
+
+
+def _channel_decays(b, h, s, dk, law, seed):
+    """Decays per channel (B,H,S,dk): ``rwkv`` is RWKV6's law
+    exp(-exp(clip(w0 + 2 · normal, -20, 8))) with w0 in [-6, 1] per
+    channel (underflowing to 0, clipped to 1e-6, and near 1);
+    ``tiny early`` is 1e-6 in the first 8 steps of every 16 and near 1
+    after, in the even channels, RWKV6's law in the odd; ``one`` is
+    exactly 1; ``zero`` is 0 (clipped to 1e-6) in a third of the channels,
+    RWKV6's law elsewhere."""
+    rng = np.random.default_rng(seed)
+    w0 = rng.uniform(-6.0, 1.0, dk)
+    a = np.exp(-np.exp(np.clip(w0 + 2 * rng.standard_normal((b, h, s, dk)),
+                               -20.0, 8.0)))
+    if law == "tiny early":
+        early = (np.arange(s) % 16 < 8)[:, None] & (np.arange(dk) % 2 == 0)
+        near = 1 - 1e-3 * rng.random((b, h, s, dk))
+        a = np.where(np.arange(dk) % 2 == 0, np.where(early, 1e-6, near), a)
+    elif law == "one":
+        a = np.ones((b, h, s, dk))
+    elif law == "zero":
+        a = np.where(np.arange(dk) % 3 == 0, 0.0, a)
+    return torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("bonus", [False, True])
+@pytest.mark.parametrize("s,law", [(1, "rwkv"), (10, "rwkv"),
+                                   (15, "tiny early"), (16, "zero"),
+                                   (17, "rwkv"), (37, "one"),
+                                   (100, "tiny early"), (64, "zero")])
+def test_channel_algebra_equals_the_recurrence(s, law, bonus):
+    """The chunk decomposition that the channel CUDA kernel computes equals
+    the exact recurrence (the plain version in float64) to 1e-12 of the
+    largest output, with u and without, at S = 1, S < c, S = c - 1, c,
+    c + 1 and ragged S, at decays per channel of 1e-6 early in a chunk and
+    near 1 after, exactly 1, 0 (clipped to 1e-6) and RWKV6's law."""
+    b, h, dk, dv = 2, 3, 16, 8
+    rng = np.random.default_rng(s * 11 + len(law))
+    q, k = (torch.from_numpy(rng.standard_normal((b, h, s, dk))) for _ in
+            range(2))
+    v = torch.from_numpy(rng.standard_normal((b, h, s, dv)))
+    u = torch.from_numpy(rng.standard_normal((h, dk)) * 0.3) if bonus \
+        else None
+    w = _channel_decays(b, h, s, dk, law, s + 3)
+    got = _channel_f64(q, k, v, w, u)
+    want = ref.linear_scan_ref(q, k, v, w, u, compute_dtype=torch.float64)
+    for g, x in zip(got, want):
+        x = x.double()
+        err = float((g - x).abs().max())
+        assert err <= 1e-12 * float(x.abs().max()), (err, law)
+
+
 def _mamba_views(b, h, s, n, hd, dtype=torch.bfloat16, dv_pad=0):
     """Mamba2's layout as `mamba_block` hands it over: B and C (B,S,N)
     shared by the heads and the decay (B,H,S) over N as stride-0 views, v
@@ -293,24 +409,43 @@ def _mamba_views(b, h, s, n, hd, dtype=torch.bfloat16, dv_pad=0):
 
 
 def test_route_takes_the_chunked_kernel_for_mamba2_views():
-    """Mamba2's views (bf16 or float32 q, k) go to the chunked kernel; a
-    decay per state row, RWKV6's bonus u and rows that 16-byte copies
-    cannot read go to the step kernel."""
+    """Mamba2's views (bf16 or float32 q, k, float32 v) go to the chunked
+    kernel; a decay per state row, RWKV6's bonus u, a bf16 v and rows that
+    16-byte copies cannot read go to the channel kernel."""
     q, k, v, w = _mamba_views(2, 4, 70, 64, 32)
     assert ops.route(q, k, v, w) == "chunked"
     assert ops.route(q.float(), k.float(), v, w) == "chunked"
-    assert ops.route(q, k, v, w.contiguous()) == "step"
-    assert ops.route(q, k, v, w, torch.zeros(4, 64)) == "step"
+    assert ops.route(q, k, v, w.contiguous()) == "channel"
+    assert ops.route(q, k, v, w, torch.zeros(4, 64)) == "channel"
     assert ops.route(q, k, v.contiguous(), w) == "chunked"
-    assert ops.route(q.half(), k.half(), v, w) == "step"
+    assert ops.route(q, k, v.to(torch.bfloat16), w) == "channel"
+    assert ops.route(q.half(), k.half(), v, w) == "channel"
     q8, k8, v8, w8 = _mamba_views(1, 2, 9, 8, 8)
     assert ops.route(q8, k8, v8, w8) == "chunked"
     _, _, v6, _ = _mamba_views(1, 2, 9, 8, 6)
-    assert ops.route(q8, k8, v6, w8) == "step"           # 24-byte rows
+    assert ops.route(q8, k8, v6, w8) == "channel"        # 24-byte rows
     _, _, vpad, _ = _mamba_views(1, 2, 9, 8, 8, dv_pad=1)
-    assert ops.route(q8, k8, vpad, w8) == "step"         # 36-byte strides
+    assert ops.route(q8, k8, vpad, w8) == "channel"      # 36-byte strides
     q12, k12, v12, w12 = _mamba_views(1, 2, 9, 12, 8)
-    assert ops.route(q12, k12, v12, w12) == "step"       # 24-byte rows
+    assert ops.route(q12, k12, v12, w12) == "channel"    # 24-byte rows
+
+
+@pytest.mark.parametrize("vdtype", [torch.bfloat16, torch.float32])
+def test_route_sends_rwkv6_views_to_the_channel_kernel(vdtype):
+    """RWKV6's views as `time_mix` hands them over: r, k and v (B,S,H,hd)
+    seen as (B,H,S,hd), a decay per channel in the same layout, the bonus
+    u: the channel kernel, with v in the model's dtype; Mamba2's views
+    beside them take the chunked kernel."""
+    b, s, h, hd = 2, 40, 4, 64
+
+    def heads(dtype):
+        return torch.randn(b, s, h * hd).to(dtype).reshape(
+            b, s, h, hd).transpose(1, 2)
+    r, k, v, w = (heads(torch.bfloat16), heads(torch.bfloat16),
+                  heads(vdtype), heads(torch.float32).sigmoid())
+    assert ops.route(r, k, v, w, torch.zeros(h, hd)) == "channel"
+    assert ops.route(r, k, v, w) == "channel"
+    assert ops.route(*_mamba_views(b, h, s, 64, hd)) == "chunked"
 
 
 def test_cpu_runs_the_plain_version_on_either_route():
