@@ -251,12 +251,48 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     its prefill in float64 at every position, printed; the float32
     decode held within RWKV_F32_DECODE_TOL and the float64 decode within
     RWKV_F64_DECODE_TOL of the largest |logit|.
+18. The dense configs yi-6b, deepseek-7b, qwen1.5-4b and chameleon-34b
+    and the MoE config llama4-maverick at their published widths (bf16,
+    weights drawn from --seed; every attention layer on flash_attention's
+    dh-128 path). Depth is cut only where the weights do not fit
+    (`NEW_DEPTH`: chameleon-34b to 24 of its 48 layers, llama4 to one
+    pair). (a) Each dense config: one (4, 4096) prefill through
+    `make_serve_prefill` with one flash_attention launch a layer, its
+    mfu, its bf16 last-position logits against plain attention
+    (`LOGIT_TOL`), yi-6b's float32 copy too; its decode against its
+    prefill (`decode_consistency`, `DECODE_BF16_TOL`); and ms a decode
+    step at 32768 positions with `NEW_DECODE_ROWS` rows. (b) llama4 cut
+    to one pair (a dense block, then an MoE block of 128 experts of 8192,
+    sigmoid top-1, one shared): the prefill (2 flash_attention launches,
+    capacity 160; the share of assignments dropped; mfu over the active
+    parameters beside the dispatch's expert work, E · cap against n · k);
+    its bf16 logits against plain attention over the rows whose last
+    token both runs routed alike (a routing decision at a near tie flips
+    under bf16 rounding; each flip's margin is printed); the MoE layer on
+    its prefill input against a plain float32 evaluation of the same
+    routing, one expert at a time (`MOE_F32_TOL`), its drops against a
+    plain walk; the decode against the prefill at capacity factor E (no
+    assignment dropped on either side, so the caches are tested, not the
+    capacity; positions where the routing flipped at a near tie, within
+    `ROUTE_FLIP_MARGIN`, are printed, not held); a decode step at 32 x
+    32768 (the dispatch multiplies every expert, and the bound reads
+    every expert's weights); a 2^12-record corpus scored and one RT
+    query selected as in phase 7. (c) `moe_apply` alone at deepseek-v2's
+    MoE widths (d 5120, 160 experts of 1536, softmax top-6, 2 shared;
+    tokens (4, 4096)): the card's routing, order, slots and drops equal
+    the CPU port's from the same router logits; the output against its
+    plain float32 evaluation; whether two runs repeat bit for bit
+    (`index_add_` adds k = 6 terms a token by atomics); its time. (d)
+    flash_attention at dh 128 against its plain version (phase 5's bars)
+    and its times at yi-6b's (4, 4096, 32/4) and llama4's (4, 4096, 40/8)
+    beside its bound and `scaled_dot_product_attention`.
 
 Each phase prints its wall time as it ends, and the line before the
 kernels line sums them.
 
 The line before the last is ``{"kernels": [...]}`` (a row for each kernel:
-linear_scan's chunked kernel and its channel kernel each have one); the
+linear_scan's chunked kernel and its channel kernel each have one, and
+flash_attention's dh-128 path one of its own at llama4's shape); the
 last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
@@ -318,8 +354,9 @@ from repro_torch.kernels.threshold_select import ops as ts_ops  # noqa: E402
 from repro_torch.kernels.threshold_select import ref as ts_ref  # noqa: E402
 from repro_torch.launch.serve import (make_serve_decode,  # noqa: E402
                                       make_serve_prefill)
+from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.models import (attention, layers, mamba,  # noqa: E402
-                                rwkv, transformer)
+                                moe, rwkv, transformer)
 from repro_torch.models import model as modellib  # noqa: E402
 from repro_torch.serve import SelectionServer  # noqa: E402
 
@@ -334,6 +371,8 @@ BF16_OPS_PER_S = 989e12        # H100 SXM, bf16 dense on the tensor cores
 ARCH = "smollm-360m"
 ZAMBA = "zamba2-1.2b"
 RWKV = "rwkv6-7b"
+NEW_DENSE = ("yi-6b", "deepseek-7b", "qwen1.5-4b", "chameleon-34b")
+LLAMA4 = "llama4-maverick-400b-a17b"
 FA_PREFILL = (4, 4096, 15, 5, 64)     # B, S, H, KV, dh: smollm-360m prefill
 FA_SCORING = (256, 128, 15, 5, 64)    # the scoring batch
 N_CORPUS = 1 << 15                    # token records scored and selected
@@ -405,9 +444,22 @@ ZAMBA_F32_LOGIT_TOL = 2e-5
 # against zamba2's bar: 1.48e-6 to 1.61e-6 of a block's largest |output|
 # over those seeds, same card.
 RWKV_BF16_LOGIT_TOL = 1e-1
+# The same for phase 18's configs, as phase 6 set smollm's: bf16, the
+# last-position logits at (4, 4096), kernel against plain attention, at
+# --seed 0, 1 and 2 on an H100 80GB HBM3 at 700 W: yi-6b 2.06e-2 to
+# 2.37e-2 of the largest |logit| (its bf16 model with plain attention lies
+# 1.62e-2 to 2.00e-2 from its float32 copy: bf16's own rounding),
+# deepseek-7b 1.76e-2 to 1.86e-2, qwen1.5-4b 2.09e-2 to 2.45e-2,
+# chameleon-34b (24 layers) 1.64e-2 to 2.02e-2, llama4 (one pair) 3.81e-3
+# to 4.06e-3; each bar is three times its largest. float32, yi-6b's copy:
+# 3.39e-6 to 3.65e-6, held to smollm's 1e-5.
+NEW_LOGIT_TOL = {"yi-6b": (7e-2, F32_LOGIT_TOL),
+                 "deepseek-7b": (5.6e-2, None), "qwen1.5-4b": (7.4e-2, None),
+                 "chameleon-34b": (6.1e-2, None), LLAMA4: (1.25e-2, None)}
 LOGIT_TOL = {ARCH: (BF16_LOGIT_TOL, F32_LOGIT_TOL),
              ZAMBA: (ZAMBA_BF16_LOGIT_TOL, ZAMBA_F32_LOGIT_TOL),
-             RWKV: (RWKV_BF16_LOGIT_TOL, ZAMBA_F32_LOGIT_TOL)}
+             RWKV: (RWKV_BF16_LOGIT_TOL, ZAMBA_F32_LOGIT_TOL),
+             **NEW_LOGIT_TOL}
 # Operations each kernel does per record, counted from its source:
 # score_hist compares, clips, scales, converts and takes a square root
 # (8) and adds both float64 mass terms (2, counted at the float32 rate:
@@ -455,7 +507,14 @@ DECODE_STEPS = 32
 DECODE_CACHE = 64
 DECODE_F32_TOL = 2e-5
 RWKV_DECODE_F32_TOL = 5e-5
-DECODE_BF16_TOL = {ARCH: 5e-2, ZAMBA: 1e-1, RWKV: 3e-2}
+# Phase 18's bf16 decode against the prefill, at about 2.5 times the
+# largest reading at --seed 0, 1 and 2, same card: yi-6b 2.22e-2 to
+# 2.28e-2, deepseek-7b 2.28e-2 to 2.42e-2, qwen1.5-4b 2.56e-2 to 2.74e-2,
+# chameleon-34b (24 layers) 2.21e-2 to 2.28e-2, llama4 (one pair, over
+# the entries routed alike) 6.99e-3 to 7.54e-3.
+DECODE_BF16_TOL = {ARCH: 5e-2, ZAMBA: 1e-1, RWKV: 3e-2,
+                   "yi-6b": 5.7e-2, "deepseek-7b": 6.1e-2, "qwen1.5-4b": 7e-2,
+                   "chameleon-34b": 5.7e-2, LLAMA4: 1.9e-2}
 # The arbiter of rwkv6-7b's decode (phase 17): the model at full width cut
 # to RWKV_F64_BLOCKS blocks (about 18 GB in float64), its float32 decode
 # and prefill against its prefill computed in float64. The float64 decode
@@ -481,6 +540,46 @@ DECODE_CELLS = {ARCH: ((32, 32768),),
                 ZAMBA: ((32, 32768), (1, 524288)),
                 RWKV: ((128, 32768), (1, 524288))}
 DECODE_PEAK_BYTES = 70e9
+# Phase 18: the configs at head dim 128, each cut in depth only where its
+# bf16 weights do not fit on the card (chameleon-34b is 68.6 GB of
+# weights; llama4's 48 layers hold 397.7e9 parameters, one pair of them
+# 18.55e9, 37.1 GB, and two pairs 69.7 GB before activations), and each
+# one's decode rows at 32768 positions: as many as its KV cache lets fit
+# beside the weights under DECODE_PEAK_BYTES.
+NEW_DEPTH = {"chameleon-34b": 24, LLAMA4: 2}
+NEW_DECODE_ROWS = {"yi-6b": 16, "deepseek-7b": 2, "qwen1.5-4b": 4,
+                   "chameleon-34b": 8, LLAMA4: 32}
+NEW_DECODE_LENGTH = 32768
+N_LLAMA4_CORPUS = 1 << 12             # token records llama4 scores
+FA_YI = (4, 4096, 32, 4, 128)         # yi-6b's prefill attention
+FA_LLAMA4 = (4, 4096, 40, 8, 128)     # llama4-maverick's
+# deepseek-v2-236b's MoE layer (src/repro/configs/deepseek_v2_236b.py:
+# d_model 5120, 160 routed experts of 1536, top-6 softmax, 2 shared;
+# arXiv:2405.04434), run alone: its MLA is not ported yet.
+DSV2_MOE = ModelConfig(
+    name="deepseek-v2-236b-moe", family="moe", num_layers=1, d_model=5120,
+    num_heads=128, num_kv_heads=128, d_ff=1536, vocab_size=102400,
+    moe=True, num_experts=160, num_experts_per_tok=6, num_shared_experts=2,
+    moe_d_ff=1536, dense_d_ff=12288, first_k_dense=1)
+MOE_TOKENS = (4, 4096)
+# The MoE layer in bf16 against the same routing evaluated in float32, one
+# expert at a time with each expert's weights cast alone: max |port -
+# plain| within MOE_F32_TOL of the largest |plain output|. The port rounds
+# g and u (bf16 bmm), h, y and its output to bf16. At --seed 0, 1 and 2 on
+# an H100 80GB HBM3 at 700 W: llama4's layer on its prefill input 5.61e-3
+# to 6.23e-3, deepseek-v2's widths 4.90e-3 to 5.66e-3 (||difference|| /
+# ||plain|| 4.09e-3 to 4.20e-3); the bar is three times the largest. A
+# token dropped or sent to another expert moves its output by about the
+# largest |output|.
+MOE_F32_TOL = 2e-2
+# A token whose routing differs between two runs of one model whose hidden
+# states differ by bf16 rounding (the kernel against plain attention, or
+# decode against prefill) must be a near tie: its gates' smallest gap
+# around the k-th choice within ROUTE_FLIP_MARGIN. llama4's decode against
+# its prefill flipped one token at --seed 0 and 1 (of 161), at margins
+# 4.28e-4 and 3.32e-4 (same card); the sigmoid gates of a random-init
+# router's top two lie about 0.03 to 0.07 apart.
+ROUTE_FLIP_MARGIN = 5e-3
 # linear_scan against its plain version (phase 9). At the reference's
 # shapes (dk 16 or 8), the reference's own atol = 1e-4
 # (tests/test_kernels.py). At dk = dv = 64 both kernels compute chunked
@@ -853,8 +952,11 @@ def model_flops(cfg, batch: int, seq: int) -> float:
     on the CUDA cores counted at the bf16 peak like the rest.
     RWKV6: 2 · non-embedding params · tokens and each block's wkv scan,
     5 · hd² per token and head, counted the same way; no attention.
+    MoE: the active parameters (each token's experts per token of the
+    routed experts, `count_params_analytic(active_only=True)`), not the
+    dispatch's E · cap rows a layer.
     """
-    non_embedding = modellib.count_params_analytic(cfg) \
+    non_embedding = modellib.count_params_analytic(cfg, active_only=True) \
         - cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
     tokens = batch * seq
     attention_runs = cfg.num_layers
@@ -944,6 +1046,71 @@ def bf16_gap_sources(model, tokens, names, kernels, plain, scale) -> None:
               f"largest |logit|")
 
 
+@contextlib.contextmanager
+def recorded_routing():
+    """Every MoE layer's routing meanwhile, in call order: a dict a
+    `moe.moe_apply` of its tokens' expert ids and gates (n, k), every
+    expert's gate (n, E), whether each assignment was kept (n, k) and the
+    capacity."""
+    calls = []
+    top_k, dispatch = moe.top_k_routing, moe.dispatch
+
+    def routing(logits, k, gate_fn="softmax"):
+        ids, gates, gates_all = top_k(logits, k, gate_fn)
+        calls.append({"ids": ids, "gates": gates, "gates_all": gates_all})
+        return ids, gates, gates_all
+
+    def dispatching(expert_ids, num_experts, cap):
+        out = dispatch(expert_ids, num_experts, cap)
+        order, keep = out[0], out[3]
+        kept = torch.empty_like(keep)
+        kept[order] = keep
+        calls[-1].update(kept=kept.reshape(expert_ids.shape), cap=cap)
+        return out
+    with mock.patch.object(moe, "top_k_routing", routing), \
+            mock.patch.object(moe, "dispatch", dispatching):
+        yield calls
+
+
+def tie_margin(gates_all: torch.Tensor, k: int) -> torch.Tensor:
+    """Each row's smallest gap between consecutive gates among its k + 1
+    largest: how near its top-k choice is to a tie."""
+    top = torch.sort(gates_all, dim=-1, descending=True)[0][..., :k + 1]
+    return (top[..., :-1] - top[..., 1:]).min(dim=-1)[0]
+
+
+def routed_alike(want, got, idx, label: str) -> torch.Tensor:
+    """Whether each token `idx` was routed alike, expert ids and drops, by
+    every MoE layer of two runs (`recorded_routing`; `got` indexed as
+    `want`), as a bool mask. A token whose ids differ must be a near tie
+    in `want` (`tie_margin` within ROUTE_FLIP_MARGIN); the flips and
+    drops that differ are printed. All True without MoE layers."""
+    same = torch.ones(len(idx), dtype=torch.bool, device=DEVICE)
+    if not want:
+        return same
+    check(len(want) == len(got), f"{label}: {len(want)} MoE calls against "
+          f"{len(got)}")
+    flips, margins = 0, []
+    for w, g in zip(want, got):
+        ids_same = (w["ids"][idx] == g["ids"][idx]).all(dim=-1)
+        kept_same = (w["kept"][idx] == g["kept"][idx]).all(dim=-1)
+        same &= ids_same & kept_same
+        flipped = ~ids_same
+        flips += int(flipped.sum())
+        margins += tie_margin(w["gates_all"][idx][flipped],
+                              w["ids"].shape[-1]).tolist()
+    worst = max(margins, default=0.0)
+    check(worst <= ROUTE_FLIP_MARGIN and int(same.sum()) * 2 >= len(idx),
+          f"{label}: {flips} routing flips (largest tie margin {worst:.4g}, "
+          f"tol {ROUTE_FLIP_MARGIN}), {int(same.sum())} of {len(idx)} "
+          f"tokens routed alike")
+    print(f"{label}: {int(same.sum())} of {len(idx)} tokens routed alike by "
+          f"all {len(want)} MoE layers; {flips} expert choices flipped at "
+          f"tie margins {', '.join(f'{m:.3g}' for m in margins) or '-'} "
+          f"(tol {ROUTE_FLIP_MARGIN}); the rest differ in drops only")
+    return same
+
+
 def model_phase(model, cfg, seed: int, per_prefill: dict,
                 f32_copy: bool = True) -> None:
     """Phases 6, 10 and 16: one full-width prefill through
@@ -980,18 +1147,25 @@ def model_phase(model, cfg, seed: int, per_prefill: dict,
                           SCAN_ROUTE[cfg.block])
 
     # The bf16 model itself: its last-position logits with the kernels
-    # against the same model with the plain versions.
-    bf16_kernel = modellib.last_logits(model, tokens)
-    with plain_paths():
+    # against the same model with the plain versions (an MoE model's over
+    # the rows whose last token both runs routed alike).
+    with recorded_routing() as kernel_routes:
+        bf16_kernel = modellib.last_logits(model, tokens)
+    with plain_paths(), recorded_routing() as plain_routes:
         bf16_plain = modellib.last_logits(model, tokens)
-    bf16_diff = float((bf16_kernel - bf16_plain).abs().max())
-    bf16_scale = float(bf16_plain.abs().max())
+    rows = routed_alike(plain_routes, kernel_routes,
+                        torch.arange(b, device=DEVICE) * s + s - 1,
+                        f"{cfg.name} bf16 prefill, kernels against plain, "
+                        f"last positions")
+    bf16_diff = float((bf16_kernel - bf16_plain)[rows].abs().max())
+    bf16_scale = float(bf16_plain[rows].abs().max())
     check(bool(torch.isfinite(bf16_kernel).all())
           and bf16_diff <= bf16_tol * bf16_scale,
           f"{cfg.name} bf16 logits: kernels vs plain differ by {bf16_diff} "
           f"(largest |logit| {bf16_scale})")
-    print(f"bf16 model, last-position logits ({b}, {cfg.vocab_size}): "
-          f"max |kernels - plain| {bf16_diff:.6g}, largest |logit| "
+    print(f"bf16 model, last-position logits ({int(rows.sum())} of {b} rows"
+          f", {cfg.vocab_size}): max |kernels - plain| {bf16_diff:.6g}, "
+          f"largest |logit| "
           f"{bf16_scale:.6g}, ratio {bf16_diff / bf16_scale:.3g} "
           f"(tol {bf16_tol})")
     if len(per_prefill) > 1:
@@ -3046,6 +3220,302 @@ def decode_phase(seed: int, card: str) -> None:
     rwkv_decode_vs_float64(get_config(RWKV), seed, card)
 
 
+# -- phase 18 ------------------------------------------------------------------
+
+def new_config(arch: str):
+    """`arch`'s published config, cut in depth where `NEW_DEPTH` says."""
+    cfg = get_config(arch)
+    if arch in NEW_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=NEW_DEPTH[arch])
+    return cfg
+
+
+def dense_config_phase(arch: str, seed: int, card: str) -> int:
+    """Phase 18 (a): one dense config at full width: the prefill, its
+    logits against plain attention, its decode against the prefill and a
+    decode step's time; returns the prefill's flash_attention launches."""
+    cfg = new_config(arch)
+    print(f"{arch}: {cfg.num_layers} of {get_config(arch).num_layers} "
+          f"layers, {modellib.count_params_analytic(cfg)} parameters")
+    model = init_model(cfg, seed)
+    per_prefill = {"flash_attention": cfg.num_layers}
+    model_phase(model, cfg, seed, per_prefill,
+                f32_copy=NEW_LOGIT_TOL[arch][1] is not None)
+    decode_consistency(model, cfg, seed, DECODE_BF16_TOL[arch], "bf16")
+    decode_times(model, cfg, NEW_DECODE_ROWS[arch], NEW_DECODE_LENGTH, seed,
+                 card)
+    del model
+    torch.cuda.empty_cache()
+    return per_prefill["flash_attention"]
+
+
+def plain_kept(ids: np.ndarray, num_experts: int, cap: int) -> np.ndarray:
+    """Whether each assignment (n, k) is kept, by a plain walk: in token
+    order, an expert keeps its first `cap` assignments."""
+    flat = ids.reshape(-1)
+    kept = np.zeros(flat.shape, dtype=bool)
+    for e in range(num_experts):
+        mine = flat == e
+        kept[mine] = np.arange(int(mine.sum())) < cap
+    return kept.reshape(ids.shape)
+
+
+def moe_plain_f32(p, cfg, x, ids, gates, kept) -> torch.Tensor:
+    """The MoE layer's output (n, d) in float32 for the routing (ids,
+    gates, kept; each (n, k)), one expert at a time, each expert's weights
+    cast to float32 alone, plus the shared experts in float32."""
+    xt = x.reshape(-1, cfg.d_model).float()
+    out = torch.zeros_like(xt)
+    for e in range(cfg.num_experts):
+        tok, j = torch.nonzero((ids == e) & kept, as_tuple=True)
+        if tok.numel() == 0:
+            continue
+        xe = xt[tok]
+        h = F.silu(xe @ p.w_gate[e].float()) * (xe @ p.w_up[e].float())
+        out.index_add_(0, tok, gates[tok, j, None] * (h @ p.w_down[e].float()))
+    if cfg.num_shared_experts:
+        sh = p.shared
+        out += (F.silu(xt @ sh.w_gate.float()) * (xt @ sh.w_up.float())) \
+            @ sh.w_down.float()
+    return out
+
+
+def moe_layer_check(p, cfg, x, label: str) -> dict:
+    """`moe.moe_apply` on x (B, S, d) against its plain float32 evaluation
+    (`moe_plain_f32`) of the same routing, within MOE_F32_TOL of the
+    largest |plain|; its drops against `plain_kept`; prints the capacity,
+    the drop share, the dispatch's expert work against the active's and
+    whether a second run repeats bit for bit. Returns the routing."""
+    gate_fn = transformer.gate_fn_of(cfg)
+    with recorded_routing() as calls:
+        out, aux = moe.moe_apply(p, cfg, x, gate_fn)
+        again, _ = moe.moe_apply(p, cfg, x, gate_fn)
+    rec = calls[0]
+    n, k = rec["ids"].shape
+    e, cap = cfg.num_experts, rec["cap"]
+    check(cap == moe.capacity(cfg, n), f"{label}: capacity {cap}")
+    check(np.array_equal(rec["kept"].cpu().numpy(), plain_kept(
+        rec["ids"].cpu().numpy(), e, cap)),
+        f"{label}: the dispatch's drops differ from a plain walk")
+    plain = moe_plain_f32(p, cfg, x, rec["ids"], rec["gates"], rec["kept"])
+    got = out.reshape(n, -1).float()
+    err = float((got - plain).abs().max()) / float(plain.abs().max())
+    fro = float((got - plain).norm() / plain.norm())
+    check(bool(torch.isfinite(out).all()) and err <= MOE_F32_TOL,
+          f"{label}: max |moe_apply - plain float32| {err:.4g} of the largest"
+          f" |output| (tol {MOE_F32_TOL})")
+    dropped = 1.0 - float(rec["kept"].float().mean())
+    print(f"{label}: n {n} tokens, top-{k} of {e} experts, capacity {cap}, "
+          f"{dropped:.4f} of the {n * k} assignments dropped; the dispatch "
+          f"multiplies E · cap = {e * cap} rows an expert matrix against the "
+          f"active n · k = {n * k} ({e * cap / (n * k):.3f}x); aux "
+          f"{float(aux):.6g}; against the plain float32 evaluation of the "
+          f"same routing: max |difference| {err:.4g} of the largest |output|"
+          f" (tol {MOE_F32_TOL}), ||difference|| / ||plain|| {fro:.4g}; a "
+          f"second run {'repeats' if torch.equal(out, again) else 'differs'}"
+          f" bit for bit")
+    del out, again, plain, got
+    return rec
+
+
+def llama4_routed_decode(model, cfg, seed: int, tol: float) -> float:
+    """llama4's decode against its prefill (`decode_logits` against
+    `apply_train`) at capacity factor E: neither side drops an
+    assignment. Every decode call's logits within `tol` of the largest
+    |prefill logit|, over the (row, position) entries whose token both
+    routed alike (`routed_alike`: with the MoE block last, a flip moves
+    only its own token's logits)."""
+    nodrop = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    model.cfg = nodrop
+    tokens = decode_tokens(nodrop, seed)
+    rows_n, length = tokens.shape
+    with recorded_routing() as pre_calls:
+        prefill = modellib.apply_train(model, tokens)
+    with recorded_routing() as dec_calls:
+        dec = decode_logits(model, nodrop, tokens, lambda n: (
+            modellib.init_caches(nodrop, n, DECODE_CACHE,
+                                 layers.dtype_of(cfg))))
+    model.cfg = cfg
+    n_moe = len(pre_calls)
+    schedule = decode_schedule()
+    check(len(dec_calls) == n_moe * len(schedule),
+          f"llama4 decode: {len(dec_calls)} MoE calls")
+    # the decode's routing laid out as the prefill's tokens (row · L + pos)
+    as_prefill = []
+    for j in range(n_moe):
+        k = pre_calls[j]["ids"].shape[-1]
+        ids = torch.full((rows_n * length, k), -1, device=DEVICE)
+        kept = torch.zeros((rows_n * length, k), dtype=torch.bool,
+                           device=DEVICE)
+        for c, (_, rows, pos) in enumerate(schedule):
+            at = torch.tensor(rows, device=DEVICE) * length \
+                + torch.tensor(pos, device=DEVICE)
+            ids[at] = dec_calls[c * n_moe + j]["ids"]
+            kept[at] = dec_calls[c * n_moe + j]["kept"]
+        as_prefill.append({"ids": ids, "kept": kept})
+    check(all(bool(c["kept"].all()) for c in pre_calls + dec_calls),
+          "llama4 decode check: an assignment was dropped at capacity "
+          "factor E")
+    visited = [(r, p_) for _, rows, pos in schedule
+               for r, p_ in zip(rows, pos)]
+    idx = torch.tensor([r * length + p_ for r, p_ in visited], device=DEVICE)
+    alike = routed_alike(pre_calls, as_prefill, idx,
+                         f"{cfg.name} bf16 decode against the prefill at "
+                         f"capacity factor {nodrop.capacity_factor:g}")
+    worst, held = 0.0, 0
+    for (r, p_), ok in zip(visited, alike.tolist()):
+        if not ok:
+            continue
+        ratio = gap(dec, prefill, [r], [p_])
+        check(bool(torch.isfinite(dec[r, p_]).all()) and ratio <= tol,
+              f"{cfg.name} bf16 decode row {r} position {p_}: max |decode "
+              f"- prefill| {ratio:.4g} of the largest |logit| (tol {tol})")
+        worst, held = max(worst, ratio), held + 1
+    print(f"{cfg.name} bf16 model at capacity factor "
+          f"{nodrop.capacity_factor:g} (no assignment dropped on either "
+          f"side: the caches are tested, not the capacity): {rows_n} rows "
+          f"from positions {list(DECODE_OFFSETS)}, {DECODE_STEPS} steps "
+          f"through make_serve_decode against the prefill through the "
+          f"kernels, over {held} of {len(visited)} (row, position) entries "
+          f"routed alike: max |decode - prefill| {worst:.4g} of the largest "
+          f"|logit| (tol {tol})")
+    return worst
+
+
+def llama4_phase(seed: int, card: str) -> int:
+    """Phase 18 (b): llama4-maverick cut to one pair at full width;
+    returns the flash_attention launches of its prefill and its scored
+    corpus."""
+    cfg = new_config(LLAMA4)
+    full = get_config(LLAMA4)
+    print(f"{LLAMA4}: {cfg.num_layers} of {full.num_layers} layers (one "
+          f"pair), {modellib.count_params_analytic(cfg)} parameters, "
+          f"{modellib.count_params_analytic(cfg, active_only=True)} active "
+          f"(the published config: {full.param_count()}, "
+          f"{full.active_param_count()} active)")
+    model = init_model(cfg, seed)
+    per_prefill = {"flash_attention": cfg.num_layers}
+    model_phase(model, cfg, seed, per_prefill, f32_copy=False)
+
+    # the MoE layer on its own prefill input
+    b, s = FA_PREFILL[:2]
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=DEVICE,
+                           generator=torch.Generator(device=DEVICE)
+                           .manual_seed(seed + 1))
+    seen = {}
+    real = moe.moe_apply
+
+    def capture(p, c, x, gate_fn="softmax"):
+        seen.update(p=p, x=x)
+        return real(p, c, x, gate_fn)
+    with mock.patch.object(moe, "moe_apply", capture):
+        modellib.last_logits(model, tokens)
+    moe_layer_check(seen["p"], cfg, seen["x"],
+                    f"{cfg.name} MoE layer on its ({b}, {s}) prefill input")
+    del seen
+
+    llama4_routed_decode(model, cfg, seed, DECODE_BF16_TOL[LLAMA4])
+    decode_times(model, cfg, NEW_DECODE_ROWS[LLAMA4], NEW_DECODE_LENGTH,
+                 seed, card)
+    launches = score_select_phase(model, cfg, seed, N_LLAMA4_CORPUS,
+                                  per_prefill)["flash_attention"]
+    del model
+    torch.cuda.empty_cache()
+    return per_prefill["flash_attention"] + launches
+
+
+def dsv2_moe_phase(seed: int, card: str) -> None:
+    """Phase 18 (c): `moe_apply` alone at deepseek-v2's MoE widths: the
+    card's routing and dispatch against the CPU port's from the same
+    router logits, the output against its plain float32 evaluation, and
+    its time."""
+    cfg = DSV2_MOE
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 41)
+    p = moe.init_moe(cfg, generator=g, device=DEVICE)
+    x = torch.randn(*MOE_TOKENS, cfg.d_model, generator=g,
+                    device=DEVICE).to(torch.bfloat16)
+    rec = moe_layer_check(p, cfg, x, f"{cfg.name} moe_apply alone at "
+                          f"{MOE_TOKENS}")
+    n = rec["ids"].shape[0]
+    logits = x.reshape(n, -1).float() @ p.router
+    routed = {}
+    for where, lo in (("card", logits), ("cpu", logits.cpu())):
+        ids, gates, gates_all = moe.top_k_routing(
+            lo, cfg.num_experts_per_tok, "softmax")
+        routed[where] = (ids, *moe.dispatch(ids, cfg.num_experts,
+                                            rec["cap"]))
+    for name, got, want in zip(("ids", "order", "tokens", "slots", "kept"),
+                               routed["card"], routed["cpu"]):
+        check(torch.equal(got.cpu(), want),
+              f"{cfg.name}: the card's routing {name} differ from the CPU's")
+    check(torch.equal(routed["card"][0], rec["ids"]),
+          f"{cfg.name}: the router's logits route differently than "
+          "moe_apply")
+    ms = cuda_ms(lambda: moe.moe_apply(p, cfg, x, "softmax"), 5)
+    weights = sum(t.numel() * t.element_size() for t in p.parameters())
+    n_k = n * cfg.num_experts_per_tok
+    ops = 2.0 * 3 * cfg.d_model * cfg.moe_d_ff * (
+        n_k + n * cfg.num_shared_experts) + 2.0 * n * cfg.d_model \
+        * cfg.num_experts
+    t_bytes = (weights + 2 * 2 * x.numel()) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    print(f"{cfg.name}: the card's expert ids, sort order, tokens, slots and"
+          f" drops equal the CPU port's from the same router logits "
+          f"({n} x {cfg.num_experts}); moe_apply {ms:.4f} ms; bound "
+          f"{max(t_bytes, t_ops):.4f} ms ("
+          f"{'bytes' if t_bytes >= t_ops else 'operations'}: weights "
+          f"{weights / 1e9:.3f} GB, {ops / 1e12:.3f} TFLOP of the active "
+          f"experts, the shared ones and the router) ({card})")
+    del p, x
+
+
+def flash_dh128_phase(seed: int) -> tuple:
+    """Phase 18 (d): flash_attention at dh 128 against its plain version
+    at yi-6b's and llama4's prefill shapes (phase 5's bf16 bars, repeat
+    bitwise), then its times there; returns the largest |kernel - plain|
+    at llama4's shape and the rows of times by shape."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 17)
+    err_llama4 = 0.0
+    for shape in (FA_YI, FA_LLAMA4):
+        q, k, v = attention_inputs(shape, torch.bfloat16, g)
+        got = fa_ops.flash_attention(q, k, v)
+        again = fa_ops.flash_attention(q, k, v)
+        plain = plain_attention(q, k, v).float()
+        err = (got.float() - plain).abs()
+        excess = float((err - BF16_RTOL * plain.abs()).max())
+        fro = float(err.norm() / plain.norm())
+        check(excess <= BF16_ATOL and fro <= BF16_FRO_TOL
+              and torch.equal(got, again),
+              f"flash_attention {shape} bf16: |err| - 2^-7 |plain| up to "
+              f"{excess:.4g}, ||err|| / ||plain|| {fro:.4g}")
+        print(f"flash_attention {shape} bf16 causal: max |kernel - plain| "
+              f"{float(err.max()):.6g}, max |err| - 2^-7 |plain| "
+              f"{excess:.6g} (tol {BF16_ATOL}), ||err|| / ||plain|| "
+              f"{fro:.6g} (tol {BF16_FRO_TOL}), repeat bitwise")
+        if shape == FA_LLAMA4:
+            err_llama4 = float(err.max())
+        del q, k, v, got, again, plain, err
+    rows = {shape: flash_row(shape, seed) for shape in (FA_YI, FA_LLAMA4)}
+    for shape, row in rows.items():
+        print(f"flash_attention at (B, S, H, KV, dh) = {shape}, bf16 causal:"
+              f" {json.dumps(row)}")
+    return err_llama4, rows
+
+
+def new_configs_phase(seed: int, card: str) -> dict:
+    """Phase 18: the configs at head dim 128 and the MoE layer; returns
+    flash_attention's dh-128 row of the kernels line."""
+    dh128 = 0
+    for arch in NEW_DENSE:
+        dh128 += dense_config_phase(arch, seed, card)
+    dh128 += llama4_phase(seed, card)
+    dsv2_moe_phase(seed, card)
+    err, rows = flash_dh128_phase(seed)
+    print(f"phase 18 flash_attention dh-128 launches on the prefills and "
+          f"llama4's scored corpus: {dh128}")
+    return {"launches": dh128, "max_abs_err": err, **rows[FA_LLAMA4]}
+
+
 class Phases:
     """Wall time of each phase, printed as it ends and summed at the end."""
 
@@ -3206,6 +3676,10 @@ def main() -> None:
     with phase(decode_name):
         decode_phase(args.seed, card)
     print(f"phase 17 wall: {phase.walls[decode_name]:.3f} s ({card})")
+    new_name = "18 dense configs and the MoE layer at head dim 128"
+    with phase(new_name):
+        dh128_row = new_configs_phase(args.seed, card)
+    print(f"phase 18 wall: {phase.walls[new_name]:.3f} s ({card})")
     print(phase.total())
 
     rows = []
@@ -3234,6 +3708,10 @@ def main() -> None:
                              "linear_scan.py:108",
                  "launches": ls_launches, "max_abs_err": ls_err,
                  **ls_rows[LS_PREFILL]})
+    rows.append({"name": "flash_attention_dh128", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention/"
+                             "flash_attention.py:94", **dh128_row})
     rows.append({"name": "linear_scan_channel", "route": "cuda",
                  "source": "src/repro_torch/csrc/linear_scan.cu",
                  "replaces": "src/repro/kernels/linear_scan/"

@@ -104,9 +104,15 @@ class ModelConfig:
         return self.ssm_expand * self.d_model
 
     def param_count(self) -> int:
-        """Analytic parameter count."""
+        """Analytic parameter count (total, incl. all experts)."""
         from repro_torch.models.model import count_params_analytic
         return count_params_analytic(self)
+
+    def active_param_count(self) -> int:
+        """Analytic parameter count a token uses (the routed experts at
+        their experts per token)."""
+        from repro_torch.models.model import count_params_analytic
+        return count_params_analytic(self, active_only=True)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -62,7 +62,10 @@
 //   atomics in the sums: launches repeat bitwise.
 // * At dh 128 the consumers' 232 registers do not hold s, p and a 64-wide
 //   acc with the wgmma pipeline, and ptxas serializes the wgmmas (C7512):
-//   right, but slower than it could be. dh 128 is off the main path.
+//   right, but slower than it could be. dh 128 carries every attention
+//   layer of yi-6b, deepseek-7b, qwen1.5-4b, chameleon-34b and
+//   llama4-maverick (GQA ratios 8, 1, 1, 8 and 5); its times beside
+//   scaled_dot_product_attention are in PERF.md §6.
 //
 // float32 (`flash_f32`): the card's exact float32 arbiter for the float32
 // model copies. CUDA cores only (no TF32), so it is exact to float32

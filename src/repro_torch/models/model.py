@@ -13,9 +13,10 @@ The proxy-score head is how the SUPG plane consumes a model: the score of a
 record is the model's probability mass on a designated predicate token at
 the last position, the A(x) the paper assumes (Sec 4.1: "executes the
 proxy model over the complete set of records"). The model carries its
-config as ``model.cfg``. Dense attention, hybrid Mamba2 (Zamba2) and RWKV6
-models so far; the loss and the MoE, MLA and multi-codebook families wait
-for their slices (ROADMAP §1).
+config as ``model.cfg``. Dense attention, MoE, hybrid Mamba2 (Zamba2) and
+RWKV6 models so far; the loss (and with it the MoE's aux loss, which
+`transformer.body_prefill` returns) and the MLA and multi-codebook
+families wait for their slices (ROADMAP §1).
 
 Decode caches are nested dicts and lists of tensors, one entry per block
 (and for the hybrid one attention cache per invocation of the shared
@@ -88,7 +89,10 @@ def params_from_reference(arrays, cfg, *, device=None) -> nn.Module:
     holds slice i of each. A dense or RWKV6 body's ``blocks`` are stacked
     on L; a hybrid's ``mamba_super`` on (super-blocks, blocks a
     super-block), its ``mamba_tail`` on the tail's blocks, and its
-    ``shared_attn`` is not stacked. ``device=None`` means ``cuda``."""
+    ``shared_attn`` is not stacked; an MoE body's ``pairs_dense`` and
+    ``pairs_moe`` (or ``dense_prefix`` and ``moe_blocks``) each on its
+    blocks, and an expert stack within a block stays (E, d_in, d_out).
+    ``device=None`` means ``cuda``."""
     dev = resolve_device(device)
     transformer.check_supported(cfg)
 
@@ -109,6 +113,9 @@ def params_from_reference(arrays, cfg, *, device=None) -> nn.Module:
             "shared_attn": tree(body["shared_attn"])}
         if tail:
             parts["mamba_tail"] = blocks(body["mamba_tail"], tail)
+    elif cfg.moe:
+        parts = {name: blocks(body[name], n)
+                 for name, _, _, n in transformer.moe_layout(cfg)}
     else:
         parts = {"blocks": blocks(body["blocks"], cfg.num_layers)}
     members = {name: tree(v) for name, v in arrays.items() if name != "body"}
@@ -134,7 +141,7 @@ def _hidden(model, tokens):
     b, s = tokens.shape
     x = layers.embed(model.embed, tokens)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    return transformer.body_prefill(model.body, model.cfg, x, positions)
+    return transformer.body_prefill(model.body, model.cfg, x, positions)[0]
 
 
 @torch.inference_mode()
@@ -190,7 +197,9 @@ def init_caches(cfg, batch, seq_len, dtype=torch.bfloat16, *, device=None):
     positions, as `apply_decode` takes them. Dense: ``blocks``, a KV cache
     a block. RWKV6: ``blocks``, a state a block. Hybrid: ``mamba_super``
     (a list of lists of Mamba2 states), ``shared_attn`` (a KV cache for
-    each invocation of the shared block) and ``mamba_tail``. KV caches,
+    each invocation of the shared block) and ``mamba_tail``. MoE: a KV
+    cache a block under `transformer.moe_layout`'s cache names (``dense``
+    and ``moe``, or ``dense_prefix`` and ``moe_blocks``). KV caches,
     conv tails and token shifts are in `dtype` (bf16 by default, as the
     reference's), the recurrent states float32. ``device=None`` means
     ``cuda``."""
@@ -211,6 +220,10 @@ def init_caches(cfg, batch, seq_len, dtype=torch.bfloat16, *, device=None):
         if tail:
             caches["mamba_tail"] = states(tail)
         return caches
+    if cfg.moe:
+        return {name: [_attn_cache(cfg, batch, seq_len, dtype, dev)
+                       for _ in range(n)]
+                for _, name, _, n in transformer.moe_layout(cfg)}
     return {"blocks": [_attn_cache(cfg, batch, seq_len, dtype, dev)
                        for _ in range(cfg.num_layers)]}
 
@@ -231,6 +244,9 @@ def caches_from_reference(arrays, cfg, *, device=None):
 
     def entries(d, n):
         return [tree(_take(d, i)) for i in range(n)]
+    if cfg.moe:
+        return {name: entries(arrays[name], n)
+                for _, name, _, n in transformer.moe_layout(cfg)}
     if cfg.block != "mamba":
         return {"blocks": entries(arrays["blocks"], cfg.num_layers)}
     n_super, per_super, tail = transformer.zamba_layout(cfg)
@@ -246,20 +262,24 @@ def caches_from_reference(arrays, cfg, *, device=None):
 # Analytic parameter counts (roofline denominators)
 # --------------------------------------------------------------------------
 
-def count_params_analytic(cfg):
+def count_params_analytic(cfg, active_only=False):
     """Parameter count from the config alone, by the reference's formula
-    for the families the port runs (dense attention, hybrid Mamba2,
+    for the families the port runs (dense attention, MoE, hybrid Mamba2,
     RWKV6). The hybrid's shared block counts once, however often it runs.
     RWKV6 counts the projections and the low-rank mixes, not the vectors
-    (mixes, decay base, bonus, norms), as the reference does."""
+    (mixes, decay base, bonus, norms), as the reference does. An MoE body
+    counts num_experts routed experts a block, or with `active_only`
+    num_experts_per_tok of them; a dense-prefix body counts first_k_dense
+    dense blocks, as the reference does, though where that is 0 it builds
+    and runs one (`transformer.moe_layout`)."""
     transformer.check_supported(cfg)
-    d, hd = cfg.d_model, cfg.head_dim
+    d, hd, L = cfg.d_model, cfg.head_dim, cfg.num_layers
     total = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
     if cfg.block == "rwkv":
         lora = cfg.rwkv_lora_dim
         per = 5 * d * d + d * cfg.d_ff * 2 + d * d   # tm + cm projections
         per += 5 * lora * d * 2 + 2 * lora * d * 2
-        return total + cfg.num_layers * per
+        return total + L * per
     attn = d * hd * (cfg.num_heads + 2 * cfg.num_kv_heads) \
         + cfg.num_heads * hd * d
     mlp = 3 * d * (cfg.dense_d_ff or cfg.d_ff)
@@ -268,5 +288,19 @@ def count_params_analytic(cfg):
         n = cfg.ssm_state_dim
         h = d_in // cfg.ssm_head_dim
         per = d * (2 * d_in + 2 * n + h) + d_in * d
-        return total + cfg.num_layers * per + attn + mlp
-    return total + cfg.num_layers * (attn + mlp)
+        return total + L * per + attn + mlp
+    if cfg.moe:
+        expert = 3 * d * cfg.moe_d_ff
+        shared = expert * cfg.num_shared_experts
+        router = d * cfg.num_experts
+        if cfg.moe_layer_step > 1:
+            n_moe = L // cfg.moe_layer_step
+            n_dense = L - n_moe
+        else:
+            n_moe = L - cfg.first_k_dense
+            n_dense = cfg.first_k_dense
+        experts = cfg.num_experts_per_tok if active_only \
+            else cfg.num_experts
+        return total + L * attn + n_dense * mlp \
+            + n_moe * (expert * experts + shared + router)
+    return total + L * (attn + mlp)

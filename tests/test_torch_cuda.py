@@ -13,8 +13,9 @@ the same models with the plain versions, a durable server's crash and
 restore on the card against its uncrashed run, the single-array query
 path and the distributed plane (nccl at world size 1, two gloo ranks on
 CUDA tensors) as phase 15 of ``chip_smoke.py`` checks them, and smoke-size
-RWKV6 prefills (the channel kernel) and decode steps of the three families on
-the card against the same models on the CPU.
+RWKV6 prefills (the channel kernel) and decode steps of the four families on
+the card against the same models on the CPU, and the MoE layer's routing and
+dispatch on the card against the CPU's from the same router logits.
 """
 import dataclasses
 import pathlib
@@ -44,7 +45,7 @@ from repro_torch.kernels.score_hist import ref as sh_ref  # noqa: E402
 from repro_torch.kernels.threshold_select import ops as ts_ops  # noqa: E402
 from repro_torch.kernels.threshold_select import ref as ts_ref  # noqa: E402
 from repro_torch.live import IngestPlane  # noqa: E402
-from repro_torch.models import attention, mamba, model  # noqa: E402
+from repro_torch.models import attention, mamba, model, moe  # noqa: E402
 from repro_torch.serve import SelectionServer  # noqa: E402
 from repro_torch.testing import CrashInjector, SimulatedCrash  # noqa: E402
 
@@ -549,7 +550,11 @@ _FLASH_SHAPES = [(2, 256, 8, 2, 64), (1, 128, 6, 1, 128),
                  (1, 1, 2, 1, 64)] + [
     (1 if s > 1000 else 2, s, h, kv, dh)
     for s in (1, 63, 127, 128, 129, 1000, 4096) for dh in (64, 128)
-    for h, kv in ((15, 5), (32, 32), (8, 1))]
+    for h, kv in ((15, 5), (32, 32), (8, 1))] + [
+    # dh 128 at the GQA ratios of the dense and MoE configs' attention:
+    # llama4-maverick's 40/8 and yi-6b's and chameleon-34b's 32/4, 64/8
+    (1 if s > 1000 else 2, s, h, kv, 128)
+    for s in (129, 1000, 4096) for h, kv in ((40, 8), (32, 4), (64, 8))]
 
 
 @pytest.mark.cuda
@@ -1209,7 +1214,8 @@ def test_rwkv_prefill_launches_the_step_route_once_a_block(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["smollm-360m", "zamba2-1.2b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "zamba2-1.2b", "rwkv6-7b",
+                                  "llama4-maverick-400b-a17b"])
 def test_decode_on_the_card_matches_cpu(card, arch):
     """Four decode steps from `init_caches` on the card against the same
     steps on the CPU, rows at their own positions: logits within 2e-5 of
@@ -1242,3 +1248,61 @@ def test_decode_on_the_card_matches_cpu(card, arch):
         torch.testing.assert_close(
             got.cpu(), want, rtol=0,
             atol=2e-5 * max(float(want.abs().max()), 1e-30))
+
+
+# -- MoE -----------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,k,gate_fn", [(16384, 160, 6, "softmax"),
+                                           (16384, 128, 1, "sigmoid"),
+                                           (37, 8, 2, "softmax")])
+def test_moe_routing_on_the_card_matches_cpu(card, n, e, k, gate_fn):
+    """The same router logits (deepseek-v2's and llama4's MoE widths, and a
+    ragged small case) routed and dispatched on the card and on the CPU:
+    expert ids, the order, each assignment's token, slot and whether it
+    is kept exactly equal (the gates are rounded from float64, so no ulp
+    of float32 arithmetic decides a choice); gates within 1e-6."""
+    g = torch.Generator(device=card).manual_seed(n + e)
+    logits = torch.randn(n, e, generator=g, device=card) * 0.9
+    cfg = dataclasses.replace(configs.get_smoke_config(
+        "llama4-maverick-400b-a17b"), num_experts=e, num_experts_per_tok=k)
+    cap = moe.capacity(cfg, n)
+    out = {}
+    for where, x in (("card", logits), ("cpu", logits.cpu())):
+        ids, gates, gates_all = moe.top_k_routing(x, k, gate_fn)
+        out[where] = (ids, gates, gates_all, *moe.dispatch(ids, e, cap))
+    for got, want in zip(out["card"], out["cpu"]):
+        assert got.device.type == "cuda"
+        if got.dtype == torch.float32:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(got.cpu(), want)
+    if k == 1 and n > 1000:
+        assert not bool(out["cpu"][-1].all())    # the capacity drops some
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["interleaved", "dense_prefix"])
+def test_moe_prefill_on_the_card_matches_cpu(card, layout):
+    """A narrow float32 MoE model at head dim 64 (llama4's interleaved
+    pairs with sigmoid top-1, or deepseek-v2's dense prefix with softmax
+    top-2) on the card against the same weights on the CPU: logits within
+    2e-5 of the largest |logit|, one flash_attention launch a block."""
+    cfg = dataclasses.replace(
+        configs.get_smoke_config("llama4-maverick-400b-a17b"), d_model=256,
+        num_heads=4, num_kv_heads=2, head_dim=64, num_experts=8)
+    if layout == "dense_prefix":
+        cfg = dataclasses.replace(cfg, moe_layer_step=1, first_k_dense=1,
+                                  num_experts_per_tok=2)
+    cpu_model = model.init(cfg, generator=torch.Generator().manual_seed(5),
+                           device="cpu")
+    card_model = model.init(cfg, generator=torch.Generator().manual_seed(5),
+                            device="cpu").to(card)
+    card_model.cfg = cfg
+    tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, (4, 96))
+    before = fa_ops.launches.count
+    got = model.apply_train(card_model, tokens).cpu()
+    assert fa_ops.launches.count == before + cfg.num_layers
+    want = model.apply_train(cpu_model, tokens)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=2e-5 * float(want.abs().max()))

@@ -2,7 +2,9 @@
 prefill, on the CPU.
 
 The models are the reference's smoke configs of smollm-360m (dense),
-zamba2-1.2b (hybrid Mamba2) and rwkv6-7b (RWKV6) in float32, with the JAX
+zamba2-1.2b (hybrid Mamba2), rwkv6-7b (RWKV6), llama4-maverick (MoE in
+interleaved pairs) and deepseek-v2 without MLA (MoE after a dense prefix;
+its MLA waits for its slice) in float32, with the JAX
 package's own ``model.init(PRNGKey(0), cfg)`` weights carried across by
 `params_from_reference`; norm scales, the Mamba2 conv bias, D, dt_bias and
 A_log and the RWKV6 mixing vectors are perturbed with seeded noise so that
@@ -36,13 +38,19 @@ from repro.models import mamba as jmamba  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.models import scan_ops as jscan_ops  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention, mamba, model, scan_ops  # noqa: E402
 
 TOL = 2e-5
 ARCHS = ("smollm-360m", "zamba2-1.2b", "rwkv6-7b")
-SMOKE = {a: configs.get_smoke_config(a) for a in ARCHS}
-JSMOKE = {a: jconfigs.get_smoke_config(a) for a in ARCHS}
+# the two MoE layouts: interleaved pairs and a dense prefix
+MOE_ARCHS = ("llama4-maverick-400b-a17b", "deepseek-v2-236b")
+ALL = ARCHS + MOE_ARCHS
+JSMOKE = {a: jconfigs.get_smoke_config(a) for a in ALL}
+JSMOKE["deepseek-v2-236b"] = dataclasses.replace(
+    JSMOKE["deepseek-v2-236b"], use_mla=False)
+SMOKE = {a: ModelConfig(**dataclasses.asdict(c)) for a, c in JSMOKE.items()}
 _SCALED = ("scale", "d_skip")
 _SHIFTED = ("conv_b", "dt_bias", "a_log", "mu_x", "mu", "cm_mu_k",
             "cm_mu_r", "bq", "bk", "bv")
@@ -293,7 +301,7 @@ def _decode_both(arch, caches_np, tokens, positions, seed):
         (np.stack(got), pc)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL)
 @pytest.mark.parametrize("start", ["zeros", "noise"])
 def test_apply_decode_matches_reference(arch, start):
     """Eight steps through `make_serve_decode`, rows at their own
@@ -339,13 +347,19 @@ def _merge_row(dst, src, row):
         dst[row] = src[0]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL)
 def test_decode_reproduces_the_prefill(arch):
     """Each row's decode, from `init_caches`, reproduces `apply_train`'s
     logits at every position. Row r first decodes its own first
     offsets[r] tokens alone; its caches go into row r of one batch, which
-    then steps all rows at once, each at its own position."""
+    then steps all rows at once, each at its own position. An MoE model
+    runs at capacity factor E, where neither the prefill (n = 3 · 14
+    tokens) nor a step drops an assignment: the caches are tested, not
+    the capacity."""
     cfg = SMOKE[arch]
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(
+            cfg.num_experts))
     m = model.params_from_reference(_reference_arrays(arch, 5), cfg,
                                     device="cpu")
     offsets, t, s = (0, 3, 6), 8, 16
@@ -379,7 +393,7 @@ def test_decode_makes_no_host_sync(monkeypatch):
     def refuse(*_a, **_k):
         raise AssertionError("host read of a tensor in a decode step")
     steps = {}
-    for arch in ARCHS:
+    for arch in ALL:
         cfg = SMOKE[arch]
         m = model.init(cfg, generator=torch.Generator().manual_seed(0),
                        device="cpu")
@@ -395,7 +409,7 @@ def test_decode_makes_no_host_sync(monkeypatch):
 
 # -- caches -------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL)
 @pytest.mark.parametrize("dtype", [None, "float32"])
 def test_init_caches_match_reference(arch, dtype):
     """The same entries, shapes and dtypes (bf16 by default, as the
@@ -434,6 +448,19 @@ def test_caches_from_reference_round_trip():
     got = model.caches_from_reference(caches, SMOKE[arch], device="cpu")
     assert [len(s) for s in got["mamba_super"]] == [2, 2]
     assert len(got["shared_attn"]) == 2 and len(got["mamba_tail"]) == 1
+    jax.tree.map(np.testing.assert_array_equal, _flat(got), caches)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_caches_from_reference_round_trip(arch):
+    """The MoE layouts' stacked caches, a KV cache a block under ``dense``
+    and ``moe`` (interleaved) or ``dense_prefix`` and ``moe_blocks``, back
+    to the same arrays."""
+    caches = _noise_caches(arch, 2, 5, 1)
+    got = model.caches_from_reference(caches, SMOKE[arch], device="cpu")
+    assert sorted(got) == sorted(caches)
+    assert {k: len(v) for k, v in got.items()} == {
+        k: v["k"].shape[0] for k, v in caches.items()}
     jax.tree.map(np.testing.assert_array_equal, _flat(got), caches)
 
 

@@ -50,6 +50,11 @@ _VARIANTS = {
 CASES = {name: (dataclasses.replace(SMOKE, **kw),
                 dataclasses.replace(JSMOKE, **kw))
          for name, kw in _VARIANTS.items()}
+# the other dense configs' own smoke configs: GQA (yi), MHA (deepseek-7b),
+# QKV bias (qwen1.5) and qk-norm with GQA (chameleon, one token stream)
+DENSE = ("yi-6b", "deepseek-7b", "qwen1.5-4b", "chameleon-34b")
+CASES.update({arch: (configs.get_smoke_config(arch),
+                     jconfigs.get_smoke_config(arch)) for arch in DENSE})
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 
@@ -175,10 +180,11 @@ def test_attn_block_prefill_matches_reference(case):
         jax.tree.map(jnp.asarray, _block0(arrays)), jcfg, jnp.asarray(x),
         jnp.asarray(pos))
     m = model.params_from_reference(arrays, cfg, device="cpu")
-    got = transformer.attn_block_prefill(m.body.blocks[0], cfg,
-                                         torch.from_numpy(x),
-                                         torch.from_numpy(pos))
+    got, aux = transformer.attn_block_prefill(m.body.blocks[0], cfg,
+                                              torch.from_numpy(x),
+                                              torch.from_numpy(pos))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert float(aux) == 0.0
 
 
 # -- the whole model -----------------------------------------------------------
@@ -275,8 +281,9 @@ def test_init_without_a_device_needs_cuda():
         model.params_from_reference(_reference_arrays(JSMOKE), SMOKE)
 
 
-@pytest.mark.parametrize("change", [dict(moe=True), dict(use_mla=True),
-                                    dict(moe=True, moe_layer_step=2),
+@pytest.mark.parametrize("change", [dict(moe=True, use_mla=True),
+                                    dict(use_mla=True),
+                                    dict(use_mla=True, moe_layer_step=2),
                                     dict(num_codebooks=4)])
 def test_unported_families_raise(change):
     cfg = dataclasses.replace(SMOKE, **change)
@@ -289,7 +296,10 @@ def test_unported_families_raise(change):
 # -- configs --------------------------------------------------------------------
 
 _COUNTED = {"smollm-360m": (configs.get_config("smollm-360m"),
-                            jconfigs.get_config("smollm-360m")), **CASES}
+                            jconfigs.get_config("smollm-360m")), **CASES,
+            **{f"{arch}-published": (configs.get_config(arch),
+                                     jconfigs.get_config(arch))
+               for arch in DENSE}}
 
 
 @pytest.mark.parametrize("case", list(_COUNTED))
@@ -302,7 +312,14 @@ def test_count_params_analytic_matches_reference(case):
 
 
 def test_registry_holds_the_ported_arch():
-    assert configs.ARCH_IDS == ("smollm-360m", "zamba2-1.2b", "rwkv6-7b")
+    assert configs.ARCH_IDS == ("smollm-360m", "zamba2-1.2b", "rwkv6-7b",
+                                *DENSE, "llama4-maverick-400b-a17b")
+    for arch in configs.ARCH_IDS:
+        for get, jget in ((configs.get_config, jconfigs.get_config),
+                          (configs.get_smoke_config,
+                           jconfigs.get_smoke_config)):
+            assert dataclasses.asdict(get(arch)) == dataclasses.asdict(
+                jget(arch))
     cfg = configs.get_config("smollm-360m")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jconfigs.get_config("smollm-360m"))
@@ -321,8 +338,8 @@ def test_registry_holds_the_ported_arch():
                                  configs.get_smoke_config])
 def test_registry_names_the_known_archs(get):
     with pytest.raises(KeyError,
-                       match="rwkv6-7b.*smollm-360m.*zamba2-1.2b"):
-        get("yi-6b")
+                       match="rwkv6-7b.*smollm-360m.*yi-6b.*zamba2-1.2b"):
+        get("musicgen-medium")
 
 
 # -- token corpora ---------------------------------------------------------------

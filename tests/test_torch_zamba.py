@@ -172,7 +172,7 @@ def test_body_prefill_matches_reference(decays, b, s):
         body, JSMOKE, jnp.asarray(x), jnp.asarray(pos))[0], decays)
     m = model.params_from_reference(arrays, SMOKE, device="cpu")
     _close(transformer.body_prefill(m.body, SMOKE, torch.from_numpy(x),
-                                    torch.from_numpy(pos)), refs)
+                                    torch.from_numpy(pos))[0], refs)
 
 
 @pytest.mark.parametrize("b,s", [(2, 16), (1, 64), (2, 128), (3, 1)])
