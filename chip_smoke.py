@@ -80,7 +80,7 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    line) and at the scoring shape and zamba2's prefill and scoring shapes
    (a line each), beside its bound, its plain version and
    `scaled_dot_product_attention` (the yardstick; the port never calls
-   it).
+   it) by its fastest fused backend, each backend's time printed.
 9. linear_scan against its plain version on the card, each case labelled
    with the kernel its route launched (`ls_ops.route`: the chunked
    tensor-core kernel for Mamba2's views, the channel kernel otherwise,
@@ -266,16 +266,16 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     sigmoid top-1, one shared): the prefill (2 flash_attention launches,
     capacity 160; the share of assignments dropped; mfu over the active
     parameters beside the dispatch's expert work, E · cap against n · k);
-    its bf16 logits against plain attention over the rows whose last
-    token both runs routed alike (a routing decision at a near tie flips
-    under bf16 rounding; each flip's margin is printed); the MoE layer on
-    its prefill input against a plain float32 evaluation of the same
+    its bf16 logits against plain attention, the plain run replaying the
+    kernel run's routing (`replayed_routing`: a routing decision at a
+    near tie flips under bf16 rounding; each choice that would have
+    differed must be a near tie within `ROUTE_FLIP_MARGIN`); the MoE layer
+    on its prefill input against a plain float32 evaluation of the same
     routing, one expert at a time (`MOE_F32_TOL`), its drops against a
     plain walk; the decode against the prefill at capacity factor E (no
     assignment dropped on either side, so the caches are tested, not the
-    capacity; positions where the routing flipped at a near tie, within
-    `ROUTE_FLIP_MARGIN`, are printed, not held); a decode step at 32 x
-    32768 (the dispatch multiplies every expert, and the bound reads
+    capacity), the decode replaying the prefill's routing; a decode step
+    at 32 x 32768 (the dispatch multiplies every expert, and the bound reads
     every expert's weights); a 2^12-record corpus scored and one RT
     query selected as in phase 7. (c) `moe_apply` alone at deepseek-v2's
     MoE widths (d 5120, 160 experts of 1536, softmax top-6, 2 shared;
@@ -286,14 +286,40 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     flash_attention at dh 128 against its plain version (phase 5's bars)
     and its times at yi-6b's (4, 4096, 32/4) and llama4's (4, 4096, 40/8)
     beside its bound and `scaled_dot_product_attention`.
+19. deepseek-v2-236b at its published widths (bf16, weights drawn from
+    --seed), cut to the dense block and 7 MLA + MoE blocks of 60
+    (`NEW_DEPTH`); every layer's attention is MLA, whose prefill runs
+    flash_attention at q·k head dim 192 and v dim 128. (a) The kernel at
+    (192, 128) against its plain version (over groups of
+    `DSV2_PLAIN_HEADS` KV heads: the plain scores of all 128 heads are
+    34 GB a copy): deepseek-v2's prefill shape (4, 4096, 128/128) in bf16,
+    a ragged S causal and not and a GQA layout in bf16 and float32
+    (phase 5's bars, repeat bitwise); its time beside its operations
+    bound (B·H·S²·(192 + 128)), the plain version and
+    `scaled_dot_product_attention` by each fused backend (its time or its
+    refusal printed; library_ms is the fastest). (b) One (4, 4096)
+    prefill through `make_serve_prefill` with 8 flash_attention launches,
+    its mfu over the active parameters (`model_flops`: MLA's attention
+    term B·H·S²·(dn + dr + dv) a layer); the bf16 last-position logits
+    against plain attention (`LOGIT_TOL`), the routing replayed as in
+    phase 18 (two runs of random-init softmax top-6 of 160 part at
+    thousands of near ties). (c) The absorbed-latent decode against the
+    prefill at capacity factor E, the prefill's routing replayed
+    (`decode_consistency`, `DECODE_BF16_TOL`), and a step at 32768 positions
+    with `NEW_DECODE_ROWS` rows beside its bytes bound (the latent caches
+    read once); then the model in float32 cut to `DSV2_F32_LAYERS` layers,
+    its decode against its prefill (`DECODE_F32_TOL`). (d) A 2^12-
+    record corpus scored in calls of 128 (8 flash_attention launches a
+    call) and one RT query selected as in phase 7 (score_hist and
+    threshold_select on the path).
 
 Each phase prints its wall time as it ends, and the line before the
 kernels line sums them.
 
 The line before the last is ``{"kernels": [...]}`` (a row for each kernel:
 linear_scan's chunked kernel and its channel kernel each have one, and
-flash_attention's dh-128 path one of its own at llama4's shape); the
-last line is
+flash_attention's dh-128 path one of its own at llama4's shape and its
+(192, 128) path one at deepseek-v2's); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -373,6 +399,7 @@ ZAMBA = "zamba2-1.2b"
 RWKV = "rwkv6-7b"
 NEW_DENSE = ("yi-6b", "deepseek-7b", "qwen1.5-4b", "chameleon-34b")
 LLAMA4 = "llama4-maverick-400b-a17b"
+DSV2 = "deepseek-v2-236b"
 FA_PREFILL = (4, 4096, 15, 5, 64)     # B, S, H, KV, dh: smollm-360m prefill
 FA_SCORING = (256, 128, 15, 5, 64)    # the scoring batch
 N_CORPUS = 1 << 15                    # token records scored and selected
@@ -456,10 +483,20 @@ RWKV_BF16_LOGIT_TOL = 1e-1
 NEW_LOGIT_TOL = {"yi-6b": (7e-2, F32_LOGIT_TOL),
                  "deepseek-7b": (5.6e-2, None), "qwen1.5-4b": (7.4e-2, None),
                  "chameleon-34b": (6.1e-2, None), LLAMA4: (1.25e-2, None)}
+# Phase 19's bf16 bar, deepseek-v2-236b cut to 8 layers: the last-position
+# logits at (4, 4096), kernel against plain attention, the plain run
+# replaying the kernel run's routing (`replayed_routing`): 1.04e-2 to
+# 1.16e-2 of the largest |logit| at --seed 0, 1 and 2 on an H100 80GB HBM3
+# at 700 W; three times the largest. Without the replay the two runs'
+# softmax top-6 of 160 random-init experts part at about 5,560 of 114,688
+# token choices (all near ties, margins up to 8.7e-4), and of the last 64
+# positions of each row only 70 to 79 of 256 route alike through all 7
+# MoE layers.
+DSV2_LOGIT_TOL = 3.5e-2
 LOGIT_TOL = {ARCH: (BF16_LOGIT_TOL, F32_LOGIT_TOL),
              ZAMBA: (ZAMBA_BF16_LOGIT_TOL, ZAMBA_F32_LOGIT_TOL),
              RWKV: (RWKV_BF16_LOGIT_TOL, ZAMBA_F32_LOGIT_TOL),
-             **NEW_LOGIT_TOL}
+             **NEW_LOGIT_TOL, DSV2: (DSV2_LOGIT_TOL, None)}
 # Operations each kernel does per record, counted from its source:
 # score_hist compares, clips, scales, converts and takes a square root
 # (8) and adds both float64 mass terms (2, counted at the float32 rate:
@@ -510,11 +547,15 @@ RWKV_DECODE_F32_TOL = 5e-5
 # Phase 18's bf16 decode against the prefill, at about 2.5 times the
 # largest reading at --seed 0, 1 and 2, same card: yi-6b 2.22e-2 to
 # 2.28e-2, deepseek-7b 2.28e-2 to 2.42e-2, qwen1.5-4b 2.56e-2 to 2.74e-2,
-# chameleon-34b (24 layers) 2.21e-2 to 2.28e-2, llama4 (one pair, over
-# the entries routed alike) 6.99e-3 to 7.54e-3.
+# chameleon-34b (24 layers) 2.21e-2 to 2.28e-2, llama4 (one pair) 6.99e-3
+# to 7.41e-3 (7.54e-3 before the decode replayed the prefill's routing,
+# over the entries both routed alike); phase 19's deepseek-v2 (8 layers)
+# 1.45e-2 to 1.70e-2 over two runs of the three seeds (the combine's
+# atomics move its bf16 roundings from run to run; its float32 decode,
+# cut to 2 layers, 2.16e-6 to 2.53e-6, is held at DECODE_F32_TOL).
 DECODE_BF16_TOL = {ARCH: 5e-2, ZAMBA: 1e-1, RWKV: 3e-2,
                    "yi-6b": 5.7e-2, "deepseek-7b": 6.1e-2, "qwen1.5-4b": 7e-2,
-                   "chameleon-34b": 5.7e-2, LLAMA4: 1.9e-2}
+                   "chameleon-34b": 5.7e-2, LLAMA4: 1.9e-2, DSV2: 4.2e-2}
 # The arbiter of rwkv6-7b's decode (phase 17): the model at full width cut
 # to RWKV_F64_BLOCKS blocks (about 18 GB in float64), its float32 decode
 # and prefill against its prefill computed in float64. The float64 decode
@@ -545,14 +586,35 @@ DECODE_PEAK_BYTES = 70e9
 # weights; llama4's 48 layers hold 397.7e9 parameters, one pair of them
 # 18.55e9, 37.1 GB, and two pairs 69.7 GB before activations), and each
 # one's decode rows at 32768 positions: as many as its KV cache lets fit
-# beside the weights under DECODE_PEAK_BYTES.
-NEW_DEPTH = {"chameleon-34b": 24, LLAMA4: 2}
+# beside the weights under DECODE_PEAK_BYTES. Phase 19's deepseek-v2-236b
+# runs one dense block and 7 MLA + MoE blocks of its 60 (29.19e9
+# parameters, 58.4 GB of bf16; each MoE block more is 3.97e9): its latent
+# cache is 576 numbers a token and a layer, 0.30 GB a row at 32768
+# positions and 8 layers (a step at 16 rows peaked at 65.37 GB on an H100
+# 80GB HBM3; each row more adds about 0.36 GB).
+NEW_DEPTH = {"chameleon-34b": 24, LLAMA4: 2, DSV2: 8}
 NEW_DECODE_ROWS = {"yi-6b": 16, "deepseek-7b": 2, "qwen1.5-4b": 4,
-                   "chameleon-34b": 8, LLAMA4: 32}
+                   "chameleon-34b": 8, LLAMA4: 32, DSV2: 24}
 NEW_DECODE_LENGTH = 32768
 N_LLAMA4_CORPUS = 1 << 12             # token records llama4 scores
 FA_YI = (4, 4096, 32, 4, 128)         # yi-6b's prefill attention
 FA_LLAMA4 = (4, 4096, 40, 8, 128)     # llama4-maverick's
+# deepseek-v2's MLA prefill: B, S, H, KV, q·k head dim, v head dim
+FA_DSV2 = (4, 4096, 128, 128, 192, 128)
+# Phase 19's plain attention runs over groups of this many KV heads: one
+# call at (4, 4096) with all 128 would hold 34 GB of float32 scores a copy
+# (the score, mask and softmax copies of 8 heads are 6.4 GB, beside 58.4 GB
+# of weights).
+DSV2_PLAIN_HEADS = 8
+# Phase 19's float32 decode runs deepseek-v2 cut to the dense block and one
+# MLA + MoE block at full width (5.36e9 parameters, 21.4 GB in float32;
+# the 8-block model is 117 GB in float32).
+DSV2_F32_LAYERS = 2
+N_DSV2_CORPUS = 1 << 12               # token records deepseek-v2 scores
+# ... in calls of 128 records: a call of SCORE_BATCH (32768 tokens through
+# 7 MoE layers beside 58.4 GB of weights) peaked at 78.97 GB of the card's
+# 85.0 GB (H100 80GB HBM3), and one run failed to allocate there.
+DSV2_SCORE_BATCH = 128
 # deepseek-v2-236b's MoE layer (src/repro/configs/deepseek_v2_236b.py:
 # d_model 5120, 160 routed experts of 1536, top-6 softmax, 2 shared;
 # arXiv:2405.04434), run alone: its MLA is not ported yet.
@@ -572,13 +634,16 @@ MOE_TOKENS = (4, 4096)
 # token dropped or sent to another expert moves its output by about the
 # largest |output|.
 MOE_F32_TOL = 2e-2
-# A token whose routing differs between two runs of one model whose hidden
-# states differ by bf16 rounding (the kernel against plain attention, or
-# decode against prefill) must be a near tie: its gates' smallest gap
-# around the k-th choice within ROUTE_FLIP_MARGIN. llama4's decode against
-# its prefill flipped one token at --seed 0 and 1 (of 161), at margins
-# 4.28e-4 and 3.32e-4 (same card); the sigmoid gates of a random-init
-# router's top two lie about 0.03 to 0.07 apart.
+# Two runs of one model whose hidden states differ by bf16 rounding (the
+# kernel against plain attention, or decode against prefill) are compared
+# with the first run's routing replayed in the second (`replayed_routing`);
+# a token whose own routing in the second run would differ must be a near
+# tie: its gates' smallest gap around the k-th choice within
+# ROUTE_FLIP_MARGIN. llama4's decode against its prefill flipped one token
+# at --seed 0 and 1 (of 161), at margins 4.28e-4 and 3.32e-4 (same card;
+# the sigmoid gates of a random-init router's top two lie about 0.03 to
+# 0.07 apart); deepseek-v2's softmax top-6 of 160 about 5,560 of 114,688
+# choices in a prefill, at margins up to 8.7e-4.
 ROUTE_FLIP_MARGIN = 5e-3
 # linear_scan against its plain version (phase 9). At the reference's
 # shapes (dk 16 or 8), the reference's own atol = 1e-4
@@ -888,11 +953,55 @@ def plain_attention(q, k, v, causal=True):
                                 v.transpose(1, 2), causal).transpose(1, 2)
 
 
+def plain_attention_by_heads(q, k, v, causal=True):
+    """`plain_attention` over groups of DSV2_PLAIN_HEADS KV heads (each
+    head attends alone), so that its float32 S x S scores stay a few GB."""
+    g, n = q.shape[2] // k.shape[2], DSV2_PLAIN_HEADS
+    return torch.cat([plain_attention(q[:, :, j * g:(j + n) * g],
+                                      k[:, :, j:j + n], v[:, :, j:j + n],
+                                      causal)
+                      for j in range(0, k.shape[2], n)], dim=2)
+
+
 def attention_inputs(shape, dtype, g):
-    """Standard normal q (B,S,H,dh), k and v (B,S,KV,dh) on the card."""
-    b, s, h, kv, dh = shape
-    return tuple(torch.randn(b, s, n, dh, generator=g, device=DEVICE)
-                 .to(dtype) for n in (h, kv, kv))
+    """Standard normal q (B,S,H,dh), k (B,S,KV,dh) and v (B,S,KV,dv) on
+    the card, `shape` (B, S, H, KV, dh) with dv = dh or (B, S, H, KV, dh,
+    dv)."""
+    b, s, h, kv, dh = shape[:5]
+    dv = shape[5] if len(shape) > 5 else dh
+    return tuple(torch.randn(b, s, n, d, generator=g, device=DEVICE)
+                 .to(dtype) for n, d in ((h, dh), (kv, dh), (kv, dv)))
+
+
+def hold_flash(q, k, v, causal: bool, what: str,
+               plain_fn=plain_attention) -> float:
+    """The kernel on (q, k, v) against `plain_fn`: in bf16 each output
+    within BF16_ATOL + BF16_RTOL |plain| and the whole within
+    BF16_FRO_TOL ||plain||, in float32 within F32_TOL abs + rel; two
+    launches bitwise equal. Prints the reading; returns max |kernel -
+    plain|."""
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    again = fa_ops.flash_attention(q, k, v, causal=causal)
+    plain = plain_fn(q, k, v, causal).float()
+    torch.cuda.synchronize()
+    err = (got.float() - plain).abs()
+    if q.dtype == torch.bfloat16:
+        excess = float((err - BF16_RTOL * plain.abs()).max())
+        fro = float(err.norm() / plain.norm())
+        check(excess <= BF16_ATOL and fro <= BF16_FRO_TOL,
+              f"{what}: |err| - 2^-7 |plain| up to {excess:.4g} "
+              f"(tol {BF16_ATOL}), ||err|| / ||plain|| {fro:.4g} "
+              f"(tol {BF16_FRO_TOL})")
+        bar = (f"max |err| - 2^-7 |plain| {excess:.6g} (tol "
+               f"{BF16_ATOL}), ||err|| / ||plain|| {fro:.6g} (tol "
+               f"{BF16_FRO_TOL})")
+    else:
+        check(bool((err <= F32_TOL + F32_TOL * plain.abs()).all()), what)
+        bar = f"tol {F32_TOL} abs + rel"
+    check(torch.equal(got, again), f"{what}: repeat launches differ")
+    print(f"{what}: max |kernel - plain| {float(err.max()):.6g}, "
+          f"{bar}, repeat bitwise")
+    return float(err.max())
 
 
 def check_flash(seed: int) -> float:
@@ -907,32 +1016,12 @@ def check_flash(seed: int) -> float:
     for shape, causal in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = attention_inputs(shape, dtype, g)
-            got = fa_ops.flash_attention(q, k, v, causal=causal)
-            again = fa_ops.flash_attention(q, k, v, causal=causal)
-            plain = plain_attention(q, k, v, causal).float()
-            torch.cuda.synchronize()
-            err = (got.float() - plain).abs()
-            what = f"flash_attention {shape} {dtype} causal={causal}"
-            if dtype == torch.bfloat16:
-                excess = float((err - BF16_RTOL * plain.abs()).max())
-                fro = float(err.norm() / plain.norm())
-                check(excess <= BF16_ATOL and fro <= BF16_FRO_TOL,
-                      f"{what}: |err| - 2^-7 |plain| up to {excess:.4g} "
-                      f"(tol {BF16_ATOL}), ||err|| / ||plain|| {fro:.4g} "
-                      f"(tol {BF16_FRO_TOL})")
-                bar = (f"max |err| - 2^-7 |plain| {excess:.6g} (tol "
-                       f"{BF16_ATOL}), ||err|| / ||plain|| {fro:.6g} (tol "
-                       f"{BF16_FRO_TOL})")
-            else:
-                check(bool((err <= F32_TOL + F32_TOL * plain.abs()).all()),
-                      what)
-                bar = f"tol {F32_TOL} abs + rel"
-            check(torch.equal(got, again), f"{what}: repeat launches differ")
-            print(f"{what}: max |kernel - plain| {float(err.max()):.6g}, "
-                  f"{bar}, repeat bitwise")
+            err = hold_flash(q, k, v, causal,
+                             f"flash_attention {shape} {dtype} "
+                             f"causal={causal}")
             if shape == FA_PREFILL and dtype == torch.bfloat16:
-                err_prefill = float(err.max())
-            del q, k, v, got, again, plain, err
+                err_prefill = err
+            del q, k, v
     return err_prefill
 
 
@@ -942,7 +1031,8 @@ def model_flops(cfg, batch: int, seq: int) -> float:
     """Prefill model FLOPs, for the mfu of a prefill.
 
     Dense: 2 · non-embedding params · tokens, plus causal attention,
-    2 · B · H · S² · dh a layer.
+    2 · B · H · S² · dh a layer (MLA: B · H · S² · (dn + dr + dv), q·k
+    over dn + dr dims and p·v over dv).
     Hybrid (Zamba2): the shared block's weights work at each of its n_super
     runs, so 2 · (L · P_mamba + n_super · P_shared) · tokens; attention
     runs n_super times, 2 · B · H · S² · dh each; and each Mamba2 block's
@@ -975,8 +1065,10 @@ def model_flops(cfg, batch: int, seq: int) -> float:
         attention_runs = 0
         hd = cfg.ssm_head_dim
         scan = 5.0 * hd * cfg.d_model * tokens * cfg.num_layers
+    attn_dims = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim \
+        + cfg.v_head_dim if cfg.use_mla else 2 * cfg.head_dim
     return (2.0 * non_embedding * tokens
-            + 2.0 * batch * cfg.num_heads * seq * seq * cfg.head_dim
+            + 1.0 * batch * cfg.num_heads * seq * seq * attn_dims
             * attention_runs + scan)
 
 
@@ -1072,6 +1164,55 @@ def recorded_routing():
         yield calls
 
 
+@contextlib.contextmanager
+def replayed_routing(recorded):
+    """Every MoE layer meanwhile sends its tokens to the experts that
+    `recorded(i)` names for its i-th call ((n, k) ids, from another run)
+    instead of its own top-k choice, with the gates its own router gives
+    those experts (renormalized as `moe.top_k_routing` renormalizes); the
+    dispatch follows those ids. Yields a list, a dict a call of its own
+    choice (`ids`), every expert's gate and the replayed ids, for
+    `replay_flips`."""
+    calls = []
+    top_k = moe.top_k_routing
+
+    def routing(logits, k, gate_fn="softmax"):
+        own, _, gates_all = top_k(logits, k, gate_fn)
+        ids = recorded(len(calls))
+        calls.append({"ids": own, "gates_all": gates_all, "replayed": ids})
+        gates = gates_all.gather(-1, ids)
+        if gate_fn == "softmax" and k > 1:
+            gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True),
+                                            1e-9)
+        return ids, gates, gates_all
+    with mock.patch.object(moe, "top_k_routing", routing):
+        yield calls
+
+
+def replay_flips(calls, label: str) -> None:
+    """Every token whose own top-k choice differs from the replayed one
+    (`replayed_routing`) must be a near tie: its gates' smallest gap around
+    the k-th choice within ROUTE_FLIP_MARGIN. Prints the flips (nothing
+    without MoE layers)."""
+    if not calls:
+        return
+    flips, tokens, worst = 0, 0, 0.0
+    for c in calls:
+        differ = (torch.sort(c["ids"], dim=-1)[0]
+                  != torch.sort(c["replayed"], dim=-1)[0]).any(dim=-1)
+        flips += int(differ.sum())
+        tokens += differ.numel()
+        if bool(differ.any()):
+            worst = max(worst, float(tie_margin(
+                c["gates_all"][differ], c["ids"].shape[-1]).max()))
+    check(worst <= ROUTE_FLIP_MARGIN,
+          f"{label}: a routing choice flipped at a tie margin of {worst:.4g}"
+          f" (tol {ROUTE_FLIP_MARGIN})")
+    print(f"{label}: the routing replayed in all {len(calls)} MoE calls; "
+          f"{flips} of {tokens} token choices would have differed, each a "
+          f"near tie (largest margin {worst:.4g}, tol {ROUTE_FLIP_MARGIN})")
+
+
 def tie_margin(gates_all: torch.Tensor, k: int) -> torch.Tensor:
     """Each row's smallest gap between consecutive gates among its k + 1
     largest: how near its top-k choice is to a tie."""
@@ -1079,44 +1220,13 @@ def tie_margin(gates_all: torch.Tensor, k: int) -> torch.Tensor:
     return (top[..., :-1] - top[..., 1:]).min(dim=-1)[0]
 
 
-def routed_alike(want, got, idx, label: str) -> torch.Tensor:
-    """Whether each token `idx` was routed alike, expert ids and drops, by
-    every MoE layer of two runs (`recorded_routing`; `got` indexed as
-    `want`), as a bool mask. A token whose ids differ must be a near tie
-    in `want` (`tie_margin` within ROUTE_FLIP_MARGIN); the flips and
-    drops that differ are printed. All True without MoE layers."""
-    same = torch.ones(len(idx), dtype=torch.bool, device=DEVICE)
-    if not want:
-        return same
-    check(len(want) == len(got), f"{label}: {len(want)} MoE calls against "
-          f"{len(got)}")
-    flips, margins = 0, []
-    for w, g in zip(want, got):
-        ids_same = (w["ids"][idx] == g["ids"][idx]).all(dim=-1)
-        kept_same = (w["kept"][idx] == g["kept"][idx]).all(dim=-1)
-        same &= ids_same & kept_same
-        flipped = ~ids_same
-        flips += int(flipped.sum())
-        margins += tie_margin(w["gates_all"][idx][flipped],
-                              w["ids"].shape[-1]).tolist()
-    worst = max(margins, default=0.0)
-    check(worst <= ROUTE_FLIP_MARGIN and int(same.sum()) * 2 >= len(idx),
-          f"{label}: {flips} routing flips (largest tie margin {worst:.4g}, "
-          f"tol {ROUTE_FLIP_MARGIN}), {int(same.sum())} of {len(idx)} "
-          f"tokens routed alike")
-    print(f"{label}: {int(same.sum())} of {len(idx)} tokens routed alike by "
-          f"all {len(want)} MoE layers; {flips} expert choices flipped at "
-          f"tie margins {', '.join(f'{m:.3g}' for m in margins) or '-'} "
-          f"(tol {ROUTE_FLIP_MARGIN}); the rest differ in drops only")
-    return same
-
-
 def model_phase(model, cfg, seed: int, per_prefill: dict,
                 f32_copy: bool = True) -> None:
-    """Phases 6, 10 and 16: one full-width prefill through
+    """Phases 6, 10, 16, 18 and 19: one full-width prefill through
     `make_serve_prefill`, launching each kernel of `per_prefill` exactly
     that often; then the bf16 model, and with `f32_copy` its float32 copy,
-    each with the kernels against the plain versions."""
+    each with the kernels against the plain versions. An MoE model's plain
+    run replays the kernel run's routing (`replayed_routing`)."""
     bf16_tol, f32_tol = LOGIT_TOL[cfg.name]
     b, s = FA_PREFILL[:2]
     tokens = torch.randint(0, cfg.vocab_size, (b, s), device=DEVICE,
@@ -1147,24 +1257,22 @@ def model_phase(model, cfg, seed: int, per_prefill: dict,
                           SCAN_ROUTE[cfg.block])
 
     # The bf16 model itself: its last-position logits with the kernels
-    # against the same model with the plain versions (an MoE model's over
-    # the rows whose last token both runs routed alike).
+    # against the same model with the plain versions.
     with recorded_routing() as kernel_routes:
         bf16_kernel = modellib.last_logits(model, tokens)
-    with plain_paths(), recorded_routing() as plain_routes:
+    with plain_paths(), replayed_routing(
+            lambda i: kernel_routes[i]["ids"]) as plain_routes:
         bf16_plain = modellib.last_logits(model, tokens)
-    rows = routed_alike(plain_routes, kernel_routes,
-                        torch.arange(b, device=DEVICE) * s + s - 1,
-                        f"{cfg.name} bf16 prefill, kernels against plain, "
-                        f"last positions")
-    bf16_diff = float((bf16_kernel - bf16_plain)[rows].abs().max())
-    bf16_scale = float(bf16_plain[rows].abs().max())
+    replay_flips(plain_routes, f"{cfg.name} bf16 prefill, plain attention "
+                 f"against the kernel's")
+    bf16_diff = float((bf16_kernel - bf16_plain).abs().max())
+    bf16_scale = float(bf16_plain.abs().max())
     check(bool(torch.isfinite(bf16_kernel).all())
           and bf16_diff <= bf16_tol * bf16_scale,
           f"{cfg.name} bf16 logits: kernels vs plain differ by {bf16_diff} "
           f"(largest |logit| {bf16_scale})")
-    print(f"bf16 model, last-position logits ({int(rows.sum())} of {b} rows"
-          f", {cfg.vocab_size}): max |kernels - plain| {bf16_diff:.6g}, "
+    print(f"bf16 model, last-position logits ({b}, {cfg.vocab_size}): max "
+          f"|kernels - plain| {bf16_diff:.6g}, "
           f"largest |logit| "
           f"{bf16_scale:.6g}, ratio {bf16_diff / bf16_scale:.3g} "
           f"(tol {bf16_tol})")
@@ -1196,25 +1304,26 @@ def model_phase(model, cfg, seed: int, per_prefill: dict,
 # -- phase 7 -------------------------------------------------------------------
 
 def score_select_phase(model, cfg, seed: int, n_corpus: int,
-                       per_call: dict) -> dict:
+                       per_call: dict, batch: int = SCORE_BATCH) -> dict:
     """Phases 7 and 11: score a token corpus of `n_corpus` records with
-    the full model, launching each kernel of `per_call` that often a
-    call, and select on the card; returns the path's launch counts."""
+    the full model in calls of `batch` records, launching each kernel of
+    `per_call` that often a call, and select on the card; returns the
+    path's launch counts."""
     tokens_np, labels = make_token_corpus(n_corpus, SEQ_LEN, cfg.vocab_size,
                                           0.02, seed)
     check(np.array_equal(labels > 0.5, contains_marker(tokens_np)),
           "corpus labels are not the marker oracle")
     tokens = torch.from_numpy(tokens_np).to(DEVICE)
     serve_prefill = make_serve_prefill(cfg)
-    serve_prefill(model, {"tokens": tokens[:SCORE_BATCH]})   # warm-up
+    serve_prefill(model, {"tokens": tokens[:batch]})   # warm-up
     torch.cuda.synchronize()
 
     path = (*per_call, "score_hist", "threshold_select")
     reset_counts(path)
     t0 = time.perf_counter()
     scores = torch.cat([serve_prefill(model,
-                                      {"tokens": tokens[i:i + SCORE_BATCH]})
-                        for i in range(0, n_corpus, SCORE_BATCH)])
+                                      {"tokens": tokens[i:i + batch]})
+                        for i in range(0, n_corpus, batch)])
     torch.cuda.synchronize()
     t_score = time.perf_counter() - t0
     check(scores.shape == (n_corpus,) and bool(torch.isfinite(scores).all())
@@ -1234,7 +1343,7 @@ def score_select_phase(model, cfg, seed: int, n_corpus: int,
               "scored corpus: RT counts differ from the plain count")
         sel_idx = np.concatenate([eng.offsets[i] + sel.indices(i)
                                   for i in range(sel.num_shards)])
-    n_calls = n_corpus // SCORE_BATCH
+    n_calls = n_corpus // batch
     for k, n in per_call.items():
         check(launches[k] == n_calls * n,
               f"{k} launched {launches[k]} times for {n_calls} prefills of "
@@ -1311,22 +1420,50 @@ def profile_scoring_call(model, cfg, seed: int, groups: dict) -> None:
 
 # -- phase 8 -------------------------------------------------------------------
 
-def flash_row(shape, seed: int) -> dict:
-    """flash_attention's times at `shape`, bf16 causal, with its bound."""
-    b, s, h, kv, dh = shape
+SDPA_FUSED = ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def fused_sdpa_ms(qt, kt, vt) -> float:
+    """ms of `scaled_dot_product_attention` (causal) on (B,H,S,d) tensors
+    by its fastest fused backend: each backend alone (`sdpa_kernel`), its
+    time or its refusal printed. The math backend, which materializes the
+    S x S scores, is not among them; fails if none runs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    times = {}
+    for name in SDPA_FUSED:
+        try:
+            with sdpa_kernel([getattr(SDPBackend, name)]):
+                times[name] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), 20)
+        except RuntimeError as e:          # this backend takes no such input
+            print(f"  scaled_dot_product_attention {name}: refused "
+                  f"({str(e).strip().splitlines()[0][:120]})")
+    check(bool(times), "no fused scaled_dot_product_attention backend ran")
+    best = min(times, key=times.get)
+    print("  scaled_dot_product_attention by backend: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+          + f"; library_ms is {best}'s")
+    return times[best]
+
+
+def flash_row(shape, seed: int, plain_fn=plain_attention) -> dict:
+    """flash_attention's times at `shape` ((B, S, H, KV, dh) or with dv
+    after dh), bf16 causal, with its bound, `plain_fn`'s time and SDPA's
+    by its fastest fused backend."""
+    b, s, h, kv, dh = shape[:5]
     q, k, v = attention_inputs(shape, torch.bfloat16,
                                torch.Generator(device=DEVICE)
                                .manual_seed(seed + 13))
+    dv = v.shape[3]
     group = h // kv
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in
                   (q, k.repeat_interleave(group, dim=2),
                    v.repeat_interleave(group, dim=2)))
     ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v), 20)
-    plain_ms = cuda_ms(lambda: plain_attention(q, k, v), 3)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), 20)
-    ops = 2 * 2 * b * h * (s * s / 2) * dh
-    moved = 2 * (2 * q.numel() + 2 * k.numel())        # q, o, k, v in bf16
+    plain_ms = cuda_ms(lambda: plain_fn(q, k, v), 3)
+    lib_ms = fused_sdpa_ms(qt, kt, vt)
+    ops = b * h * s * s * (dh + dv)    # q·kᵀ and p·v over S²/2 causal pairs
+    moved = 2 * (q.numel() + k.numel() + v.numel() + b * s * h * dv)
     t_ops = ops / BF16_OPS_PER_S * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes \
@@ -2976,14 +3113,40 @@ def decode_consistency(model, cfg, seed: int, tol: float, label: str):
     same model's prefill (through the kernels) at every position. Every
     decode call's logits must lie within `tol` of the largest |prefill
     logit| at that call (with `tol` None they are printed, not held);
-    returns the largest ratio, the decode's logits and the prefill's."""
+    returns the largest ratio, the decode's logits and the prefill's. An
+    MoE model runs at capacity factor E, where neither side drops an
+    assignment (the caches are tested, not the capacity), and each decode
+    call replays the prefill's routing of its tokens (`replayed_routing`;
+    a choice of the decode's own that would differ must be a near tie)."""
     dt = layers.dtype_of(cfg)
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg,
+                                  capacity_factor=float(cfg.num_experts))
+    own_cfg, model.cfg = model.cfg, cfg
     tokens = decode_tokens(cfg, seed)
-    prefill = modellib.apply_train(model, tokens)        # (B,S,V) float32
-    dec = decode_logits(model, cfg, tokens, lambda n: modellib.init_caches(
-        cfg, n, DECODE_CACHE, dt))
+    length = tokens.shape[1]
+    schedule = decode_schedule()
+    with recorded_routing() as pre_calls:
+        prefill = modellib.apply_train(model, tokens)    # (B,S,V) float32
+    check(all(bool(c["kept"].all()) for c in pre_calls),
+          f"{cfg.name} prefill dropped an assignment at capacity factor E")
+
+    def prefill_ids(i):
+        # the prefill's expert ids of the tokens of MoE call i of the decode
+        (_, rows, pos), j = schedule[i // len(pre_calls)], i % len(pre_calls)
+        at = torch.tensor(rows, device=DEVICE) * length \
+            + torch.tensor(pos, device=DEVICE)
+        return pre_calls[j]["ids"][at]
+    with replayed_routing(prefill_ids) as dec_calls:
+        dec = decode_logits(model, cfg, tokens, lambda n: (
+            modellib.init_caches(cfg, n, DECODE_CACHE, dt)))
+    model.cfg = own_cfg
+    check(len(dec_calls) == len(pre_calls) * len(schedule),
+          f"{cfg.name} decode: {len(dec_calls)} MoE calls")
+    replay_flips(dec_calls, f"{cfg.name} {label} decode against the "
+                 f"prefill at capacity factor {cfg.capacity_factor:g}")
     worst = 0.0
-    for where, rows, pos in decode_schedule():
+    for where, rows, pos in schedule:
         ratio = gap(dec, prefill, rows, pos)
         check(bool(torch.isfinite(dec[rows, pos]).all())
               and (tol is None or ratio <= tol),
@@ -3093,23 +3256,28 @@ def named_tensors(tree, name=None):
 def decode_bound(model, cfg, caches, rows: int) -> tuple:
     """(bound_ms, bound_by, (weight, KV, state bytes), ops) of one decode
     step: every weight read once (of an untied embedding only the rows'
-    entries), every KV cache read whole by `decode_attention`, every
-    recurrent state (conv tail, token shifts, SSM or wkv state) read and
-    written once, the logits written; over the HBM rate. Against it the
-    operations: `model_flops` of one token a row, the head's
-    2 · rows · d · V and the attention's 2 · rows · H · S · dh for each
-    of K and V a run, at the bf16 rate."""
+    entries), every KV cache (an MLA block's latent c and k_rope) read
+    whole, every recurrent state (conv tail, token shifts, SSM or wkv
+    state) read and written once, the logits written; over the HBM rate.
+    Against it the operations: `model_flops` of one token a row, the
+    head's 2 · rows · d · V and the attention's 2 · rows · H · S · dh for
+    each of K and V a run (MLA's absorbed form: 2 · rows · H · S · r_kv
+    each for the scores and p·c, 2 · rows · H · S · dr for the rotary
+    scores), at the bf16 rate."""
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
     if not cfg.tie_embeddings:
         table = model.embed.table
         weights -= table.numel() * table.element_size()
         weights += rows * table.shape[1] * table.element_size()
     kv, states, attn_ops = 0, 0, 0.0
+    per_position = {"k": cfg.head_dim, "v": cfg.head_dim,
+                    "c": 2 * cfg.kv_lora_rank,
+                    "k_rope": cfg.qk_rope_head_dim}
     for key, t in named_tensors(caches):
-        if key in ("k", "v"):
+        if key in per_position:
             kv += t.numel() * t.element_size()
             attn_ops += 2.0 * rows * cfg.num_heads * t.shape[1] \
-                * cfg.head_dim
+                * per_position[key]
         else:
             states += 2 * t.numel() * t.element_size()
     moved = weights + kv + states + 4 * rows * cfg.vocab_size
@@ -3318,70 +3486,6 @@ def moe_layer_check(p, cfg, x, label: str) -> dict:
     return rec
 
 
-def llama4_routed_decode(model, cfg, seed: int, tol: float) -> float:
-    """llama4's decode against its prefill (`decode_logits` against
-    `apply_train`) at capacity factor E: neither side drops an
-    assignment. Every decode call's logits within `tol` of the largest
-    |prefill logit|, over the (row, position) entries whose token both
-    routed alike (`routed_alike`: with the MoE block last, a flip moves
-    only its own token's logits)."""
-    nodrop = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
-    model.cfg = nodrop
-    tokens = decode_tokens(nodrop, seed)
-    rows_n, length = tokens.shape
-    with recorded_routing() as pre_calls:
-        prefill = modellib.apply_train(model, tokens)
-    with recorded_routing() as dec_calls:
-        dec = decode_logits(model, nodrop, tokens, lambda n: (
-            modellib.init_caches(nodrop, n, DECODE_CACHE,
-                                 layers.dtype_of(cfg))))
-    model.cfg = cfg
-    n_moe = len(pre_calls)
-    schedule = decode_schedule()
-    check(len(dec_calls) == n_moe * len(schedule),
-          f"llama4 decode: {len(dec_calls)} MoE calls")
-    # the decode's routing laid out as the prefill's tokens (row · L + pos)
-    as_prefill = []
-    for j in range(n_moe):
-        k = pre_calls[j]["ids"].shape[-1]
-        ids = torch.full((rows_n * length, k), -1, device=DEVICE)
-        kept = torch.zeros((rows_n * length, k), dtype=torch.bool,
-                           device=DEVICE)
-        for c, (_, rows, pos) in enumerate(schedule):
-            at = torch.tensor(rows, device=DEVICE) * length \
-                + torch.tensor(pos, device=DEVICE)
-            ids[at] = dec_calls[c * n_moe + j]["ids"]
-            kept[at] = dec_calls[c * n_moe + j]["kept"]
-        as_prefill.append({"ids": ids, "kept": kept})
-    check(all(bool(c["kept"].all()) for c in pre_calls + dec_calls),
-          "llama4 decode check: an assignment was dropped at capacity "
-          "factor E")
-    visited = [(r, p_) for _, rows, pos in schedule
-               for r, p_ in zip(rows, pos)]
-    idx = torch.tensor([r * length + p_ for r, p_ in visited], device=DEVICE)
-    alike = routed_alike(pre_calls, as_prefill, idx,
-                         f"{cfg.name} bf16 decode against the prefill at "
-                         f"capacity factor {nodrop.capacity_factor:g}")
-    worst, held = 0.0, 0
-    for (r, p_), ok in zip(visited, alike.tolist()):
-        if not ok:
-            continue
-        ratio = gap(dec, prefill, [r], [p_])
-        check(bool(torch.isfinite(dec[r, p_]).all()) and ratio <= tol,
-              f"{cfg.name} bf16 decode row {r} position {p_}: max |decode "
-              f"- prefill| {ratio:.4g} of the largest |logit| (tol {tol})")
-        worst, held = max(worst, ratio), held + 1
-    print(f"{cfg.name} bf16 model at capacity factor "
-          f"{nodrop.capacity_factor:g} (no assignment dropped on either "
-          f"side: the caches are tested, not the capacity): {rows_n} rows "
-          f"from positions {list(DECODE_OFFSETS)}, {DECODE_STEPS} steps "
-          f"through make_serve_decode against the prefill through the "
-          f"kernels, over {held} of {len(visited)} (row, position) entries "
-          f"routed alike: max |decode - prefill| {worst:.4g} of the largest "
-          f"|logit| (tol {tol})")
-    return worst
-
-
 def llama4_phase(seed: int, card: str) -> int:
     """Phase 18 (b): llama4-maverick cut to one pair at full width;
     returns the flash_attention launches of its prefill and its scored
@@ -3414,7 +3518,7 @@ def llama4_phase(seed: int, card: str) -> int:
                     f"{cfg.name} MoE layer on its ({b}, {s}) prefill input")
     del seen
 
-    llama4_routed_decode(model, cfg, seed, DECODE_BF16_TOL[LLAMA4])
+    decode_consistency(model, cfg, seed, DECODE_BF16_TOL[LLAMA4], "bf16")
     decode_times(model, cfg, NEW_DECODE_ROWS[LLAMA4], NEW_DECODE_LENGTH,
                  seed, card)
     launches = score_select_phase(model, cfg, seed, N_LLAMA4_CORPUS,
@@ -3478,23 +3582,11 @@ def flash_dh128_phase(seed: int) -> tuple:
     err_llama4 = 0.0
     for shape in (FA_YI, FA_LLAMA4):
         q, k, v = attention_inputs(shape, torch.bfloat16, g)
-        got = fa_ops.flash_attention(q, k, v)
-        again = fa_ops.flash_attention(q, k, v)
-        plain = plain_attention(q, k, v).float()
-        err = (got.float() - plain).abs()
-        excess = float((err - BF16_RTOL * plain.abs()).max())
-        fro = float(err.norm() / plain.norm())
-        check(excess <= BF16_ATOL and fro <= BF16_FRO_TOL
-              and torch.equal(got, again),
-              f"flash_attention {shape} bf16: |err| - 2^-7 |plain| up to "
-              f"{excess:.4g}, ||err|| / ||plain|| {fro:.4g}")
-        print(f"flash_attention {shape} bf16 causal: max |kernel - plain| "
-              f"{float(err.max()):.6g}, max |err| - 2^-7 |plain| "
-              f"{excess:.6g} (tol {BF16_ATOL}), ||err|| / ||plain|| "
-              f"{fro:.6g} (tol {BF16_FRO_TOL}), repeat bitwise")
+        err = hold_flash(q, k, v, True,
+                         f"flash_attention {shape} bf16 causal")
         if shape == FA_LLAMA4:
-            err_llama4 = float(err.max())
-        del q, k, v, got, again, plain, err
+            err_llama4 = err
+        del q, k, v
     rows = {shape: flash_row(shape, seed) for shape in (FA_YI, FA_LLAMA4)}
     for shape, row in rows.items():
         print(f"flash_attention at (B, S, H, KV, dh) = {shape}, bf16 causal:"
@@ -3514,6 +3606,85 @@ def new_configs_phase(seed: int, card: str) -> dict:
     print(f"phase 18 flash_attention dh-128 launches on the prefills and "
           f"llama4's scored corpus: {dh128}")
     return {"launches": dh128, "max_abs_err": err, **rows[FA_LLAMA4]}
+
+
+# -- phase 19 ------------------------------------------------------------------
+
+def flash_mla_phase(seed: int) -> tuple:
+    """Phase 19 (a): flash_attention at (dh, dv) = (192, 128), MLA's
+    prefill pair, against its plain version (by groups of KV heads):
+    deepseek-v2's prefill shape in bf16, then a ragged S causal and not,
+    and a GQA layout, in bf16 and float32 (phase 5's bars, repeat
+    bitwise); then its times beside its bound, the plain version and SDPA
+    by its fastest fused backend. Returns the largest |kernel - plain| at
+    deepseek-v2's shape and the row of times."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 19)
+    q, k, v = attention_inputs(FA_DSV2, torch.bfloat16, g)
+    err = hold_flash(q, k, v, True, f"flash_attention {FA_DSV2} bf16 "
+                     f"causal", plain_attention_by_heads)
+    del q, k, v
+    for shape, causal in (((2, 1000, 16, 16, 192, 128), True),
+                          ((2, 1000, 16, 16, 192, 128), False),
+                          ((2, 300, 8, 2, 192, 128), True)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = attention_inputs(shape, dtype, g)
+            hold_flash(q, k, v, causal, f"flash_attention {shape} {dtype} "
+                       f"causal={causal}")
+            del q, k, v
+    row = flash_row(FA_DSV2, seed, plain_attention_by_heads)
+    print(f"flash_attention at (B, S, H, KV, dh, dv) = {FA_DSV2}, bf16 "
+          f"causal: {json.dumps(row)}; {row['ms'] / row['bound_ms']:.3f}x "
+          f"its bound, {row['ms'] / row['library_ms']:.3f}x SDPA")
+    return err, row
+
+
+def dsv2_phase(seed: int, card: str) -> dict:
+    """Phase 19: deepseek-v2-236b at full width cut in depth (`NEW_DEPTH`),
+    every attention layer MLA on flash_attention's (192, 128) path;
+    returns that path's row of the kernels line. Its 58.4 GB of weights
+    leave about 20 GB: the allocator's cached blocks are given back before
+    the model is drawn and before its corpus is scored (a scoring call's
+    MoE layers hold about 10 GB)."""
+    torch.cuda.empty_cache()
+    print(f"device memory allocated before phase 19: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    err, row = flash_mla_phase(seed)
+    cfg = new_config(DSV2)
+    full = get_config(DSV2)
+    print(f"{DSV2}: {cfg.num_layers} of {full.num_layers} layers (the dense "
+          f"block and {cfg.num_layers - cfg.first_k_dense} MLA + MoE blocks)"
+          f", {modellib.count_params_analytic(cfg)} parameters, "
+          f"{modellib.count_params_analytic(cfg, active_only=True)} active "
+          f"(the published config: {full.param_count()}, "
+          f"{full.active_param_count()} active)")
+    model = init_model(cfg, seed)
+    per_prefill = {"flash_attention": cfg.num_layers}
+    with mock.patch.dict(PLAIN, {"flash_attention": (
+            (attention,), plain_attention_by_heads)}):
+        model_phase(model, cfg, seed, per_prefill, f32_copy=False)
+    decode_consistency(model, cfg, seed, DECODE_BF16_TOL[DSV2], "bf16")
+    decode_times(model, cfg, NEW_DECODE_ROWS[DSV2], NEW_DECODE_LENGTH, seed,
+                 card)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches = score_select_phase(model, cfg, seed, N_DSV2_CORPUS,
+                                  per_prefill,
+                                  DSV2_SCORE_BATCH)["flash_attention"]
+    print(f"{DSV2} scoring: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({card})")
+    del model
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, num_layers=DSV2_F32_LAYERS,
+                              dtype="float32")
+    print(f"{DSV2} in float32, cut to {cut.num_layers} layers at full width "
+          f"({modellib.count_params_analytic(cut)} parameters):")
+    f32 = init_model(cut, seed)
+    decode_consistency(f32, cut, seed, DECODE_F32_TOL, "float32")
+    del f32
+    torch.cuda.empty_cache()
+    return {"launches": per_prefill["flash_attention"] + launches,
+            "max_abs_err": err, **row}
 
 
 class Phases:
@@ -3680,6 +3851,10 @@ def main() -> None:
     with phase(new_name):
         dh128_row = new_configs_phase(args.seed, card)
     print(f"phase 18 wall: {phase.walls[new_name]:.3f} s ({card})")
+    dsv2_name = "19 deepseek-v2-236b: MLA on flash_attention at (192, 128)"
+    with phase(dsv2_name):
+        mla_row = dsv2_phase(args.seed, card)
+    print(f"phase 19 wall: {phase.walls[dsv2_name]:.3f} s ({card})")
     print(phase.total())
 
     rows = []
@@ -3716,6 +3891,10 @@ def main() -> None:
                  "source": "src/repro_torch/csrc/linear_scan.cu",
                  "replaces": "src/repro/kernels/linear_scan/"
                              "linear_scan.py:108", **channel_row})
+    rows.append({"name": "flash_attention_mla", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention/"
+                             "flash_attention.py:94", **mla_row})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,8 +6,12 @@
 // head, query head h reading KV head h / (H/KV), the mask
 // key >= S || (causal && key > row) at -1e30, an online softmax in log2
 // units with float32 (m, l, acc) state, and 1/max(l, 1e-30) at the end; o
-// is written in q's dtype. Layout is the model stack's: q and o
-// (B,S,H,dh), k and v (B,S,KV,dh).
+// is written in q's dtype. Layout is the model stack's: q (B,S,H,dh), k
+// (B,S,KV,dh), v (B,S,KV,dv) and o (B,S,H,dv). The TPU kernel takes
+// dv = dh; (dh, dv) = (192, 128) is MLA's prefill (deepseek-v2: q·k over
+// 128 latent-decompressed and 64 rotary dims, v of 128), which the
+// reference's model computes in `chunked_causal_attention` with the same
+// 1/√dh scale. Pairs: (64, 64), (128, 128) and (192, 128).
 //
 // Bound on this card: operations. At the smollm-360m prefill shape
 // (B=4, S=4096, H=15, dh=64, causal) the two products take
@@ -21,7 +25,7 @@
 // half of them to an FMA polynomial ran slower: the kernel is not held
 // back by those units alone.)
 //
-// bf16 design (`flash_bf16`), one template for head_dim 64 and 128:
+// bf16 design (`flash_bf16`), one template for the three (dh, dv) pairs:
 // * Persistent CTAs, one an SM, each with three warpgroups: a producer
 //   warpgroup, whose first thread issues every TMA load and which gives
 //   its registers to the consumers (setmaxnreg), and two consumer
@@ -32,19 +36,20 @@
 //   and v in L2, and the short causal tiles come last. The counter (two
 //   ints a stream) is reset by the launch's last CTA, so no launch needs a
 //   memset.
-// * q goes through two buffers (one at dh 128) and k and v tiles of 128
-//   keys through a ring of 4 stages (3 at dh 128) in dynamic shared
-//   memory, each with full and empty mbarriers: the next work tile's q and
-//   first k and v load while this one finishes, and its epilogue (stores
-//   from registers) overlaps them. (Side-by-side variants with one q
-//   buffer, 2 stages or a grid of one CTA a work tile ran slower.) The
-//   4-D tensor maps over (dh, heads, S, batch) are built by the wrapper
-//   from the tensors' strides; TMA zero-fills rows past S and writes each
-//   64-column block with the 128-byte swizzle the wgmma descriptors name.
+// * q goes through two buffers (one at dh 128 and 192) and k and v tiles
+//   of 128 keys through a ring of 4 stages (3 at dh 128, 2 at (192, 128))
+//   in dynamic shared memory, each with full and empty mbarriers: the next
+//   work tile's q and first k and v load while this one finishes, and its
+//   epilogue (stores from registers) overlaps them. (Side-by-side variants
+//   with one q buffer, 2 stages or a grid of one CTA a work tile ran
+//   slower.) The 4-D tensor maps over (head dim, heads, S, batch) are
+//   built by the wrapper from the tensors' strides, one each for q, k and
+//   v; TMA zero-fills rows past S and writes each 64-column block with
+//   the 128-byte swizzle the wgmma descriptors name.
 //   Key tiles wholly above the diagonal are never loaded.
-// * s = q·kᵀ by wgmma m64n128k16 with both operands in shared memory
-//   (K-major); o += p·v by wgmma m64n{dh}k16 with p from registers (the
-//   score accumulator re-packed as the A fragment, rounded to bf16 as
+// * s = q·kᵀ by dh/16 wgmma m64n128k16 with both operands in shared
+//   memory (K-major); o += p·v by wgmma m64n{dv}k16 with p from registers
+//   (the score accumulator re-packed as the A fragment, rounded to bf16 as
 //   flash-attention kernels do) and v read as it lies, an MN-major B
 //   operand (the transpose bf16 allows). Nothing of the S x S scores
 //   leaves registers.
@@ -66,11 +71,16 @@
 //   layer of yi-6b, deepseek-7b, qwen1.5-4b, chameleon-34b and
 //   llama4-maverick (GQA ratios 8, 1, 1, 8 and 5); its times beside
 //   scaled_dot_product_attention are in PERF.md §6.
+// * (192, 128) keeps dh 128's registers (s, p and a 64-wide acc) and its
+//   p·v, and runs q·kᵀ as 12 wgmma steps where dh 128 runs 8: a longer
+//   chain under the same serialization. Its shared memory holds 48 KB of q
+//   and two 80 KB stages (209 KB with the alignment slack). A simple path,
+//   not yet tuned; its time beside its bound is in PERF.md §6.
 //
 // float32 (`flash_f32`): the card's exact float32 arbiter for the float32
 // model copies. CUDA cores only (no TF32), so it is exact to float32
 // rounding. One CTA per 64 query rows; four threads share a query row,
-// each holding every fourth dimension of q and acc; a row's dot products
+// each holding every fourth dimension of q and of acc; a row's dot products
 // are summed with two warp shuffles. Both paths mask the ragged last tile,
 // so any S >= 1 runs, where the Pallas kernel asserts S % block == 0.
 //
@@ -100,30 +110,35 @@ constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int kTileQ = 128;             // query rows a CTA: 2 x 64
 constexpr int kTileK = 128;             // keys a K/V tile
-constexpr int kMaxStages = 4;           // K/V ring depth (dh 64; dh 128: 3)
+constexpr int kMaxStages = 4;           // K/V ring depth at dh 64 (Layout)
 constexpr int kThreadsBf16 = 384;       // producer + 2 consumer warpgroups
 constexpr int kRowBytes = 128;          // a swizzled row: 64 bf16 columns
 constexpr int kConsumerWarps = 8;
 constexpr uint32_t kTurn0 = 1;          // named barriers 1, 2: the turns
 static_assert(kTileQ == kTileK, "the causal tile count assumes it");
 
+constexpr int kQBlock = kTileQ * kRowBytes;    // a 64-column block of q
+constexpr int kKVBlock = kTileK * kRowBytes;   // of a K or V tile
+
 // Shared memory of one CTA, in bytes from a 1024-aligned base: q, then the
-// K ring, then the V ring; each tile is dh/64 column blocks of 128-byte
-// rows (the TMA box and the 128-byte swizzle atom). The ring is as deep as
-// a CTA's 227 KB allow, so loads run ahead of the products by more than
-// their latency.
-template <int DH>
+// K ring, then the V ring; q and K tiles are DQK/64 column blocks and V
+// tiles DV/64 of 128-byte rows (the TMA box and the 128-byte swizzle atom).
+// The ring is as deep as a CTA's 227 KB allow, so loads run ahead of the
+// products by more than their latency: 4 stages at (64, 64), 3 at
+// (128, 128), 2 at (192, 128) (48 KB of q and 80 KB a stage; a third stage
+// would need 289 KB).
+template <int DQK, int DV>
 struct Layout {
-  static constexpr int kStages = DH == 64 ? 4 : 3;
-  static constexpr int kQStages = DH == 64 ? 2 : 1;   // q buffers
-  static constexpr int kBlocks = DH / 64;
-  static constexpr int kQBlock = kTileQ * kRowBytes;
-  static constexpr int kKVBlock = kTileK * kRowBytes;
-  static constexpr int kQBytes = kBlocks * kQBlock;
-  static constexpr int kTileBytes = kBlocks * kKVBlock;
+  static constexpr int kStages = DQK == 64 ? 4 : DQK == 128 ? 3 : 2;
+  static constexpr int kQStages = DQK == 64 ? 2 : 1;  // q buffers
+  static constexpr int kQKBlocks = DQK / 64;           // of q and K tiles
+  static constexpr int kVBlocks = DV / 64;
+  static constexpr int kQBytes = kQKBlocks * kQBlock;
+  static constexpr int kKTileBytes = kQKBlocks * kKVBlock;
+  static constexpr int kVTileBytes = kVBlocks * kKVBlock;
   static constexpr int kK = kQStages * kQBytes;
-  static constexpr int kV = kK + kStages * kTileBytes;
-  static constexpr int kBytes = kV + kStages * kTileBytes + 1024;  // + align
+  static constexpr int kV = kK + kStages * kKTileBytes;
+  static constexpr int kBytes = kV + kStages * kVTileBytes + 1024;  // + align
   static_assert(kStages <= kMaxStages && kBytes <= 232448 - 128, "smem");
 };
 
@@ -392,13 +407,13 @@ __device__ __forceinline__ void softmax_scores(
 
 // acc *= (c0, c1) by row, and p = s as bf16: the A fragment of p·v (score
 // blocks 2kk and 2kk + 1, keys 16kk .. 16kk + 15, are step kk's).
-template <int DH>
-__device__ __forceinline__ void rescale_pack(float (&acc)[DH / 2],
+template <int DV>
+__device__ __forceinline__ void rescale_pack(float (&acc)[DV / 2],
                                              uint32_t (&p)[32],
                                              const float (&s)[64], float c0,
                                              float c1) {
 #pragma unroll
-  for (int i = 0; i < DH / 2; i += 4) {
+  for (int i = 0; i < DV / 2; i += 4) {
     acc[i] *= c0;
     acc[i + 1] *= c0;
     acc[i + 2] *= c1;
@@ -413,34 +428,34 @@ __device__ __forceinline__ void rescale_pack(float (&acc)[DH / 2],
   }
 }
 
-// s (64 x 128 keys) = q·kᵀ for this warpgroup's 64 rows: dh/16 steps of
+// s (64 x 128 keys) = q·kᵀ for this warpgroup's 64 rows: DQK/16 steps of
 // wgmma m64n128k16, each 16 columns (32 bytes) further into a row.
-template <int DH>
+template <int DQK>
 __device__ __forceinline__ void qk_product(float (&s)[64], uint32_t q_rows,
                                            uint32_t k_tile) {
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
+  for (int kk = 0; kk < DQK / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;
     wgmma_ss_n128(s,
-                  smem_desc(q_rows + (kk / 4) * Layout<DH>::kQBlock + col,
-                            16, 8 * kRowBytes),
-                  smem_desc(k_tile + (kk / 4) * Layout<DH>::kKVBlock + col,
-                            16, 8 * kRowBytes),
+                  smem_desc(q_rows + (kk / 4) * kQBlock + col, 16,
+                            8 * kRowBytes),
+                  smem_desc(k_tile + (kk / 4) * kKVBlock + col, 16,
+                            8 * kRowBytes),
                   kk > 0);
   }
 }
 
-// o (64 x dh) += p·v over the tile's 128 keys: 8 steps of wgmma
-// m64n{dh}k16, each 16 keys (16 rows of v) further.
-template <int DH>
-__device__ __forceinline__ void pv_product(float (&o)[DH / 2],
+// o (64 x DV) += p·v over the tile's 128 keys: 8 steps of wgmma
+// m64n{DV}k16, each 16 keys (16 rows of v) further.
+template <int DV>
+__device__ __forceinline__ void pv_product(float (&o)[DV / 2],
                                            const uint32_t (&p)[32],
                                            uint32_t v_tile) {
 #pragma unroll
   for (int kk = 0; kk < kTileK / 16; ++kk) {
-    const uint64_t desc = smem_desc(v_tile + kk * 16 * kRowBytes,
-                                    Layout<DH>::kKVBlock, 8 * kRowBytes);
-    if constexpr (DH == 64) wgmma_rs_n64(o, &p[4 * kk], desc);
+    const uint64_t desc = smem_desc(v_tile + kk * 16 * kRowBytes, kKVBlock,
+                                    8 * kRowBytes);
+    if constexpr (DV == 64) wgmma_rs_n64(o, &p[4 * kk], desc);
     else wgmma_rs_n128(o, &p[4 * kk], desc);
   }
 }
@@ -465,14 +480,14 @@ __device__ __forceinline__ WorkTile work_tile(int w, int q_tiles, int heads,
   return t;
 }
 
-template <int DH>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreadsBf16, 1)
 flash_bf16(const __grid_constant__ CUtensorMap q_map,
            const __grid_constant__ CUtensorMap k_map,
            const __grid_constant__ CUtensorMap v_map,
            __nv_bfloat16* __restrict__ o, int* __restrict__ sched, int seq,
            int batch, int heads, int kv_heads, int causal, float scale_log2) {
-  using L = Layout<DH>;
+  using L = Layout<DQK, DV>;
   constexpr int kStages = L::kStages, kQStages = L::kQStages;
   extern __shared__ uint8_t smem_raw[];
   // mbarriers: per q buffer full and empty; per stage K full, V full, K/V
@@ -527,23 +542,22 @@ flash_bf16(const __grid_constant__ CUtensorMap q_map,
             work_tile(w, q_tiles, heads, kv_heads, seq, causal);
         const uint32_t q_dst = base + qs * L::kQBytes;
         mbar_expect_tx(qf, L::kQBytes);
-        for (int c = 0; c < L::kBlocks; ++c)
-          tma_load(q_dst + c * L::kQBlock, &q_map, qf, c * 64, t.h, t.q0,
-                   t.b);
+        for (int c = 0; c < L::kQKBlocks; ++c)
+          tma_load(q_dst + c * kQBlock, &q_map, qf, c * 64, t.h, t.q0, t.b);
         for (int j = 0; j < t.n_tiles; ++j, ++g) {
           const int st = g % kStages;
           if (g >= kStages)
             mbar_wait(empty + 8 * st, ((g / kStages) & 1) ^ 1);
-          const uint32_t k_dst = base + L::kK + st * L::kTileBytes;
-          const uint32_t v_dst = base + L::kV + st * L::kTileBytes;
-          mbar_expect_tx(k_full + 8 * st, L::kTileBytes);
-          for (int c = 0; c < L::kBlocks; ++c)
-            tma_load(k_dst + c * L::kKVBlock, &k_map, k_full + 8 * st,
-                     c * 64, t.kvh, j * kTileK, t.b);
-          mbar_expect_tx(v_full + 8 * st, L::kTileBytes);
-          for (int c = 0; c < L::kBlocks; ++c)
-            tma_load(v_dst + c * L::kKVBlock, &v_map, v_full + 8 * st,
-                     c * 64, t.kvh, j * kTileK, t.b);
+          const uint32_t k_dst = base + L::kK + st * L::kKTileBytes;
+          const uint32_t v_dst = base + L::kV + st * L::kVTileBytes;
+          mbar_expect_tx(k_full + 8 * st, L::kKTileBytes);
+          for (int c = 0; c < L::kQKBlocks; ++c)
+            tma_load(k_dst + c * kKVBlock, &k_map, k_full + 8 * st, c * 64,
+                     t.kvh, j * kTileK, t.b);
+          mbar_expect_tx(v_full + 8 * st, L::kVTileBytes);
+          for (int c = 0; c < L::kVBlocks; ++c)
+            tma_load(v_dst + c * kKVBlock, &v_map, v_full + 8 * st, c * 64,
+                     t.kvh, j * kTileK, t.b);
         }
       }
       // Every CTA takes one tile past the end; the last to do so resets
@@ -561,7 +575,7 @@ flash_bf16(const __grid_constant__ CUtensorMap q_map,
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
     const int g4 = lane >> 2, t4 = lane & 3;
     const uint32_t mine = kTurn0 + wg, theirs = kTurn0 + 1 - wg;
-    float s[64], acc[DH / 2];
+    float s[64], acc[DV / 2];
     uint32_t p[32];
 
     // The turns alternate across work tiles: consumer 0 takes the first,
@@ -582,22 +596,22 @@ flash_bf16(const __grid_constant__ CUtensorMap q_map,
       // This thread's two rows (the accumulator fragment's g and g + 8).
       const int row0 = t.q0 + wg * 64 + warp * 16 + g4, row1 = row0 + 8;
 #pragma unroll
-      for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
       float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, c0, c1;
 
       // The first burst: s of the tile's first keys, and its softmax.
       mbar_wait(k_full + 8 * (g % kStages), (g / kStages) & 1);
       named_sync(mine);
       wgmma_fence();
-      qk_product<DH>(s, q_rows,
-                     base + L::kK + (g % kStages) * L::kTileBytes);
+      qk_product<DQK>(s, q_rows,
+                      base + L::kK + (g % kStages) * L::kKTileBytes);
       wgmma_commit();
       named_arrive(theirs);
       wgmma_wait<0>();
       fence_regs(s);
       softmax_scores(s, m0, m1, l0, l1, c0, c1, t.n_tiles == 1, 0, row0,
                      row1, seq, causal, scale_log2);
-      rescale_pack<DH>(acc, p, s, c0, c1);
+      rescale_pack<DV>(acc, p, s, c0, c1);
 
       // Steady state, one burst on the tensor cores a key tile: q·kᵀ of
       // tile j + 1, then p·v of tile j. The softmax of tile j + 1 runs
@@ -610,9 +624,9 @@ flash_bf16(const __grid_constant__ CUtensorMap q_map,
         mbar_wait(v_full + 8 * st, ((g + j) / kStages) & 1);
         named_sync(mine);
         wgmma_fence();
-        qk_product<DH>(s, q_rows, base + L::kK + nx * L::kTileBytes);
+        qk_product<DQK>(s, q_rows, base + L::kK + nx * L::kKTileBytes);
         wgmma_commit();
-        pv_product<DH>(acc, p, base + L::kV + st * L::kTileBytes);
+        pv_product<DV>(acc, p, base + L::kV + st * L::kVTileBytes);
         wgmma_commit();
         named_arrive(theirs);
         wgmma_wait<1>();                              // s of tile j + 1
@@ -624,7 +638,7 @@ flash_bf16(const __grid_constant__ CUtensorMap q_map,
         fence_regs(acc);
         fence_regs(p);
         mbar_arrive_lane0(empty + 8 * st, lane);     // stage st is free
-        rescale_pack<DH>(acc, p, s, c0, c1);
+        rescale_pack<DV>(acc, p, s, c0, c1);
       }
       mbar_arrive_lane0(q_empty + 8 * qs, lane);     // q is read: refill
       // p·v of the last key tile.
@@ -633,7 +647,7 @@ flash_bf16(const __grid_constant__ CUtensorMap q_map,
         mbar_wait(v_full + 8 * st, ((g + t.n_tiles - 1) / kStages) & 1);
         named_sync(mine);
         wgmma_fence();
-        pv_product<DH>(acc, p, base + L::kV + st * L::kTileBytes);
+        pv_product<DV>(acc, p, base + L::kV + st * L::kVTileBytes);
         wgmma_commit();
         named_arrive(theirs);
         wgmma_wait<0>();
@@ -648,16 +662,16 @@ flash_bf16(const __grid_constant__ CUtensorMap q_map,
       l1 += __shfl_xor_sync(kFull, l1, 2);
       const float inv0 = 1.f / fmaxf(l0, 1e-30f);
       const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-      const long long q_stride = static_cast<long long>(heads) * DH;
-      __nv_bfloat16* ob = o + static_cast<long long>(t.b) * seq * q_stride
-                          + t.h * DH + 2 * t4;
+      const long long o_stride = static_cast<long long>(heads) * DV;
+      __nv_bfloat16* ob = o + static_cast<long long>(t.b) * seq * o_stride
+                          + t.h * DV + 2 * t4;
 #pragma unroll
-      for (int i = 0; i < DH / 8; ++i) {
+      for (int i = 0; i < DV / 8; ++i) {
         if (row0 < seq)
-          *reinterpret_cast<uint32_t*>(ob + row0 * q_stride + 8 * i) =
+          *reinterpret_cast<uint32_t*>(ob + row0 * o_stride + 8 * i) =
               pack_bf16(acc[4 * i] * inv0, acc[4 * i + 1] * inv0);
         if (row1 < seq)
-          *reinterpret_cast<uint32_t*>(ob + row1 * q_stride + 8 * i) =
+          *reinterpret_cast<uint32_t*>(ob + row1 * o_stride + 8 * i) =
               pack_bf16(acc[4 * i + 2] * inv1, acc[4 * i + 3] * inv1);
       }
     }
@@ -672,14 +686,15 @@ __device__ __forceinline__ int key_tiles(int qt, int seq, int causal,
   return last / bk + 1;
 }
 
-template <int DH>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads32)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o, int seq,
           int heads, int kv_heads, int causal, float scale_log2) {
-  constexpr int kPer = DH / 4;          // dims a thread holds: part + 4*i
-  __shared__ float ks[kBK32 * DH];
-  __shared__ float vs[kBK32 * DH];
+  constexpr int kPerQ = DQK / 4;        // dims a thread holds: part + 4*i
+  constexpr int kPerV = DV / 4;
+  __shared__ float ks[kBK32 * DQK];     // 40 KB at (192, 128)
+  __shared__ float vs[kBK32 * DV];
 
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
@@ -687,30 +702,43 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int kvh = h / (heads / kv_heads);
   const int part = threadIdx.x & 3;
   const int row = qt * kBQ + (threadIdx.x >> 2);
-  const long long q_stride = static_cast<long long>(heads) * DH;
-  const long long kv_stride = static_cast<long long>(kv_heads) * DH;
-  const float* qb = q + batch_off * q_stride + h * DH;
-  const float* kb = k + batch_off * kv_stride + kvh * DH;
-  const float* vb = v + batch_off * kv_stride + kvh * DH;
-  float* ob = o + batch_off * q_stride + h * DH;
+  const long long q_stride = static_cast<long long>(heads) * DQK;
+  const long long k_stride = static_cast<long long>(kv_heads) * DQK;
+  const long long v_stride = static_cast<long long>(kv_heads) * DV;
+  const long long o_stride = static_cast<long long>(heads) * DV;
+  const float* qb = q + batch_off * q_stride + h * DQK;
+  const float* kb = k + batch_off * k_stride + kvh * DQK;
+  const float* vb = v + batch_off * v_stride + kvh * DV;
+  float* ob = o + batch_off * o_stride + h * DV;
 
-  float qr[kPer], acc[kPer];
+  float qr[kPerQ], acc[kPerV];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
+  for (int i = 0; i < kPerQ; ++i)
     qr[i] = row < seq ? qb[row * q_stride + part + 4 * i] : 0.f;
-    acc[i] = 0.f;
-  }
+#pragma unroll
+  for (int i = 0; i < kPerV; ++i) acc[i] = 0.f;
   float m = kNegInf, l = 0.f;
 
   const int n_tiles = key_tiles(qt, seq, causal, kBK32);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK32;
     __syncthreads();
-    for (int i = threadIdx.x; i < kBK32 * DH; i += kThreads32) {
-      const int r = i / DH, c = i % DH;
-      const bool in = k0 + r < seq;
-      ks[i] = in ? kb[(k0 + r) * kv_stride + c] : 0.f;
-      vs[i] = in ? vb[(k0 + r) * kv_stride + c] : 0.f;
+    if constexpr (DQK == DV) {
+      for (int i = threadIdx.x; i < kBK32 * DQK; i += kThreads32) {
+        const int r = i / DQK, c = i % DQK;
+        const bool in = k0 + r < seq;
+        ks[i] = in ? kb[(k0 + r) * k_stride + c] : 0.f;
+        vs[i] = in ? vb[(k0 + r) * v_stride + c] : 0.f;
+      }
+    } else {
+      for (int i = threadIdx.x; i < kBK32 * DQK; i += kThreads32) {
+        const int r = i / DQK, c = i % DQK;
+        ks[i] = k0 + r < seq ? kb[(k0 + r) * k_stride + c] : 0.f;
+      }
+      for (int i = threadIdx.x; i < kBK32 * DV; i += kThreads32) {
+        const int r = i / DV, c = i % DV;
+        vs[i] = k0 + r < seq ? vb[(k0 + r) * v_stride + c] : 0.f;
+      }
     }
     __syncthreads();
 
@@ -720,7 +748,7 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < kBK32; ++j) {
       float d = 0.f;
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) d = fmaf(qr[i], ks[j * DH + part + 4 * i], d);
+      for (int i = 0; i < kPerQ; ++i) d = fmaf(qr[i], ks[j * DQK + part + 4 * i], d);
       d += __shfl_xor_sync(kFull, d, 1);
       d += __shfl_xor_sync(kFull, d, 2);
       const int key = k0 + j;
@@ -733,13 +761,13 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
     m = mn;
     float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) acc[i] *= corr;
+    for (int i = 0; i < kPerV; ++i) acc[i] *= corr;
 #pragma unroll
     for (int j = 0; j < kBK32; ++j) {
       const float p = exp2f(s[j] - mn);
       sum += p;
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) acc[i] = fmaf(p, vs[j * DH + part + 4 * i], acc[i]);
+      for (int i = 0; i < kPerV; ++i) acc[i] = fmaf(p, vs[j * DV + part + 4 * i], acc[i]);
     }
     l = l * corr + sum;
   }
@@ -747,7 +775,7 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   if (row < seq) {
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) ob[row * q_stride + part + 4 * i] = acc[i] / denom;
+    for (int i = 0; i < kPerV; ++i) ob[row * o_stride + part + 4 * i] = acc[i] / denom;
   }
 }
 
@@ -794,25 +822,28 @@ cudaError_t encode_map(CUtensorMap* map, const void* ptr,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int DH>
+template <int DQK, int DV>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        const long long* q_geom, const long long* kv_geom,
-                        int causal, float scale_log2, int ctas, int* sched,
-                        int smem_bytes, cudaStream_t stream) {
-  if (smem_bytes != Layout<DH>::kBytes) return cudaErrorInvalidValue;
+                        const long long* q_geom, const long long* k_geom,
+                        const long long* v_geom, int causal, float scale_log2,
+                        int ctas, int* sched, int smem_bytes,
+                        cudaStream_t stream) {
+  if (smem_bytes != Layout<DQK, DV>::kBytes || q_geom[0] != DQK
+      || k_geom[0] != DQK || v_geom[0] != DV)
+    return cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
   cudaError_t err = encode_map(&q_map, q, q_geom, kTileQ);
-  if (err == cudaSuccess) err = encode_map(&k_map, k, kv_geom, kTileK);
-  if (err == cudaSuccess) err = encode_map(&v_map, v, kv_geom, kTileK);
+  if (err == cudaSuccess) err = encode_map(&k_map, k, k_geom, kTileK);
+  if (err == cudaSuccess) err = encode_map(&v_map, v, v_geom, kTileK);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bf16<DH>,
+    err = cudaFuncSetAttribute(flash_bf16<DQK, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes);
   if (err != cudaSuccess) return err;
-  flash_bf16<DH><<<ctas, kThreadsBf16, smem_bytes, stream>>>(
+  flash_bf16<DQK, DV><<<ctas, kThreadsBf16, smem_bytes, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), sched,
       static_cast<int>(q_geom[2]), static_cast<int>(q_geom[3]),
-      static_cast<int>(q_geom[1]), static_cast<int>(kv_geom[1]), causal,
+      static_cast<int>(q_geom[1]), static_cast<int>(k_geom[1]), causal,
       scale_log2);
   return cudaGetLastError();
 }
@@ -821,38 +852,48 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// bf16 o = attention(q, k, v) with the wrapper's launch plan: `q_geom` and
-// `kv_geom` are (dh, heads, S, batch) and the byte strides of dims 1-3 (o
-// is laid out as q); `ctas` persistent CTAs take the work tiles from
-// `sched`, two ints that are 0 before the launch and 0 again after it (the
-// last CTA resets them); `smem_bytes` is the dynamic shared memory, which
-// must be the kernel's layout for `head_dim`.
+// bf16 o = attention(q, k, v) with the wrapper's launch plan: `q_geom`,
+// `k_geom` and `v_geom` are (head dim, heads, S, batch) and the byte strides
+// of dims 1-3 (o is laid out as q, with v's head dim); `ctas` persistent
+// CTAs take the work tiles from `sched`, two ints that are 0 before the
+// launch and 0 again after it (the last CTA resets them); `smem_bytes` is
+// the dynamic shared memory, which must be the kernel's layout for
+// (`head_dim`, `v_dim`): (64, 64), (128, 128) or (192, 128).
 int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
                                 void* o, const long long* q_geom,
-                                const long long* kv_geom, int head_dim,
-                                int causal, float scale_log2, int ctas,
-                                int* sched, int smem_bytes,
+                                const long long* k_geom,
+                                const long long* v_geom, int head_dim,
+                                int v_dim, int causal, float scale_log2,
+                                int ctas, int* sched, int smem_bytes,
                                 cudaStream_t stream) {
   cudaError_t err = cudaErrorInvalidValue;
-  if (head_dim == 64)
-    err = launch_bf16<64>(q, k, v, o, q_geom, kv_geom, causal, scale_log2,
-                          ctas, sched, smem_bytes, stream);
-  else if (head_dim == 128)
-    err = launch_bf16<128>(q, k, v, o, q_geom, kv_geom, causal, scale_log2,
-                           ctas, sched, smem_bytes, stream);
+  if (head_dim == 64 && v_dim == 64)
+    err = launch_bf16<64, 64>(q, k, v, o, q_geom, k_geom, v_geom, causal,
+                              scale_log2, ctas, sched, smem_bytes, stream);
+  else if (head_dim == 128 && v_dim == 128)
+    err = launch_bf16<128, 128>(q, k, v, o, q_geom, k_geom, v_geom, causal,
+                                scale_log2, ctas, sched, smem_bytes, stream);
+  else if (head_dim == 192 && v_dim == 128)
+    err = launch_bf16<192, 128>(q, k, v, o, q_geom, k_geom, v_geom, causal,
+                                scale_log2, ctas, sched, smem_bytes, stream);
   return static_cast<int>(err);
 }
 
-// float32 o = attention(q, k, v): q, o (batch, seq, heads, head_dim); k, v
-// (batch, seq, kv_heads, head_dim), contiguous; head_dim 64 or 128.
+// float32 o = attention(q, k, v): q (batch, seq, heads, head_dim), k
+// (batch, seq, kv_heads, head_dim), v (batch, seq, kv_heads, v_dim), o
+// (batch, seq, heads, v_dim), contiguous; (head_dim, v_dim) is (64, 64),
+// (128, 128) or (192, 128).
 int flash_attention_f32_launch(const void* q, const void* k, const void* v,
                                void* o, int batch, int seq, int heads,
-                               int kv_heads, int head_dim, int causal,
-                               float scale_log2, cudaStream_t stream) {
-  if (head_dim != 64 && head_dim != 128)
-    return static_cast<int>(cudaErrorInvalidValue);
+                               int kv_heads, int head_dim, int v_dim,
+                               int causal, float scale_log2,
+                               cudaStream_t stream) {
+  decltype(&flash_f32<64, 64>) kernel = nullptr;
+  if (head_dim == 64 && v_dim == 64) kernel = &flash_f32<64, 64>;
+  else if (head_dim == 128 && v_dim == 128) kernel = &flash_f32<128, 128>;
+  else if (head_dim == 192 && v_dim == 128) kernel = &flash_f32<192, 128>;
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((seq + kBQ - 1) / kBQ, heads, batch);
-  auto kernel = head_dim == 64 ? &flash_f32<64> : &flash_f32<128>;
   kernel<<<grid, kThreads32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), seq, heads,

@@ -3,7 +3,9 @@
 (`ref.attention_ref`) for CPU ones.
 
 Tensors are in the model stack's (B, S, H, dh) layout, as in the JAX
-package's ``kernels/flash_attention/ops.py``.
+package's ``kernels/flash_attention/ops.py``. v may have a head dim dv of
+its own (MLA's prefill: q·k at 192, v at 128), as the reference's
+``chunked_causal_attention`` allows; o then has dv.
 
 >>> import torch
 >>> q = torch.zeros(1, 3, 2, 64)
@@ -23,7 +25,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
-HEAD_DIMS = (64, 128)
+# (q·k head dim, v head dim) pairs the CUDA kernels take
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 DTYPES = (torch.bfloat16, torch.float32)
 _MAX_GRID = 65_535         # the launch grids' y and z dimensions
 
@@ -37,11 +40,11 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     geom = ctypes.POINTER(ctypes.c_longlong)
     lib.flash_attention_bf16_launch.argtypes = [
-        ptr, ptr, ptr, ptr, geom, geom, i32, i32, ctypes.c_float, i32, ptr,
-        i32, ptr]
+        ptr, ptr, ptr, ptr, geom, geom, geom, i32, i32, i32, ctypes.c_float,
+        i32, ptr, i32, ptr]
     lib.flash_attention_f32_launch.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ctypes.c_float,
-        ptr]
+        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+        ctypes.c_float, ptr]
     for fn in (lib.flash_attention_bf16_launch,
                lib.flash_attention_f32_launch):
         fn.restype = ctypes.c_int
@@ -54,18 +57,19 @@ def _lib() -> ctypes.CDLL:
 # SM, with a producer and two consumer warpgroups, takes work tiles of
 # TILE_Q query rows of one head from a counter and streams k and v in tiles
 # of TILE_K keys through a ring of STAGES[head_dim] stages; every tile lies
-# in shared memory as head_dim/64 column blocks of 128-byte rows.
+# in shared memory as 64-column blocks of 128-byte rows: q and k tiles
+# head_dim/64 of them, v tiles v_dim/64.
 TILE_Q = TILE_K = 128
-STAGES = {64: 4, 128: 3}
-Q_STAGES = {64: 2, 128: 1}
+STAGES = {64: 4, 128: 3, 192: 2}
+Q_STAGES = {64: 2, 128: 1, 192: 1}
 BF16_THREADS = 384
 _MAX_WORK = 2 ** 31 - 1
 
 
 def tensor_map_geometry(t: torch.Tensor) -> Tuple[int, ...]:
-    """The TMA tensor map of a (B, S, heads, dh) bf16 tensor, from its
-    strides: dims (dh, heads, S, B) innermost first, then the byte strides
-    of dims heads, S and B. TMA needs dh contiguous and each stride a
+    """The TMA tensor map of a (B, S, heads, d) bf16 tensor, from its
+    strides: dims (d, heads, S, B) innermost first, then the byte strides
+    of dims heads, S and B. TMA needs d contiguous and each stride a
     multiple of 16 bytes."""
     b, s, h, dh = t.shape
     size = t.element_size()
@@ -73,40 +77,45 @@ def tensor_map_geometry(t: torch.Tensor) -> Tuple[int, ...]:
             t.stride(0) * size)
 
 
-def bf16_smem_bytes(head_dim: int) -> int:
-    """Dynamic shared memory of the bf16 kernel at `head_dim`: its q
-    buffers and the ring's k and v tiles, 2 bytes an element, plus 1024
-    bytes to align the base to the 128-byte swizzle's 1024-byte pattern."""
-    return 2 * head_dim * (Q_STAGES[head_dim] * TILE_Q
-                           + 2 * STAGES[head_dim] * TILE_K) + 1024
+def bf16_smem_bytes(head_dim: int, v_dim: int) -> int:
+    """Dynamic shared memory of the bf16 kernel at (`head_dim`, `v_dim`):
+    its q buffers and the ring's k and v tiles, 2 bytes an element, plus
+    1024 bytes to align the base to the 128-byte swizzle's 1024-byte
+    pattern."""
+    return 2 * (Q_STAGES[head_dim] * TILE_Q * head_dim
+                + STAGES[head_dim] * TILE_K * (head_dim + v_dim)) + 1024
 
 
-def bf16_launch_plan(q: torch.Tensor, k: torch.Tensor, sms: int) -> dict:
+def bf16_launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     sms: int) -> dict:
     """The bf16 kernel's launch on a card of `sms` SMs: its work tiles
     (query tiles x heads x batch), one persistent CTA an SM up to that
     many, their threads and dynamic shared memory, and the tensor maps of
-    q (and o's layout) and of k and v."""
+    q, k and v (o is laid out as q, with v's head dim)."""
     b, s, h, dh = q.shape
     work = -(-s // TILE_Q) * h * b
     return {"work": work, "ctas": min(work, sms), "threads": BF16_THREADS,
-            "smem_bytes": bf16_smem_bytes(dh),
+            "smem_bytes": bf16_smem_bytes(dh, v.shape[3]),
             "q_geom": tensor_map_geometry(q),
-            "kv_geom": tensor_map_geometry(k)}
+            "k_geom": tensor_map_geometry(k),
+            "v_geom": tensor_map_geometry(v)}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise on what the CUDA kernel does not take."""
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention takes q (B,S,H,dh) and k, v "
-                         f"(B,S,KV,dh), got {tuple(q.shape)}, "
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"flash_attention takes q (B,S,H,dh), k (B,S,KV,dh)"
+                         f" and v (B,S,KV,dv), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, s, h, dh = q.shape
     kv = k.shape[2]
     if k.shape[:2] != (b, s) or k.shape[3] != dh or h % kv:
         raise ValueError(f"k and v must be (B,S,KV,dh) with H % KV == 0 "
                          f"for q {tuple(q.shape)}, got {tuple(k.shape)}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head_dim must be one of {HEAD_DIMS}, got {dh}")
+    if (dh, v.shape[3]) not in HEAD_DIMS:
+        raise ValueError(f"(head_dim, v_dim) must be one of {HEAD_DIMS}, "
+                         f"got {(dh, v.shape[3])}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share a dtype in {DTYPES}, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -145,9 +154,10 @@ def _work_counter(device: torch.device, stream: int) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q: (B,S,H,dh); k/v: (B,S,KV,dh) -> (B,S,H,dh) in q's dtype:
-    softmax(q·kᵀ/√dh)·v with float32 accumulation, query head h reading
-    KV head h // (H/KV), and the mask q_pos >= k_pos if `causal`."""
+    """q: (B,S,H,dh); k: (B,S,KV,dh); v: (B,S,KV,dv) -> (B,S,H,dv) in q's
+    dtype: softmax(q·kᵀ/√dh)·v with float32 accumulation, query head h
+    reading KV head h // (H/KV), and the mask q_pos >= k_pos if
+    `causal`."""
     devices = {q.device.type, k.device.type, v.device.type}
     if devices == {"cpu"}:
         return ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
@@ -157,24 +167,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"device, got {q.device}, {k.device}, {v.device}")
     _check(q, k, v)
     b, s, h, dh = q.shape
+    dv = v.shape[3]
     lib = _lib()
     scale_log2 = math.log2(math.e) / math.sqrt(dh)
     with torch.cuda.device(q.device):
-        out = torch.empty_like(q)
+        out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if q.dtype == torch.bfloat16:
-            plan = bf16_launch_plan(q, k, _sm_count(q.device.index))
+            plan = bf16_launch_plan(q, k, v, _sm_count(q.device.index))
+            geoms = [(ctypes.c_longlong * 7)(*plan[name])
+                     for name in ("q_geom", "k_geom", "v_geom")]
             status = lib.flash_attention_bf16_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                (ctypes.c_longlong * 7)(*plan["q_geom"]),
-                (ctypes.c_longlong * 7)(*plan["kv_geom"]), dh, int(causal),
-                scale_log2, plan["ctas"],
+                *geoms, dh, dv, int(causal), scale_log2, plan["ctas"],
                 _work_counter(q.device, stream).data_ptr(),
                 plan["smem_bytes"], stream)
         else:
             status = lib.flash_attention_f32_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, s, h, k.shape[2], dh, int(causal), scale_log2, stream)
+                b, s, h, k.shape[2], dh, dv, int(causal), scale_log2,
+                stream)
     _build.check(status, lib.flash_attention_error_string,
                  "flash_attention")
     launches.bump()

@@ -9,11 +9,12 @@ NEG_INF = -1e30
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True) -> torch.Tensor:
-    """q: (B,H,S,dh); k/v: (B,KV,S,dh) with H % KV == 0 -> (B,H,S,dh) in
-    q's dtype. Query head h reads KV head h // (H/KV); scores, softmax
-    and the product with v run in float32."""
+    """q: (B,H,S,dh); k: (B,KV,S,dh); v: (B,KV,S,dv) with H % KV == 0 ->
+    (B,H,S,dv) in q's dtype. Query head h reads KV head h // (H/KV);
+    scores (scaled by 1/√dh, q's head dim), softmax and the product with v
+    run in float32."""
     b, h, s, dh = q.shape
-    kv = k.shape[1]
+    kv, dv = k.shape[1], v.shape[-1]
     g = h // kv
     qg = q.reshape(b, kv, g, s, dh).float()
     scores = torch.einsum("bkgqd,bkpd->bkgqp", qg, k.float()) / (dh ** 0.5)
@@ -22,4 +23,4 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = torch.where(mask, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     o = torch.einsum("bkgqp,bkpd->bkgqd", p, v.float())
-    return o.reshape(b, h, s, dh).to(q.dtype)
+    return o.reshape(b, h, s, dv).to(q.dtype)

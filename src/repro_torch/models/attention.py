@@ -1,7 +1,8 @@
-"""GQA/MHA attention (+QKV bias, qk-norm) for prefill and decode: the JAX
-package's ``models/attention.py`` ``init_gqa``, ``_gqa_qkv``,
-``gqa_prefill``, ``decode_attention``, ``gqa_decode`` and
-``gqa_cache_spec``.
+"""GQA/MHA attention (+QKV bias, qk-norm) and MLA (DeepSeek-V2) for
+prefill and decode: the JAX package's ``models/attention.py``
+``init_gqa``, ``_gqa_qkv``, ``gqa_prefill``, ``decode_attention``,
+``gqa_decode``, ``gqa_cache_spec``, ``init_mla``, ``_mla_q``,
+``_mla_latent``, ``mla_prefill``, ``mla_decode`` and ``mla_cache_spec``.
 
 Where the reference's prefill runs ``chunked_causal_attention`` (its jnp
 analogue of the Pallas kernel), the port calls the hand-written
@@ -12,9 +13,17 @@ any kernel, so the port's is plain PyTorch with the same float32 scores
 and softmax. What differs: the cache is written in place at each row's
 position (the reference returns a new cache, which XLA writes in place
 under donation), and the float32 products run over blocks of cache
-positions, so a step never holds a float32 copy of a whole cache. MLA,
-context-parallel attention and ``chunked_causal_attention`` are not ported
-yet (ROADMAP §1).
+positions, so a step never holds a float32 copy of a whole cache.
+
+MLA's prefill materializes per-head k = [k_nope | k_rope broadcast to
+every head] (q·k over dn + dr = 192 dims at deepseek-v2's widths) and v
+(dv = 128), as the reference does, and runs them through the same
+`flash_attention` kernel at (dh, dv) = (192, 128). Its decode is the
+reference's absorbed form in plain PyTorch: scores and outputs in the
+latent space of the (B, S, r_kv) cache, which holds r_kv + dr numbers a
+token whatever the number of heads. Context-parallel attention waits
+for launch and sharding (ROADMAP §1); ``chunked_causal_attention`` has no
+port, since the prefills call the kernel where the reference calls it.
 """
 from __future__ import annotations
 
@@ -107,19 +116,26 @@ def decode_attention(q, cache_k, cache_v, pos):
     return out.reshape(b, 1, h, dh).to(q.dtype)
 
 
+def _write_at(cache, new, pos):
+    """cache[b, at_b] = new[b, 0] in place for each row b, placed as the
+    reference's ``dynamic_update_slice`` places its start: a negative pos
+    counts from the end (pos + S), then the start is clamped into
+    [0, S-1]."""
+    s = cache.shape[1]
+    at = torch.where(pos < 0, pos + s, pos).clamp(0, s - 1)
+    cache[torch.arange(len(pos), device=pos.device), at] = \
+        new[:, 0].to(cache.dtype)
+
+
 def gqa_decode(p, cfg, x, cache, pos):
     """x: (B,1,d); cache: {'k','v'}: (B,S,KV,hd); pos: (B,) -> ((B,1,d),
     cache). q, k and v are rotated at each row's own position; k and v are
-    written into the cache in place at pos as the reference's
-    ``dynamic_update_slice`` places its start: a negative pos counts from
-    the end (pos + S), then the start is clamped into [0, S-1]. Then the
-    query attends over positions <= pos."""
-    b, s = x.shape[0], cache["k"].shape[1]
+    written into the cache in place at pos (`_write_at`). Then the query
+    attends over positions <= pos."""
+    b = x.shape[0]
     q, k_new, v_new = _gqa_qkv(p, cfg, x, pos[:, None])
-    rows = torch.arange(b, device=x.device)
-    at = torch.where(pos < 0, pos + s, pos).clamp(0, s - 1)
-    cache["k"][rows, at] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, at] = v_new[:, 0].to(cache["v"].dtype)
+    _write_at(cache["k"], k_new, pos)
+    _write_at(cache["v"], v_new, pos)
     o = decode_attention(q, cache["k"], cache["v"], pos)
     return matmul(o.reshape(b, 1, -1), p.wo), cache
 
@@ -128,3 +144,127 @@ def gqa_cache_spec(cfg, batch, seq_len, dtype):
     """{'k', 'v'}: ((B, S, KV, hd), dtype) each."""
     shape = (batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": (shape, dtype), "v": (shape, dtype)}
+
+
+# --------------------------------------------------------------------------
+# MLA — Multi-head Latent Attention (DeepSeek-V2)
+# --------------------------------------------------------------------------
+
+def init_mla(cfg, *, generator, device):
+    """The latent projection w_dkv (d, r_kv + dr) and its RMSNorm kv_norm,
+    the up-projections w_uk (r_kv, H·dn) and w_uv (r_kv, H·dv), wo (H·dv,
+    d); the query through w_dq (d, r_q), q_norm and w_uq (r_q, H·(dn+dr))
+    if cfg.q_lora_rank, else wq (d, H·(dn+dr)). Drawn in the reference's
+    key order."""
+    d, h = cfg.d_model, cfg.num_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dt = layers.dtype_of(cfg)
+    p = {}
+    if r_q:
+        p["w_dq"] = dense_init(generator, d, r_q, dt, device)
+        p["q_norm"] = layers.init_rmsnorm(r_q, device)
+        p["w_uq"] = dense_init(generator, r_q, h * (dn + dr), dt, device)
+    else:
+        p["wq"] = dense_init(generator, d, h * (dn + dr), dt, device)
+    p["w_dkv"] = dense_init(generator, d, r_kv + dr, dt, device)
+    p["kv_norm"] = layers.init_rmsnorm(r_kv, device)
+    p["w_uk"] = dense_init(generator, r_kv, h * dn, dt, device)
+    p["w_uv"] = dense_init(generator, r_kv, h * dv, dt, device)
+    p["wo"] = dense_init(generator, h * dv, d, dt, device)
+    return layers.params(**p)
+
+
+def _mla_q(p, cfg, x, positions):
+    """x: (B,S,d) -> q_nope (B,S,H,dn) and q_rope (B,S,H,dr), rotated."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    if cfg.q_lora_rank:
+        q = matmul(layers.rms_norm(p.q_norm, matmul(x, p.w_dq),
+                                   cfg.norm_eps), p.w_uq)
+    else:
+        q = matmul(x, p.wq)
+    q = q.reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    return q_nope, layers.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(p, cfg, x, positions):
+    """x: (B,S,d) -> the normed latent c (B,S,r_kv) and the one rotary key
+    k_rope (B,S,dr) all heads share."""
+    dkv = matmul(x, p.w_dkv)
+    c = layers.rms_norm(p.kv_norm, dkv[..., :cfg.kv_lora_rank],
+                        cfg.norm_eps)
+    k_rope = dkv[..., cfg.kv_lora_rank:][..., None, :]
+    k_rope = layers.apply_rope(k_rope, positions, cfg.rope_theta)[..., 0, :]
+    return c, k_rope
+
+
+def mla_prefill(p, cfg, x, positions):
+    """Causal MLA self-attention over the whole sequence, k and v
+    materialized per head: (B,S,d) -> (B,S,d). The kernel scales q·k by
+    1/√(dn + dr), as the reference's attention scales by q's head dim."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c, k_rope = _mla_latent(p, cfg, x, positions)
+    k_nope = matmul(c, p.w_uk).reshape(b, s, h, dn)
+    v = matmul(c, p.w_uv).reshape(b, s, h, dv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
+                  dim=-1)
+    o = flash_attention(q, k, v, causal=True)
+    return matmul(o.reshape(b, s, -1), p.wo)
+
+
+def mla_decode(p, cfg, x, cache, pos):
+    """Absorbed-latent decode. x: (B,1,d); cache: {'c': (B,S,r_kv),
+    'k_rope': (B,S,dr)}; pos: (B,) -> ((B,1,d), cache).
+
+    The new token's c and k_rope are written into the cache in place at
+    pos (`_write_at`). A position's score is
+    (q_nope·W_uk)·c_s + q_rope·k_rope_s over 1/√(dn + dr), without per-head
+    K or V; scores, softmax and o_lat = p·c run in float32 over blocks of
+    cache positions (a float32 copy of one block of c at a time, as
+    `decode_attention` casts), then o = o_lat·W_uv and wo. The reference's
+    bf16 einsums accumulate in float32 (``preferred_element_type``); here
+    their operands are cast to float32, the same products."""
+    b, s = x.shape[0], cache["c"].shape[1]
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r_kv = cfg.kv_lora_rank
+    q_nope, q_rope = _mla_q(p, cfg, x, pos[:, None])        # (B,1,H,*)
+    c_new, kr_new = _mla_latent(p, cfg, x, pos[:, None])
+    _write_at(cache["c"], c_new, pos)
+    _write_at(cache["k_rope"], kr_new, pos)
+
+    w_uk = p.w_uk.reshape(r_kv, h, dn).float()
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_uk)
+    q_rope = q_rope[:, 0].float()                           # (B,H,dr)
+    block = max(1, DECODE_BLOCK_ELEMS // (b * (r_kv + dr)))
+
+    def cast(t, lo):
+        # (B,n,r) float32 of one block of positions
+        return t[:, lo:lo + block].float()
+    scores = torch.cat([
+        torch.matmul(q_lat, cast(cache["c"], lo).transpose(1, 2))
+        + torch.matmul(q_rope, cast(cache["k_rope"], lo).transpose(1, 2))
+        for lo in range(0, s, block)], dim=-1)              # (B,H,S)
+    scale = float(np.float32(1) / np.sqrt(np.float32(dn + dr)))
+    valid = torch.arange(s, device=x.device)[None] <= pos[:, None]
+    scores = (scores * scale).masked_fill(~valid[:, None], NEG_INF)
+    pattn = torch.softmax(scores, dim=-1)
+    o_lat = sum(torch.matmul(pattn[..., lo:lo + block], cast(cache["c"], lo))
+                for lo in range(0, s, block))               # (B,H,r_kv)
+    w_uv = p.w_uv.reshape(r_kv, h, dv).float()
+    o = torch.einsum("bhr,rhd->bhd", o_lat, w_uv)
+    y = matmul(o.reshape(b, 1, -1).to(x.dtype), p.wo)
+    return y, cache
+
+
+def mla_cache_spec(cfg, batch, seq_len, dtype):
+    """{'c': ((B, S, r_kv), dtype), 'k_rope': ((B, S, dr), dtype)}."""
+    return {"c": ((batch, seq_len, cfg.kv_lora_rank), dtype),
+            "k_rope": ((batch, seq_len, cfg.qk_rope_head_dim), dtype)}

@@ -13,10 +13,10 @@ The proxy-score head is how the SUPG plane consumes a model: the score of a
 record is the model's probability mass on a designated predicate token at
 the last position, the A(x) the paper assumes (Sec 4.1: "executes the
 proxy model over the complete set of records"). The model carries its
-config as ``model.cfg``. Dense attention, MoE, hybrid Mamba2 (Zamba2) and
-RWKV6 models so far; the loss (and with it the MoE's aux loss, which
-`transformer.body_prefill` returns) and the MLA and multi-codebook
-families wait for their slices (ROADMAP §1).
+config as ``model.cfg``. Dense attention, MoE (with GQA or MLA
+attention), hybrid Mamba2 (Zamba2) and RWKV6 models so far; the loss (and
+with it the MoE's aux loss, which `transformer.body_prefill` returns) and
+the multi-codebook family wait for their slices (ROADMAP §1).
 
 Decode caches are nested dicts and lists of tensors, one entry per block
 (and for the hybrid one attention cache per invocation of the shared
@@ -186,7 +186,8 @@ def apply_decode(model, tokens, caches, pos):
 # --------------------------------------------------------------------------
 
 def _attn_cache(cfg, batch, seq_len, dtype, device):
-    spec = attention.gqa_cache_spec(cfg, batch, seq_len, dtype)
+    spec = (attention.mla_cache_spec if cfg.use_mla
+            else attention.gqa_cache_spec)(cfg, batch, seq_len, dtype)
     return {k: torch.zeros(shape, dtype=dt, device=device)
             for k, (shape, dt) in spec.items()}
 
@@ -199,9 +200,11 @@ def init_caches(cfg, batch, seq_len, dtype=torch.bfloat16, *, device=None):
     (a list of lists of Mamba2 states), ``shared_attn`` (a KV cache for
     each invocation of the shared block) and ``mamba_tail``. MoE: a KV
     cache a block under `transformer.moe_layout`'s cache names (``dense``
-    and ``moe``, or ``dense_prefix`` and ``moe_blocks``). KV caches,
-    conv tails and token shifts are in `dtype` (bf16 by default, as the
-    reference's), the recurrent states float32. ``device=None`` means
+    and ``moe``, or ``dense_prefix`` and ``moe_blocks``). An MLA block's
+    cache is its latent ``c`` (B, S, r_kv) and ``k_rope`` (B, S, dr), not
+    K and V. KV and latent caches, conv tails and token shifts are in
+    `dtype` (bf16 by default, as the reference's), the recurrent states
+    float32. ``device=None`` means
     ``cuda``."""
     dev = resolve_device(device)
     transformer.check_supported(cfg)
@@ -264,8 +267,10 @@ def caches_from_reference(arrays, cfg, *, device=None):
 
 def count_params_analytic(cfg, active_only=False):
     """Parameter count from the config alone, by the reference's formula
-    for the families the port runs (dense attention, MoE, hybrid Mamba2,
-    RWKV6). The hybrid's shared block counts once, however often it runs.
+    for the families the port runs (dense attention, MoE with GQA or MLA,
+    hybrid Mamba2, RWKV6). The hybrid's shared block counts once, however
+    often it runs. MLA counts its down- and up-projections and wo, not its
+    two RMSNorms.
     RWKV6 counts the projections and the low-rank mixes, not the vectors
     (mixes, decay base, bonus, norms), as the reference does. An MoE body
     counts num_experts routed experts a block, or with `active_only`
@@ -289,6 +294,14 @@ def count_params_analytic(cfg, active_only=False):
         h = d_in // cfg.ssm_head_dim
         per = d * (2 * d_in + 2 * n + h) + d_in * d
         return total + L * per + attn + mlp
+    if cfg.use_mla:
+        h = cfg.num_heads
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, \
+            cfg.v_head_dim
+        q_in = cfg.q_lora_rank or d
+        attn = d * cfg.q_lora_rank + q_in * h * (dn + dr) \
+            + d * (cfg.kv_lora_rank + dr) \
+            + cfg.kv_lora_rank * h * (dn + dv) + h * dv * d
     if cfg.moe:
         expert = 3 * d * cfg.moe_d_ff
         shared = expert * cfg.num_shared_experts

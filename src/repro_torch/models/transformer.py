@@ -1,6 +1,6 @@
 """Block composition and the prefill and decode forward passes of the dense,
-MoE, hybrid and RWKV6 families (the JAX package's
-``models/transformer.py``).
+MoE (with GQA or MLA attention), hybrid and RWKV6 families (the JAX
+package's ``models/transformer.py``).
 
 A dense body is a Python loop over an `nn.ModuleList` of identical
 (attention + MLP) blocks, where the reference scans over parameters stacked
@@ -8,13 +8,14 @@ on a leading L axis; an RWKV6 body the same over RWKV6 blocks. An MoE body
 with ``moe_layer_step > 1`` (llama4) loops over pairs, ``pairs_dense[i]``
 (attention + MLP) then ``pairs_moe[i]`` (attention + MoE); one with
 ``moe_layer_step == 1`` (deepseek-v2's layout) runs ``dense_prefix`` then
-``moe_blocks``. A hybrid (Zamba2) body is a loop over super-blocks, each an
+``moe_blocks``. A block's attention is MLA where ``cfg.use_mla``, GQA
+otherwise. A hybrid (Zamba2) body is a loop over super-blocks, each an
 `nn.ModuleList` of Mamba2 blocks followed by the one shared attention + MLP
 block (one module, run at every super-block), then a tail of Mamba2 blocks.
 Decode caches follow the bodies: a list with one entry per block, and for
 the hybrid one attention cache per invocation of the shared block (the
-reference stacks them on the super-block axis). MLA and activation
-checkpointing are not ported yet (ROADMAP §1).
+reference stacks them on the super-block axis). Activation checkpointing
+is not ported yet (ROADMAP §1).
 """
 from __future__ import annotations
 
@@ -27,15 +28,14 @@ from repro_torch.models import attention, layers, mamba, moe, rwkv
 def check_supported(cfg) -> None:
     """Raise NotImplementedError for a family this slice does not run."""
     missing = [name for name, on in (
-        ("MLA", cfg.use_mla),
         (f"{cfg.block} blocks", cfg.block not in ("attn", "mamba", "rwkv")),
         ("Mamba2 bodies without the shared block",
          cfg.block == "mamba" and not cfg.shared_attn_every),
         ("multi-codebook heads", cfg.num_codebooks > 1)) if on]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention, MoE, hybrid Mamba2 "
-            f"and RWKV6 models only; {', '.join(missing)} wait for later "
+            f"{cfg.name}: the port runs dense attention, MoE (GQA or MLA), "
+            f"hybrid Mamba2 and RWKV6 models only; {', '.join(missing)} wait for later "
             f"slices (ROADMAP §1)")
 
 
@@ -46,12 +46,13 @@ def gate_fn_of(cfg) -> str:
 
 
 def init_attn_block(cfg, *, generator, device, ffn="mlp"):
-    """RMSNorms ln1/ln2, GQA attention and a gated MLP (``ffn="mlp"``) or
-    an MoE layer (``ffn="moe"``)."""
+    """RMSNorms ln1/ln2, MLA (cfg.use_mla) or GQA attention, and a gated
+    MLP (``ffn="mlp"``) or an MoE layer (``ffn="moe"``)."""
+    init_attn = attention.init_mla if cfg.use_mla else attention.init_gqa
     members = dict(
         ln1=layers.init_rmsnorm(cfg.d_model, device),
         ln2=layers.init_rmsnorm(cfg.d_model, device),
-        attn=attention.init_gqa(cfg, generator=generator, device=device))
+        attn=init_attn(cfg, generator=generator, device=device))
     if ffn == "mlp":
         members["mlp"] = layers.init_mlp(generator, cfg.d_model,
                                          cfg.dense_d_ff or cfg.d_ff,
@@ -79,18 +80,20 @@ def attn_block_prefill(p, cfg, x, positions, ffn="mlp"):
     """Pre-norm residual block: x + attn(ln1 x), then + mlp(ln2 x) or
     + moe(ln2 x) -> (x, aux loss), the aux 0 for an MLP block."""
     xn = layers.rms_norm(p.ln1, x, cfg.norm_eps)
-    x = x + attention.gqa_prefill(p.attn, cfg, xn, positions)
+    attn_fn = attention.mla_prefill if cfg.use_mla else attention.gqa_prefill
+    x = x + attn_fn(p.attn, cfg, xn, positions)
     xn = layers.rms_norm(p.ln2, x, cfg.norm_eps)
     h, aux = _ffn(p, cfg, xn, ffn)
     return x + h, _zero_aux(x) if aux is None else aux
 
 
 def attn_block_decode(p, cfg, x, cache, pos, ffn="mlp"):
-    """One token through the block: x: (B,1,d), its KV cache written in
-    place at pos -> (x, cache). An MoE block routes the step's B tokens,
-    its capacity taken from n = B as in the reference."""
+    """One token through the block: x: (B,1,d), its KV (or MLA latent)
+    cache written in place at pos -> (x, cache). An MoE block routes the
+    step's B tokens, its capacity taken from n = B as in the reference."""
     xn = layers.rms_norm(p.ln1, x, cfg.norm_eps)
-    h, cache = attention.gqa_decode(p.attn, cfg, xn, cache, pos)
+    attn_fn = attention.mla_decode if cfg.use_mla else attention.gqa_decode
+    h, cache = attn_fn(p.attn, cfg, xn, cache, pos)
     x = x + h
     xn = layers.rms_norm(p.ln2, x, cfg.norm_eps)
     return x + _ffn(p, cfg, xn, ffn)[0], cache

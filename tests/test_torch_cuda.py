@@ -15,7 +15,10 @@ path and the distributed plane (nccl at world size 1, two gloo ranks on
 CUDA tensors) as phase 15 of ``chip_smoke.py`` checks them, and smoke-size
 RWKV6 prefills (the channel kernel) and decode steps of the four families on
 the card against the same models on the CPU, and the MoE layer's routing and
-dispatch on the card against the CPU's from the same router logits.
+dispatch on the card against the CPU's from the same router logits;
+flash_attention at MLA's (dh, dv) = (192, 128), a narrow MLA + MoE model
+through it and deepseek-v2's absorbed-latent decode on the card against
+the CPU.
 """
 import dataclasses
 import pathlib
@@ -635,6 +638,112 @@ def test_narrow_bf16_model_logits_through_the_kernel_match_plain(
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) \
         <= 6e-3 * float(want.abs().max())
+
+
+# (B, S, H, KV) at MLA's (dh, dv) = (192, 128): lengths around the 128-row
+# tiles, S = 1, a GQA layout (the kernel takes one; MLA has H = KV) and
+# deepseek-v2's prefill at 16 of its 128 heads
+_MLA_FLASH_SHAPES = [(2, 1, 4, 4), (2, 127, 8, 8), (2, 129, 8, 8),
+                     (1, 1000, 16, 16), (2, 300, 8, 2), (1, 4096, 16, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kv", _MLA_FLASH_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_192_128_kernel_matches_plain(card, b, s, h, kv,
+                                                      causal, dtype):
+    """q and k at head dim 192, v at 128 (MLA's prefill): o (B,S,H,128)
+    within the bf16 bar above, or in float32 within 2e-5, of the plain
+    version; bitwise identical across launches."""
+    g = torch.Generator(device=card).manual_seed(s + h)
+    q = torch.randn(b, s, h, 192, generator=g, device=card).to(dtype)
+    k = torch.randn(b, s, kv, 192, generator=g, device=card).to(dtype)
+    v = torch.randn(b, s, kv, 128, generator=g, device=card).to(dtype)
+    before = fa_ops.launches.count
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    again = fa_ops.flash_attention(q, k, v, causal=causal)
+    plain = _plain_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa_ops.launches.count == before + 2
+    assert got.dtype == dtype and got.shape == (b, s, h, 128)
+    if dtype == torch.bfloat16:
+        plain = plain.float()
+        torch.testing.assert_close(got.float(), plain, atol=BF16_ATOL,
+                                   rtol=BF16_RTOL)
+        assert float((got.float() - plain).norm()) \
+            <= BF16_FRO_TOL * float(plain.norm())
+    else:
+        torch.testing.assert_close(got, plain, atol=2e-5, rtol=2e-5)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,dv", [(192, 192), (192, 64), (128, 64),
+                                   (96, 96)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_refuses_other_head_dim_pairs_on_the_card(
+        card, dh, dv, dtype):
+    """A (dh, dv) pair with no kernel instance raises on CUDA tensors and
+    launches nothing."""
+    q = torch.zeros(1, 64, 2, dh, dtype=dtype, device=card)
+    v = torch.zeros(1, 64, 2, dv, dtype=dtype, device=card)
+    before = fa_ops.launches.count
+    with pytest.raises(ValueError, match="head_dim, v_dim"):
+        fa_ops.flash_attention(q, q, v)
+    assert fa_ops.launches.count == before
+
+
+@pytest.mark.cuda
+def test_narrow_mla_model_logits_through_the_kernel_match_plain(
+        card, monkeypatch):
+    """A two-layer float32 MLA + MoE model at deepseek-v2's head dims (q·k
+    at 192, v at 128) and narrow widths: one kernel launch a layer, and
+    logits within 2e-5 of their largest magnitude of attention by the
+    plain version (the CPU parity tests' bar against the JAX package)."""
+    cfg = dataclasses.replace(configs.get_smoke_config("deepseek-v2-236b"),
+                              d_model=256, num_heads=4, num_kv_heads=4,
+                              kv_lora_rank=64, q_lora_rank=96,
+                              qk_nope_head_dim=128, qk_rope_head_dim=64,
+                              v_head_dim=128)
+    g = torch.Generator(device=card).manual_seed(0)
+    m = model.init(cfg, generator=g, device=card)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 200))
+    before = fa_ops.launches.count
+    got = model.apply_train(m, tokens)
+    assert fa_ops.launches.count == before + cfg.num_layers
+    monkeypatch.setattr(attention, "flash_attention", _plain_attention)
+    want = model.apply_train(m, tokens)
+    assert fa_ops.launches.count == before + cfg.num_layers
+    assert float((got - want).abs().max()) \
+        <= 2e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_mla_decode_on_the_card_matches_cpu(card):
+    """Six absorbed-latent decode steps of deepseek-v2's float32 smoke model
+    on the card against the same weights and caches on the CPU, rows at
+    their own positions: logits within 2e-5 of the largest |logit| each
+    step, the latent caches likewise after the last."""
+    cfg, cpu_model, card_model = _cpu_and_card("deepseek-v2-236b", card, 3)
+    caches = {where: model.init_caches(cfg, 3, 12, torch.float32,
+                                       device=dev)
+              for where, dev in (("cpu", "cpu"), ("card", card))}
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (3, 6))
+    for i in range(6):
+        pos = [i, i + 4, 11 - i]
+        want, _ = model.apply_decode(cpu_model, tokens[:, i:i + 1],
+                                     caches["cpu"], pos)
+        got, _ = model.apply_decode(card_model, tokens[:, i:i + 1],
+                                    caches["card"], pos)
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=2e-5 * float(want.abs().max()))
+    for name, entries in caches["cpu"].items():
+        for want, got in zip(entries, caches["card"][name]):
+            for k in ("c", "k_rope"):
+                torch.testing.assert_close(
+                    got[k].cpu(), want[k], rtol=0,
+                    atol=2e-5 * float(want[k].abs().max()))
 
 
 def _scan_inputs(card, b, h, s, dk, dv, seed, w_const=None):

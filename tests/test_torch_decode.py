@@ -4,9 +4,9 @@ prefill, on the CPU.
 The models are the reference's smoke configs of smollm-360m (dense),
 zamba2-1.2b (hybrid Mamba2), rwkv6-7b (RWKV6), llama4-maverick (MoE in
 interleaved pairs) and deepseek-v2 without MLA (MoE after a dense prefix;
-its MLA waits for its slice) in float32, with the JAX
-package's own ``model.init(PRNGKey(0), cfg)`` weights carried across by
-`params_from_reference`; norm scales, the Mamba2 conv bias, D, dt_bias and
+its MLA decode is held in ``tests/test_torch_mla.py``) in float32, with
+the JAX package's own ``model.init(PRNGKey(0), cfg)`` weights carried
+across by `params_from_reference`; norm scales, the Mamba2 conv bias, D, dt_bias and
 A_log and the RWKV6 mixing vectors are perturbed with seeded noise so that
 they are exercised. Caches come from `init_caches` (zeros), or hold seeded
 noise carried across by `caches_from_reference`.

@@ -372,9 +372,11 @@ def test_flash_attention_cuda_tensor_launches_or_raises(monkeypatch, dtype):
 ])
 def test_flash_attention_refuses_what_the_kernel_does_not_take(
         monkeypatch, q, kv):
-    """Head dims other than 64/128, other dtypes, H % KV != 0, mismatched
-    shapes or dtypes, non-contiguous or misaligned tensors and an empty
-    sequence raise before any build or launch."""
+    """Head dims other than 64/128 (with v at the same head dim; the
+    (192, 128) pair has its tests in tests/test_torch_mla.py), other
+    dtypes, H % KV != 0, mismatched shapes or dtypes, non-contiguous or
+    misaligned tensors and an empty sequence raise before any build or
+    launch."""
     def refuse(name):
         raise AssertionError("built a kernel for a refused input")
 
@@ -398,29 +400,36 @@ def test_flash_attention_other_devices_raise():
     (4, 4096, 15, 5, 64),      # smollm-360m prefill
     (256, 128, 32, 32, 64),    # zamba2-1.2b's shared block, scoring
     (2, 1000, 8, 1, 128),      # ragged S, MQA, head_dim 128
-    (1, 1, 2, 1, 64)])
+    (1, 1, 2, 1, 64),
+    (4, 4096, 128, 128, 192)])  # deepseek-v2's MLA prefill, v dim 128
 def test_flash_bf16_launch_plan(b, s, h, kv, dh):
     """Work tiles of 128 query rows for every head and batch, one
     persistent CTA an SM (fewer where there is less work), 384 threads,
     the dynamic shared memory of the q buffers and the ring's k and v
-    tiles (2 and 4 at head_dim 64, 1 and 3 at 128; plus the 1024-byte
-    alignment slack) within a CTA's 227 KB less its barriers, and tensor
-    maps over
-    (dh, heads, S, batch) with the tensors' byte strides, each a multiple
-    of the 16 bytes TMA needs."""
+    tiles (2 and 4 at head_dim 64, 1 and 3 at 128, 1 and 2 at (192, 128);
+    plus the 1024-byte alignment slack) within a CTA's 227 KB less its
+    barriers, and tensor maps over (head dim, heads, S, batch) with the
+    tensors' byte strides, each a multiple of the 16 bytes TMA needs; v's
+    at its own head dim."""
+    dv = {192: 128}.get(dh, dh)
     q = torch.empty(b, s, h, dh, dtype=torch.bfloat16, device="meta")
     k = torch.empty(b, s, kv, dh, dtype=torch.bfloat16, device="meta")
-    plan = fa_ops.bf16_launch_plan(q, k, sms=132)
+    v = torch.empty(b, s, kv, dv, dtype=torch.bfloat16, device="meta")
+    plan = fa_ops.bf16_launch_plan(q, k, v, sms=132)
     assert plan["work"] == -(-s // 128) * h * b
     assert plan["ctas"] == min(plan["work"], 132)
     assert plan["threads"] == 384
-    assert plan["smem_bytes"] == {64: 164_864, 128: 230_400}[dh]
+    assert plan["smem_bytes"] == {64: 164_864, 128: 230_400,
+                                  192: 214_016}[dh]
     assert plan["smem_bytes"] <= 232_448 - 128
     assert plan["q_geom"] == (dh, h, s, b, 2 * dh, 2 * h * dh,
                               2 * s * h * dh)
-    assert plan["kv_geom"] == (dh, kv, s, b, 2 * dh, 2 * kv * dh,
-                               2 * s * kv * dh)
-    assert all(x % 16 == 0 for x in plan["q_geom"][4:] + plan["kv_geom"][4:])
+    assert plan["k_geom"] == (dh, kv, s, b, 2 * dh, 2 * kv * dh,
+                              2 * s * kv * dh)
+    assert plan["v_geom"] == (dv, kv, s, b, 2 * dv, 2 * kv * dv,
+                              2 * s * kv * dv)
+    assert all(x % 16 == 0 for name in ("q_geom", "k_geom", "v_geom")
+               for x in plan[name][4:])
 
 
 @pytest.mark.parametrize("which", ["q", "k", "v"])

@@ -281,11 +281,14 @@ def test_init_without_a_device_needs_cuda():
         model.params_from_reference(_reference_arrays(JSMOKE), SMOKE)
 
 
-@pytest.mark.parametrize("change", [dict(moe=True, use_mla=True),
-                                    dict(use_mla=True),
-                                    dict(use_mla=True, moe_layer_step=2),
+@pytest.mark.parametrize("change", [dict(moe=True, num_codebooks=2),
+                                    dict(block="xlstm"),
+                                    dict(moe=True, moe_layer_step=2,
+                                         num_codebooks=2),
                                     dict(num_codebooks=4)])
 def test_unported_families_raise(change):
+    """Multi-codebook heads and unknown block kinds raise, on any body (MLA
+    is ported: tests/test_torch_mla.py)."""
     cfg = dataclasses.replace(SMOKE, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.init(cfg, generator=torch.Generator(), device="cpu")
@@ -313,7 +316,8 @@ def test_count_params_analytic_matches_reference(case):
 
 def test_registry_holds_the_ported_arch():
     assert configs.ARCH_IDS == ("smollm-360m", "zamba2-1.2b", "rwkv6-7b",
-                                *DENSE, "llama4-maverick-400b-a17b")
+                                *DENSE, "llama4-maverick-400b-a17b",
+                                "deepseek-v2-236b")
     for arch in configs.ARCH_IDS:
         for get, jget in ((configs.get_config, jconfigs.get_config),
                           (configs.get_smoke_config,

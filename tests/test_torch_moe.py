@@ -4,7 +4,7 @@ The models are llama4-maverick's smoke config (interleaved pairs: a dense
 block, then an MoE block of 4 experts, top-1 sigmoid, one shared) and
 deepseek-v2's smoke config with ``use_mla=False`` (a dense prefix of one
 block, then MoE blocks of 8 experts, top-2 softmax, one shared; its MLA
-waits for its slice), in float32, with the JAX package's own
+is held in ``tests/test_torch_mla.py``), in float32, with the JAX package's own
 ``model.init(PRNGKey(0), cfg)`` weights carried across by
 `params_from_reference`; norm scales are perturbed with seeded noise so
 that they are exercised. Each runs at the capacity factor 1.25 of the
@@ -45,8 +45,8 @@ DSV2 = "deepseek-v2-236b"
 
 def _pair(arch, **change):
     """(port config, reference config) of `arch`'s smoke config with
-    `change`; deepseek-v2 without MLA, built from the reference's (the
-    port registers no deepseek-v2 until MLA is ported)."""
+    `change`; deepseek-v2 without MLA (its GQA attention puts the MoE
+    layout alone under test), built from the reference's."""
     jcfg = jconfigs.get_smoke_config(arch)
     if arch == DSV2:
         change = dict(use_mla=False, **change)
