@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: kernels, engine, models,
-the single-array query path, the distributed plane and decode.
+the single-array query path, the distributed plane, decode and training.
 
     python3 chip_smoke.py [--seed N]
 
@@ -8,7 +8,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
 1. Device: prints ``nvidia-smi --query-gpu=name,power.limit``; then
    builds every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    each, all at once) and prints each one's build time, registers and
-   shared memory.
+   shared memory. The script prints its whole run's wall time at the
+   end.
 2. Kernels: holds the engine's two CUDA kernels against their plain
    PyTorch versions on the card, at the main path's shapes: 2^22-record
    chunks, 4096 and 64 bins.
@@ -312,14 +313,46 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     record corpus scored in calls of 128 (8 flash_attention launches a
     call) and one RT query selected as in phase 7 (score_hist and
     threshold_select on the path).
+20. flash_attention's backward kernel (``csrc/flash_attention_bwd.cu``)
+    against its plain backward (float32 from the same inputs): dq, dk and
+    dv at smollm-360m's (4, 4096, 15/5, 64) and musicgen-medium's (4,
+    4096, 24/24, 64), causal, and at a ragged (2, 1000, 15/5, 64) causal
+    and not, in bf16 (`BWD_BF16_ATOL` + 2^-7 |plain| each,
+    `BWD_BF16_FRO_TOL` of each tensor's norm) and float32 (F32_TOL abs +
+    rel); two calls bitwise equal. Its time at both training shapes
+    beside its operations bound (2.5 times the forward's products), the
+    plain backward and the backward of `scaled_dot_product_attention` by
+    each fused backend (library_ms is the fastest).
+21. musicgen-medium at full width (48 layers, d 1536, four codebooks,
+    bf16): a (4, 4096, 4) prefill (48 flash_attention launches) with its
+    four heads' logits against plain attention and its float32 copy
+    (`MUSICGEN_LOGIT_TOL`); a 2^12-record corpus (the marker corpus in
+    the first codebook) scored and one RT query; decode against the
+    prefill (`DECODE_BF16_TOL`) and a step at `MUSICGEN_DECODE_ROWS` x
+    32768; then `TRAIN_STEPS` + 1 steps of `make_train_step` at (4, 4096)
+    x 4 codebooks from `lm_batches`, grad_accum 2, remat="block": loss,
+    grad_norm, wall, tokens/s, train mfu (`train_flops_analytic`), peak
+    memory, and 192 forward (the forward and its recompute) and 96
+    backward flash_attention launches a step, exactly; and a
+    `CheckpointManager` save and restore of the weights and AdamW state
+    on the card, every tensor equal.
+22. smollm-360m at full width trained into a proxy on phase 7's corpus
+    through `TrainLoop` (class-balanced batches from the corpus's first
+    half, the class label at every position, a checkpoint every
+    PROXY_STEPS / 2 steps and one injected restart that restores one),
+    then the corpus scored and one RT 0.9 query selected (score_hist and
+    threshold_select on the path); the AUC over the records no batch drew
+    must reach PROXY_AUC, printed beside phase 7's random-init proxy's,
+    with both queries' recall and oracle calls.
 
 Each phase prints its wall time as it ends, and the line before the
 kernels line sums them.
 
 The line before the last is ``{"kernels": [...]}`` (a row for each kernel:
-linear_scan's chunked kernel and its channel kernel each have one, and
+linear_scan's chunked kernel and its channel kernel each have one,
 flash_attention's dh-128 path one of its own at llama4's shape and its
-(192, 128) path one at deepseek-v2's); the last line is
+(192, 128) path one at deepseek-v2's, and its backward kernel one at
+smollm's shape, its launches phase 22's); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -380,7 +413,14 @@ from repro_torch.kernels.threshold_select import ops as ts_ops  # noqa: E402
 from repro_torch.kernels.threshold_select import ref as ts_ref  # noqa: E402
 from repro_torch.launch.serve import (make_serve_decode,  # noqa: E402
                                       make_serve_prefill)
+from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.data.synthetic import lm_batches  # noqa: E402
+from repro_torch.launch.fault import (LoopConfig,  # noqa: E402
+                                      RestartRequired, TrainLoop)
+from repro_torch.launch.train import TrainOptions  # noqa: E402
+from repro_torch.launch.train import make_train_step  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.models import (attention, layers, mamba,  # noqa: E402
                                 moe, rwkv, transformer)
 from repro_torch.models import model as modellib  # noqa: E402
@@ -400,6 +440,7 @@ RWKV = "rwkv6-7b"
 NEW_DENSE = ("yi-6b", "deepseek-7b", "qwen1.5-4b", "chameleon-34b")
 LLAMA4 = "llama4-maverick-400b-a17b"
 DSV2 = "deepseek-v2-236b"
+MUSICGEN = "musicgen-medium"
 FA_PREFILL = (4, 4096, 15, 5, 64)     # B, S, H, KV, dh: smollm-360m prefill
 FA_SCORING = (256, 128, 15, 5, 64)    # the scoring batch
 N_CORPUS = 1 << 15                    # token records scored and selected
@@ -493,10 +534,19 @@ NEW_LOGIT_TOL = {"yi-6b": (7e-2, F32_LOGIT_TOL),
 # positions of each row only 70 to 79 of 256 route alike through all 7
 # MoE layers.
 DSV2_LOGIT_TOL = 3.5e-2
+# Phase 21's bars for musicgen-medium (48 layers, four codebooks), as phase
+# 6 set smollm's: the four heads' bf16 logits at the last position, kernel
+# against plain attention, 2.27e-2 to 2.70e-2 of the largest |logit| at
+# --seed 0, 1 and 2 on an H100 80GB HBM3 at 700 W (its bf16 model with
+# plain attention lies 2.36e-2 to 2.42e-2 from its float32 copy); three
+# times the largest. Its float32 copy: 2.46e-6 to 3.31e-6, held to
+# smollm's 1e-5.
+MUSICGEN_LOGIT_TOL = (8.1e-2, F32_LOGIT_TOL)
 LOGIT_TOL = {ARCH: (BF16_LOGIT_TOL, F32_LOGIT_TOL),
              ZAMBA: (ZAMBA_BF16_LOGIT_TOL, ZAMBA_F32_LOGIT_TOL),
              RWKV: (RWKV_BF16_LOGIT_TOL, ZAMBA_F32_LOGIT_TOL),
-             **NEW_LOGIT_TOL, DSV2: (DSV2_LOGIT_TOL, None)}
+             **NEW_LOGIT_TOL, DSV2: (DSV2_LOGIT_TOL, None),
+             MUSICGEN: MUSICGEN_LOGIT_TOL}
 # Operations each kernel does per record, counted from its source:
 # score_hist compares, clips, scales, converts and takes a square root
 # (8) and adds both float64 mass terms (2, counted at the float32 rate:
@@ -552,10 +602,12 @@ RWKV_DECODE_F32_TOL = 5e-5
 # over the entries both routed alike); phase 19's deepseek-v2 (8 layers)
 # 1.45e-2 to 1.70e-2 over two runs of the three seeds (the combine's
 # atomics move its bf16 roundings from run to run; its float32 decode,
-# cut to 2 layers, 2.16e-6 to 2.53e-6, is held at DECODE_F32_TOL).
+# cut to 2 layers, 2.16e-6 to 2.53e-6, is held at DECODE_F32_TOL); phase
+# 21's musicgen-medium 3.00e-2 to 3.29e-2.
 DECODE_BF16_TOL = {ARCH: 5e-2, ZAMBA: 1e-1, RWKV: 3e-2,
                    "yi-6b": 5.7e-2, "deepseek-7b": 6.1e-2, "qwen1.5-4b": 7e-2,
-                   "chameleon-34b": 5.7e-2, LLAMA4: 1.9e-2, DSV2: 4.2e-2}
+                   "chameleon-34b": 5.7e-2, LLAMA4: 1.9e-2, DSV2: 4.2e-2,
+                   MUSICGEN: 8.2e-2}
 # The arbiter of rwkv6-7b's decode (phase 17): the model at full width cut
 # to RWKV_F64_BLOCKS blocks (about 18 GB in float64), its float32 decode
 # and prefill against its prefill computed in float64. The float64 decode
@@ -666,6 +718,7 @@ SCAN_REF_ATOL = 1e-4
 SCAN_REL = 1e-6
 # Every kernel's launch counter, by name.
 COUNTERS = {"flash_attention": fa_ops.launches,
+            "flash_attention_bwd": fa_ops.bwd_launches,
             "linear_scan": ls_ops.launches,
             "score_hist": sh_ops.launches,
             "threshold_select": ts_ops.launches}
@@ -1047,7 +1100,8 @@ def model_flops(cfg, batch: int, seq: int) -> float:
     dispatch's E · cap rows a layer.
     """
     non_embedding = modellib.count_params_analytic(cfg, active_only=True) \
-        - cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+        - cfg.vocab_size * cfg.d_model * cfg.num_codebooks \
+        * (1 if cfg.tie_embeddings else 2)
     tokens = batch * seq
     attention_runs = cfg.num_layers
     scan = 0.0
@@ -1229,9 +1283,8 @@ def model_phase(model, cfg, seed: int, per_prefill: dict,
     run replays the kernel run's routing (`replayed_routing`)."""
     bf16_tol, f32_tol = LOGIT_TOL[cfg.name]
     b, s = FA_PREFILL[:2]
-    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=DEVICE,
-                           generator=torch.Generator(device=DEVICE)
-                           .manual_seed(seed + 1))
+    tokens = rand_tokens(cfg, (b, s), torch.Generator(device=DEVICE)
+                         .manual_seed(seed + 1))
     serve_prefill = make_serve_prefill(cfg)
     serve_prefill(model, {"tokens": tokens[:, :128]})      # warm-up
     torch.cuda.synchronize()
@@ -1271,7 +1324,7 @@ def model_phase(model, cfg, seed: int, per_prefill: dict,
           and bf16_diff <= bf16_tol * bf16_scale,
           f"{cfg.name} bf16 logits: kernels vs plain differ by {bf16_diff} "
           f"(largest |logit| {bf16_scale})")
-    print(f"bf16 model, last-position logits ({b}, {cfg.vocab_size}): max "
+    print(f"bf16 model, last-position logits {tuple(bf16_plain.shape)}: max "
           f"|kernels - plain| {bf16_diff:.6g}, "
           f"largest |logit| "
           f"{bf16_scale:.6g}, ratio {bf16_diff / bf16_scale:.3g} "
@@ -1292,7 +1345,7 @@ def model_phase(model, cfg, seed: int, per_prefill: dict,
     check(bool(torch.isfinite(with_kernel).all()) and diff <= f32_tol
           * scale, f"{cfg.name} float32 logits: kernels vs plain differ by "
           f"{diff} (largest |logit| {scale})")
-    print(f"float32 copy, last-position logits ({b}, {cfg.vocab_size}): "
+    print(f"float32 copy, last-position logits {tuple(with_plain.shape)}: "
           f"max |kernels - plain| {diff:.6g}, largest |logit| "
           f"{scale:.6g}, ratio {diff / scale:.3g} (tol {f32_tol})")
     rounding = float((bf16_plain - with_plain).abs().max()) / scale
@@ -1303,16 +1356,61 @@ def model_phase(model, cfg, seed: int, per_prefill: dict,
 
 # -- phase 7 -------------------------------------------------------------------
 
-def score_select_phase(model, cfg, seed: int, n_corpus: int,
-                       per_call: dict, batch: int = SCORE_BATCH) -> dict:
-    """Phases 7 and 11: score a token corpus of `n_corpus` records with
-    the full model in calls of `batch` records, launching each kernel of
-    `per_call` that often a call, and select on the card; returns the
-    path's launch counts."""
-    tokens_np, labels = make_token_corpus(n_corpus, SEQ_LEN, cfg.vocab_size,
-                                          0.02, seed)
-    check(np.array_equal(labels > 0.5, contains_marker(tokens_np)),
+def token_corpus(cfg, n_corpus: int, seed: int):
+    """(tokens, labels) of `make_token_corpus` (2% planted positives):
+    (n, SEQ_LEN) tokens, or with K codebooks (n, SEQ_LEN, K) whose first
+    codebook is that corpus (the marker oracle's) and the others are
+    uniform tokens from `seed`."""
+    tokens, labels = make_token_corpus(n_corpus, SEQ_LEN, cfg.vocab_size,
+                                       0.02, seed)
+    check(np.array_equal(labels > 0.5, contains_marker(tokens)),
           "corpus labels are not the marker oracle")
+    if cfg.num_codebooks > 1:
+        rest = np.random.default_rng(seed + 1).integers(
+            0, cfg.vocab_size, (n_corpus, SEQ_LEN, cfg.num_codebooks - 1),
+            dtype=tokens.dtype)
+        tokens = np.concatenate([tokens[..., None], rest], axis=-1)
+    return tokens, labels
+
+
+def rand_tokens(cfg, shape, g) -> torch.Tensor:
+    """Uniform tokens of `shape` on the card, with a trailing codebook
+    axis for a model of K > 1 codebooks."""
+    if cfg.num_codebooks > 1:
+        shape = (*shape, cfg.num_codebooks)
+    return torch.randint(0, cfg.vocab_size, shape, device=DEVICE,
+                         generator=g)
+
+
+def logit_shape(cfg) -> tuple:
+    """The trailing shape of a model's logits: (V,), or (K, V)."""
+    return ((cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()) \
+        + (cfg.vocab_size,)
+
+
+def roc_auc(scores: np.ndarray, truth: np.ndarray) -> float:
+    """The area under the ROC curve of `scores` for the positives `truth`
+    (Mann-Whitney: tied scores share their mean rank)."""
+    _, inverse, counts = np.unique(scores, return_inverse=True,
+                                   return_counts=True)
+    ends = np.cumsum(counts)
+    ranks = (ends - (counts - 1) / 2.0)[inverse]
+    n_pos = int(truth.sum())
+    n_neg = truth.size - n_pos
+    return float((ranks[truth].sum() - n_pos * (n_pos + 1) / 2.0)
+                 / (n_pos * n_neg))
+
+
+def score_select_phase(model, cfg, seed: int, n_corpus: int,
+                       per_call: dict, batch: int = SCORE_BATCH,
+                       result: Optional[dict] = None) -> dict:
+    """Phases 7, 11, 16, 18, 19, 21 and 22: score a token corpus of
+    `n_corpus` records with the full model in calls of `batch` records,
+    launching each kernel of `per_call` that often a call, and select on
+    the card; returns the path's launch counts, and puts the scores (on
+    the host), labels and the RT query's recall and oracle calls in
+    `result`."""
+    tokens_np, labels = token_corpus(cfg, n_corpus, seed)
     tokens = torch.from_numpy(tokens_np).to(DEVICE)
     serve_prefill = make_serve_prefill(cfg)
     serve_prefill(model, {"tokens": tokens[:batch]})   # warm-up
@@ -1361,11 +1459,15 @@ def score_select_phase(model, cfg, seed: int, n_corpus: int,
           f"scores in [{float(scores.min()):.4g}, {float(scores.max()):.4g}]"
           f", quantiles 1/50/99% "
           f"{', '.join(f'{x:.4g}' for x in quantiles)}")
+    recall = queries.recall_of(sel_idx, truth)
     print(f"RT over the scores: build {t_build:.4f} s, query {t_query:.4f} s,"
           f" tau {sel.tau:.6g}, selected {sel.total_selected} of {n_corpus}"
           f" ({int(truth.sum())} positive), oracle calls {sel.oracle_calls},"
-          f" recall {queries.recall_of(sel_idx, truth):.4f}, precision "
+          f" recall {recall:.4f}, precision "
           f"{queries.precision_of(sel_idx, truth):.4f}")
+    if result is not None:
+        result.update(scores=scores.cpu().numpy(), labels=labels,
+                      recall=recall, oracle_calls=sel.oracle_calls)
     print(f"score-then-select path launches: {launches}")
     if "linear_scan" in per_call:
         check_scan_routes(launches["linear_scan"], "scoring",
@@ -1377,17 +1479,25 @@ def profile_scoring_call(model, cfg, seed: int, groups: dict) -> None:
     """Device time by kernel over one scoring call (torch.profiler), in
     `groups` (a name for each substring of a kernel's name) and matmuls
     and the rest, and the device's busy share of the call's wall time."""
-    tokens = torch.randint(0, cfg.vocab_size, (SCORE_BATCH, SEQ_LEN),
-                           device=DEVICE, generator=torch.Generator(
-                               device=DEVICE).manual_seed(seed + 2))
+    tokens = rand_tokens(cfg, (SCORE_BATCH, SEQ_LEN), torch.Generator(
+        device=DEVICE).manual_seed(seed + 2))
     serve_prefill = make_serve_prefill(cfg)
     serve_prefill(model, {"tokens": tokens})
     torch.cuda.synchronize()
+    profile_call(lambda: serve_prefill(model, {"tokens": tokens}), groups,
+                 f"one {cfg.name} scoring call ({SCORE_BATCH} x {SEQ_LEN} "
+                 "tokens)")
+
+
+def profile_call(fn, groups: dict, label: str) -> None:
+    """One call of `fn` under torch.profiler: its wall, the device's busy
+    share of it, device time in `groups` (a name for each substring of a
+    kernel's name), matmuls and the rest, and the top kernels."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        serve_prefill(model, {"tokens": tokens})
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [(e.key, e.self_device_time_total, e.count)
@@ -1396,8 +1506,7 @@ def profile_scoring_call(model, cfg, seed: int, groups: dict) -> None:
                and e.self_device_time_total > 0]
     busy_us = sum(t for _, t, _ in kernels)
     if not kernels:
-        print("profile of one scoring call: the profiler recorded no device "
-              "time")
+        print(f"profile of {label}: the profiler recorded no device time")
         return
     by_group = {}
     for name, t, _ in kernels:
@@ -1408,10 +1517,9 @@ def profile_scoring_call(model, cfg, seed: int, groups: dict) -> None:
                                      ("gemm", "cutlass", "xmma", "nvjet"))
                      else "other (elementwise, norms, softmax, copies)")
         by_group[group] = by_group.get(group, 0.0) + t
-    print(f"profile of one {cfg.name} scoring call ({SCORE_BATCH} x "
-          f"{SEQ_LEN} tokens): wall {wall_us / 1e3:.3f} ms, device busy "
-          f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.3f} of the wall), by "
-          "group: " + ", ".join(
+    print(f"profile of {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.3f} of the wall), "
+          f"{sum(n for _, _, n in kernels)} kernels, by group: " + ", ".join(
               f"{g} {t / 1e3:.3f} ms ({t / busy_us:.3f})"
               for g, t in sorted(by_group.items(), key=lambda kv: -kv[1])))
     for name, t, n in sorted(kernels, key=lambda k: -k[1])[:10]:
@@ -3056,9 +3164,8 @@ def decode_tokens(cfg, seed: int) -> torch.Tensor:
     """The tokens of the decode checks: one row for each of
     DECODE_OFFSETS, long enough for its DECODE_STEPS steps."""
     rows, length = len(DECODE_OFFSETS), max(DECODE_OFFSETS) + DECODE_STEPS
-    return torch.randint(0, cfg.vocab_size, (rows, length), device=DEVICE,
-                         generator=torch.Generator(device=DEVICE)
-                         .manual_seed(seed + 31))
+    return rand_tokens(cfg, (rows, length), torch.Generator(device=DEVICE)
+                       .manual_seed(seed + 31))
 
 
 def decode_schedule():
@@ -3079,9 +3186,9 @@ def decode_logits(model, cfg, tokens, init, dtype=torch.float32):
     tokens alone, from caches `init(1)`; its caches go into row r of
     `init(rows)`, which then takes DECODE_STEPS steps with every row at
     its own position. Positions a row never reaches hold NaN."""
-    rows, length = tokens.shape
+    rows, length = tokens.shape[:2]
     serve_decode = make_serve_decode(cfg)
-    dec = torch.full((rows, length, cfg.vocab_size), float("nan"),
+    dec = torch.full((rows, length, *logit_shape(cfg)), float("nan"),
                      dtype=dtype, device=DEVICE)
     caches = init(rows)
     for r, off in enumerate(DECODE_OFFSETS):
@@ -3268,7 +3375,8 @@ def decode_bound(model, cfg, caches, rows: int) -> tuple:
     if not cfg.tie_embeddings:
         table = model.embed.table
         weights -= table.numel() * table.element_size()
-        weights += rows * table.shape[1] * table.element_size()
+        weights += rows * cfg.num_codebooks * cfg.d_model \
+            * table.element_size()
     kv, states, attn_ops = 0, 0, 0.0
     per_position = {"k": cfg.head_dim, "v": cfg.head_dim,
                     "c": 2 * cfg.kv_lora_rank,
@@ -3280,9 +3388,10 @@ def decode_bound(model, cfg, caches, rows: int) -> tuple:
                 * per_position[key]
         else:
             states += 2 * t.numel() * t.element_size()
-    moved = weights + kv + states + 4 * rows * cfg.vocab_size
+    moved = weights + kv + states + 4 * rows * cfg.vocab_size \
+        * cfg.num_codebooks
     ops = model_flops(cfg, rows, 1) + 2.0 * rows * cfg.d_model \
-        * cfg.vocab_size + attn_ops
+        * cfg.vocab_size * cfg.num_codebooks + attn_ops
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / BF16_OPS_PER_S * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -3302,8 +3411,7 @@ def decode_times(model, cfg, rows: int, length: int, seed: int,
     with torch.inference_mode():
         for _, t in named_tensors(caches):
             t.normal_(0.0, 0.5, generator=g)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, 1),
-                                     device=DEVICE, generator=g),
+    batch = {"tokens": rand_tokens(cfg, (rows, 1), g),
              "pos": torch.full((rows,), length - 1, device=DEVICE)}
     serve_decode = make_serve_decode(cfg)
     reps = 10 if rows * length <= 1 << 22 else 4
@@ -3328,7 +3436,7 @@ def decode_times(model, cfg, rows: int, length: int, seed: int,
                        if e.device_type == torch.autograd.DeviceType.CUDA
                        and way in e.key) for way in ("DtoH", "HtoD")}
     check(bool(torch.isfinite(logits).all())
-          and logits.shape == (rows, 1, cfg.vocab_size),
+          and logits.shape == (rows, 1, *logit_shape(cfg)),
           f"{cfg.name} decode logits at ({rows}, {length})")
     check(peak < DECODE_PEAK_BYTES,
           f"{cfg.name} decode at ({rows}, {length}): peak device memory "
@@ -3687,6 +3795,399 @@ def dsv2_phase(seed: int, card: str) -> dict:
             "max_abs_err": err, **row}
 
 
+# -- phase 20 ------------------------------------------------------------------
+
+FA_MUSICGEN = (4, 4096, 24, 24, 64)    # musicgen-medium's prefill attention
+# flash_attention's backward against its plain backward (phase 20), at
+# smollm's and musicgen's training shapes and a ragged S, causal and not.
+FA_BWD_CASES = ((FA_PREFILL, True), (FA_MUSICGEN, True),
+                ((2, 1000, 15, 5, 64), True), ((2, 1000, 15, 5, 64), False))
+# The kernel sums in float32 and rounds dq, dk and dv once; in bf16 it
+# rounds P and dS to bf16 before the products that take them, as the
+# forward rounds p before p·v. The plain backward computes in float32 from
+# the same inputs and is compared before it rounds. So in bf16 each output
+# lies within one rounding, BF16_RTOL |plain|, plus what P's and dS's
+# roundings move, which BWD_BF16_ATOL bounds; in float32 (the CUDA-core
+# kernels, no rounding between the products) within the forward's F32_TOL
+# abs + rel. Over FA_BWD_CASES at --seed 0, 1 and 2 on an H100 80GB HBM3 at
+# 700 W: |err| - 2^-7 |plain| at most 9.04e-3 (dv; BWD_BF16_ATOL is 2.2
+# times that), ||err|| / ||plain|| 2.283e-3 to 2.378e-3 (the bar is about
+# twice), float32 at most 3.34e-6 abs. The CUDA-core kernels this bf16
+# path replaced read 7.13e-7 over one rounding: their excess was the float32
+# sums' alone.
+BWD_BF16_ATOL = 2e-2
+BWD_BF16_FRO_TOL = 5e-3
+
+
+def plain_attention_bwd(q, k, v, o, do, causal=True):
+    """The backward's plain version in the kernel's (B,S,H,d) layout, in
+    float32 from the same inputs (not rounded to their dtype)."""
+    return [t.transpose(1, 2) for t in fa_ref.attention_bwd_ref(
+        *(x.float().transpose(1, 2) for x in (q, k, v, o, do)), causal)]
+
+
+def hold_flash_bwd(shape, dtype, causal: bool, g) -> float:
+    """dq, dk and dv of the backward kernel on standard normal q, k, v and
+    dO at `shape` against the plain backward: in bf16 each output within
+    BWD_BF16_ATOL + BF16_RTOL |plain| and each tensor within
+    BWD_BF16_FRO_TOL of its norm, in float32 within F32_TOL abs + rel; two
+    calls equal bit for bit. Returns the largest |kernel - plain|."""
+    q, k, v = attention_inputs(shape, dtype, g)
+    o = fa_ops.flash_attention(q, k, v, causal=causal)
+    do = torch.randn(o.shape, generator=g, device=DEVICE).to(dtype)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    plain = plain_attention_bwd(q, k, v, o, do, causal)
+    torch.cuda.synchronize()
+    what = f"flash_attention_bwd {shape} {dtype} causal={causal}"
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{what}: two calls differ")
+    worst, readings = 0.0, []
+    for name, a, w in zip(("dq", "dk", "dv"), got, plain):
+        err = (a.float() - w).abs()
+        worst = max(worst, float(err.max()))
+        if dtype == torch.bfloat16:
+            excess = float((err - BF16_RTOL * w.abs()).max())
+            fro = float(err.norm() / w.norm())
+            check(excess <= BWD_BF16_ATOL and fro <= BWD_BF16_FRO_TOL,
+                  f"{what} {name}: |err| - 2^-7 |plain| up to {excess:.4g} "
+                  f"(tol {BWD_BF16_ATOL}), ||err|| / ||plain|| {fro:.4g} "
+                  f"(tol {BWD_BF16_FRO_TOL})")
+            readings.append(f"{name} excess {excess:.4g} fro {fro:.4g}")
+        else:
+            check(bool((err <= F32_TOL + F32_TOL * w.abs()).all()),
+                  f"{what} {name}: max |err| {float(err.max()):.4g}")
+            readings.append(f"{name} max {float(err.max()):.4g}")
+    print(f"{what}: max |kernel - plain| {worst:.6g}; "
+          + ", ".join(readings) + "; two calls bitwise equal")
+    del q, k, v, o, do, got, again, plain
+    return worst
+
+
+def fused_sdpa_bwd_ms(qt, kt, vt, dot) -> float:
+    """ms of the backward of `scaled_dot_product_attention` (causal) on
+    (B,H,S,d) tensors by its fastest fused backend, each backend alone,
+    its time or refusal printed; fails if none runs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    times = {}
+    for name in SDPA_FUSED:
+        try:
+            with sdpa_kernel([getattr(SDPBackend, name)]):
+                out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+                times[name] = cuda_ms(lambda: torch.autograd.grad(
+                    out, leaves, dot, retain_graph=True), 10)
+        except RuntimeError as e:          # this backend takes no such input
+            print(f"  scaled_dot_product_attention backward {name}: refused "
+                  f"({str(e).strip().splitlines()[0][:120]})")
+    check(bool(times), "no fused scaled_dot_product_attention backward ran")
+    best = min(times, key=times.get)
+    print("  scaled_dot_product_attention backward by backend: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+          + f"; library_ms is {best}'s")
+    return times[best]
+
+
+def flash_bwd_row(shape, seed: int) -> dict:
+    """The backward kernel's time at `shape`, bf16 causal, beside its
+    bound (2.5 times the forward's products: q·kᵀ again, dO·vᵀ, Pᵀ·dO,
+    dSᵀ·q and dS·k over the causal half; q, k, v, o and dO read, dq, dk
+    and dv written once), the plain backward's time and the backward of
+    `scaled_dot_product_attention` by its fastest fused backend."""
+    b, s, h, kv, dh = shape
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 17)
+    q, k, v = attention_inputs(shape, torch.bfloat16, g)
+    o = fa_ops.flash_attention(q, k, v)
+    do = torch.randn(o.shape, generator=g, device=DEVICE).to(q.dtype)
+    ms = cuda_ms(lambda: fa_ops.flash_attention_bwd(q, k, v, o, do), 10)
+    plain_ms = cuda_ms(lambda: plain_attention_bwd(q, k, v, o, do), 2)
+    group = h // kv
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in
+                       (q, k.repeat_interleave(group, dim=2),
+                        v.repeat_interleave(group, dim=2), do))
+    lib_ms = fused_sdpa_bwd_ms(qt, kt, vt, dot)
+    ops = 2.5 * b * h * s * s * (dh + dh)
+    moved = 2 * (4 * q.numel() + 4 * k.numel())
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes \
+        else (t_bytes, "bytes")
+    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": lib_ms}
+    print(f"flash_attention_bwd at (B, S, H, KV, dh) = {shape}, bf16 causal: "
+          f"{json.dumps(row)}")
+    return row
+
+
+def flash_bwd_phase(seed: int) -> tuple:
+    """Phase 20: the backward kernel against its plain backward, and its
+    times at smollm's and musicgen's shapes; returns (the largest |kernel -
+    plain| at smollm's shape in bf16, the row at smollm's shape)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 19)
+    err = 0.0
+    for shape, causal in FA_BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            e = hold_flash_bwd(shape, dtype, causal, g)
+            if shape == FA_PREFILL and dtype == torch.bfloat16:
+                err = e
+            torch.cuda.empty_cache()
+    row = flash_bwd_row(FA_PREFILL, seed)
+    flash_bwd_row(FA_MUSICGEN, seed)
+    torch.cuda.empty_cache()
+    return err, row
+
+
+# -- phase 21 ------------------------------------------------------------------
+
+N_MUSICGEN_CORPUS = 1 << 12            # token records musicgen scores
+# musicgen-medium's KV cache is 9.66 GB a row at 32768 positions (48 layers,
+# 24 heads of 64, bf16): six rows and its 3.67 GB of weights fit under
+# DECODE_PEAK_BYTES.
+MUSICGEN_DECODE_ROWS = 6
+# Its training cell: (4, 4096) x 4 codebooks a step, two microbatches,
+# remat="block"; one untimed step, then TRAIN_STEPS timed.
+TRAIN_SHAPE = (4, 4096)
+TRAIN_ACCUM = 2
+TRAIN_STEPS = 3
+# A training step's device time by kernel group (`profile_call`).
+TRAIN_GROUPS = {"mma_stats": "flash_attention_bwd",
+                "mma_dkdv": "flash_attention_bwd",
+                "mma_dq": "flash_attention_bwd",
+                "flash_bf16": "flash_attention"}
+
+
+def codebook_batches(cfg, seed: int, steps: int, shape):
+    """`lm_batches` (B·K rows a step) as (B, S, K) tokens and labels: row
+    b·K + k is codebook k of row b."""
+    b, s = shape
+    k = cfg.num_codebooks
+    for batch in lm_batches(seed, steps, b * k, s, cfg.vocab_size):
+        yield {key: np.ascontiguousarray(
+            v.reshape(b, k, s).transpose(0, 2, 1)) for key, v in batch.items()}
+
+
+def same_tensors(a: dict, b: dict) -> bool:
+    """The same names, each with the same dtype and bits."""
+    return a.keys() == b.keys() and all(
+        a[n].dtype == b[n].dtype and torch.equal(a[n], b[n]) for n in a)
+
+
+def train_cell(model, cfg, seed: int, card: str) -> dict:
+    """Phase 21's training: `make_train_step` with remat and accumulation
+    on `lm_batches`; per step its wall, tokens/s, mfu by
+    `train_flops_analytic`, peak device memory and flash_attention's
+    forward and backward launches (a microbatch runs each layer's forward,
+    its recompute and its backward once); then one more step under the
+    profiler. Returns the optimizer state and the last timed step's
+    numbers."""
+    opts = TrainOptions(grad_accum=TRAIN_ACCUM, adamw=adamw.AdamWConfig(
+        lr=1e-4, warmup_steps=2, total_steps=100))
+    step = make_train_step(cfg, opts)
+    opt = adamw.init(model)
+    b, s = TRAIN_SHAPE
+    want = {"flash_attention": 2 * TRAIN_ACCUM * cfg.num_layers,
+            "flash_attention_bwd": TRAIN_ACCUM * cfg.num_layers}
+    flops = modellib.train_flops_analytic(cfg, b, s)
+    out = {}
+    for i, batch in enumerate(codebook_batches(cfg, seed, TRAIN_STEPS + 1,
+                                               TRAIN_SHAPE)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(want)
+        t0 = time.perf_counter()
+        model, opt, met = step(model, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: COUNTERS[name].count for name in want}
+        check(launches == want, f"{cfg.name} train step {i} launched "
+              f"{launches}, expected {want}")
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        check(math.isfinite(loss) and math.isfinite(gnorm),
+              f"{cfg.name} train step {i}: loss {loss}, grad_norm {gnorm}")
+        out = {"wall_s": wall, "tokens_s": b * s / wall,
+               "mfu": flops / wall / BF16_OPS_PER_S,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "loss": loss, "grad_norm": gnorm}
+        print(f"{cfg.name} train step {i}{' (warm-up)' if i == 0 else ''}: "
+              f"({b}, {s}) x {cfg.num_codebooks} codebooks, grad_accum "
+              f"{TRAIN_ACCUM}, remat {cfg.remat}: loss {loss:.5f}, ce "
+              f"{float(met['ce']):.5f}, grad_norm {gnorm:.5f}, lr "
+              f"{float(met['lr']):.3g}; wall {wall:.4f} s, "
+              f"{out['tokens_s']:.1f} tokens/s, mfu {out['mfu']:.4f} "
+              f"(train_flops_analytic {flops:.4g}), peak "
+              f"{out['peak_gb']:.2f} GB, launches {launches} ({card})")
+    state = [opt]
+
+    def profiled():
+        state[0] = step(model, state[0], batch)[1]
+    profile_call(profiled, TRAIN_GROUPS, f"one {cfg.name} train step")
+    return state[0], out
+
+
+def checkpoint_round_trip(model, opt, step: int, root: pathlib.Path,
+                          card: str) -> None:
+    """A `CheckpointManager` save and restore of `model` and its AdamW
+    state on the card: the same tensors back."""
+    mgr = CheckpointManager(root)
+    t0 = time.perf_counter()
+    mgr.save(step, model, opt)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model2, opt2, step2, _ = mgr.restore()
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    params2 = dict(model2.named_parameters())
+    check(all(t.device.type == "cuda" for t in params2.values()),
+          f"{model.cfg.name} checkpoint restored off the card")
+    check(step2 == step and same_tensors(params, params2)
+          and same_tensors(opt.mu, opt2.mu) and same_tensors(opt.nu, opt2.nu)
+          and torch.equal(opt.step, opt2.step),
+          f"{model.cfg.name} checkpoint round trip changed a tensor")
+    size = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+    print(f"{model.cfg.name} checkpoint at step {step}: {size / 1e9:.2f} GB "
+          f"(weights and AdamW moments) saved in {t_save:.2f} s, restored "
+          f"onto the card in {t_restore:.2f} s, every tensor equal ({card})")
+    del model2, opt2
+
+
+def musicgen_phase(seed: int, card: str, root: pathlib.Path) -> int:
+    """Phase 21: musicgen-medium at full width (48 layers, bf16): a (4,
+    4096, K=4) prefill with its logits against plain attention, a scored
+    2^12-record corpus and one RT query, decode against the prefill and a
+    step at 32768 positions, TRAIN_STEPS train steps, and a checkpoint
+    round trip. Returns flash_attention's launches on its prefill and
+    scoring path."""
+    cfg = get_config(MUSICGEN)
+    print(f"{MUSICGEN}: {modellib.count_params_analytic(cfg)} parameters "
+          f"(count_params_analytic)")
+    model = init_model(cfg, seed)
+    per_prefill = {"flash_attention": cfg.num_layers}
+    model_phase(model, cfg, seed, per_prefill)
+    launches = score_select_phase(model, cfg, seed, N_MUSICGEN_CORPUS,
+                                  per_prefill)["flash_attention"]
+    decode_consistency(model, cfg, seed, DECODE_BF16_TOL[cfg.name], "bf16")
+    decode_times(model, cfg, MUSICGEN_DECODE_ROWS, NEW_DECODE_LENGTH, seed,
+                 card)
+    torch.cuda.empty_cache()
+    opt, _ = train_cell(model, cfg, seed, card)
+    checkpoint_round_trip(model, opt, int(opt.step), root, card)
+    del model, opt
+    torch.cuda.empty_cache()
+    return per_prefill["flash_attention"] + launches
+
+
+# -- phase 22 ------------------------------------------------------------------
+
+# smollm-360m trained into a proxy on phase 7's corpus, as the JAX
+# package's examples/selection_service.py trains its small one: class-
+# balanced batches of PROXY_HALF positives and PROXY_HALF negatives drawn
+# from the first half of the corpus, the class label at every position,
+# AdamW without weight decay. The bar: the trained proxy's AUC on the
+# records no batch drew.
+PROXY_HALF = 32
+PROXY_STEPS = 120
+PROXY_LR = 3e-4
+PROXY_WARMUP = 20
+PROXY_FAIL_AT = 70          # one injected restart, after the first checkpoint
+PROXY_AUC = 0.9
+
+
+def proxy_phase(seed: int, card: str, random_init: dict,
+                root: pathlib.Path) -> int:
+    """Phase 22: smollm-360m at full width trained through `TrainLoop`
+    (a `CheckpointManager` save every PROXY_STEPS / 2 steps, one injected
+    restart that restores the last one), then phase 7's corpus scored and
+    one RT query selected; the AUC over the records no batch drew, and the
+    query's recall and oracle calls, beside phase 7's random-init proxy's.
+    Returns the backward kernel's launches in training."""
+    cfg = get_config(ARCH)
+    model = init_model(cfg, seed)
+    tokens, labels = token_corpus(cfg, N_CORPUS, seed)
+    truth = labels > 0.5
+    half = N_CORPUS // 2
+    pools = (np.nonzero(truth[:half])[0], np.nonzero(~truth[:half])[0])
+    drawn = np.zeros(N_CORPUS, bool)
+
+    def make_batch(rng, step):
+        idx = np.concatenate([rng.choice(pool, PROXY_HALF) for pool in pools])
+        y = labels[idx].astype(np.int32)
+        return {"tokens": tokens[idx], "idx": idx,
+                "labels": np.repeat(y[:, None], SEQ_LEN, axis=1)}
+
+    step = make_train_step(cfg, TrainOptions(adamw=adamw.AdamWConfig(
+        lr=PROXY_LR, warmup_steps=PROXY_WARMUP, total_steps=PROXY_STEPS,
+        weight_decay=0.0)))
+    calls, step_s = [0], [0.0]
+
+    def step_fn(m, o, batch):
+        calls[0] += 1
+        if calls[0] == PROXY_FAIL_AT + 1:
+            raise RestartRequired("injected failure")
+        drawn[batch["idx"]] = True
+        t0 = time.perf_counter()
+        out = step(m, o, batch)
+        torch.cuda.synchronize()
+        step_s[0] += time.perf_counter() - t0
+        return out
+
+    def on_step(i, met):
+        if i % 20 == 0 or i == PROXY_STEPS:
+            print(f"  proxy train step {i}: loss {float(met['loss']):.5f}, "
+                  f"grad_norm {float(met['grad_norm']):.4f}")
+
+    train_path = ("flash_attention", "flash_attention_bwd")
+    reset_counts(train_path)
+    mgr = CheckpointManager(root)
+    loop = TrainLoop(step_fn, pipeline.DeterministicSource(make_batch, seed),
+                     mgr, LoopConfig(total_steps=PROXY_STEPS,
+                                     ckpt_every=PROXY_STEPS // 2),
+                     on_step=on_step)
+    t0 = time.perf_counter()
+    model, opt, n = loop.run(model, adamw.init(model))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(mgr.latest_step() == PROXY_STEPS, "the last checkpoint is missing")
+    launches = {k: COUNTERS[k].count for k in train_path}
+    steps_run = PROXY_STEPS + PROXY_FAIL_AT - PROXY_STEPS // 2
+    check(n == PROXY_STEPS and loop.restarts == 1
+          and launches["flash_attention_bwd"] == steps_run * cfg.num_layers,
+          f"proxy training: {n} steps, {loop.restarts} restarts, launches "
+          f"{launches}")
+    tokens_s = steps_run * 2 * PROXY_HALF * SEQ_LEN / step_s[0]
+    mfu = steps_run * modellib.train_flops_analytic(
+        cfg, 2 * PROXY_HALF, SEQ_LEN) / step_s[0] / BF16_OPS_PER_S
+    print(f"{cfg.name} trained through TrainLoop: {PROXY_STEPS} steps of "
+          f"{2 * PROXY_HALF} x {SEQ_LEN} tokens ({steps_run} run, one "
+          f"restart from step {PROXY_STEPS // 2}'s checkpoint), lr "
+          f"{PROXY_LR}, warmup {PROXY_WARMUP}, in {wall:.2f} s: the steps "
+          f"{step_s[0]:.2f} s ({step_s[0] / steps_run:.4f} s a step, "
+          f"{tokens_s:.1f} tokens/s, train mfu {mfu:.4f}), checkpoints and "
+          f"the restore {wall - step_s[0]:.2f} s; launches {launches} "
+          f"({card})")
+    trained = {}
+    score_select_phase(model, cfg, seed, N_CORPUS,
+                       {"flash_attention": cfg.num_layers}, result=trained)
+    held = ~drawn
+    auc = roc_auc(trained["scores"][held], truth[held])
+    auc0 = roc_auc(random_init["scores"][held], truth[held])
+    print(f"proxy AUC over the {int(held.sum())} records no batch drew "
+          f"({int(truth[held].sum())} positive): trained {auc:.4f}, phase "
+          f"7's random-init {auc0:.4f} (bar {PROXY_AUC}); RT 0.9: trained "
+          f"recall {trained['recall']:.4f} with {trained['oracle_calls']} "
+          f"oracle calls, random-init recall {random_init['recall']:.4f} "
+          f"with {random_init['oracle_calls']}")
+    check(auc >= PROXY_AUC, f"the trained proxy's AUC {auc:.4f} < "
+          f"{PROXY_AUC}")
+    batch = make_batch(np.random.default_rng(seed), 0)
+    profile_call(lambda: step(model, opt, batch), TRAIN_GROUPS,
+                 f"one more {cfg.name} train step ({2 * PROXY_HALF} x "
+                 f"{SEQ_LEN} tokens)")
+    del model, opt
+    torch.cuda.empty_cache()
+    return launches["flash_attention_bwd"]
+
+
 class Phases:
     """Wall time of each phase, printed as it ends and summed at the end."""
 
@@ -3712,6 +4213,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
+    t_start = time.perf_counter()
     check(torch.cuda.is_available(), "no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 stays float32
     torch.backends.cudnn.allow_tf32 = False
@@ -3783,9 +4285,11 @@ def main() -> None:
         model = init_model(cfg, args.seed)
         model_phase(model, cfg, args.seed,
                     {"flash_attention": cfg.num_layers})
+        random_init = {}
         fa_launches = score_select_phase(
             model, cfg, args.seed, N_CORPUS,
-            {"flash_attention": cfg.num_layers})["flash_attention"]
+            {"flash_attention": cfg.num_layers},
+            result=random_init)["flash_attention"]
         profile_scoring_call(model, cfg, args.seed,
                              {"flash_bf16": "flash_attention"})
         del model
@@ -3855,7 +4359,23 @@ def main() -> None:
     with phase(dsv2_name):
         mla_row = dsv2_phase(args.seed, card)
     print(f"phase 19 wall: {phase.walls[dsv2_name]:.3f} s ({card})")
+    with tempfile.TemporaryDirectory() as tmpdir:
+        root = pathlib.Path(tmpdir)
+        bwd_name = "20 flash_attention backward"
+        with phase(bwd_name):
+            bwd_err, bwd_row = flash_bwd_phase(args.seed)
+        music_name = "21 musicgen-medium: prefill, decode, train, checkpoint"
+        with phase(music_name):
+            musicgen_phase(args.seed, card, root / "musicgen")
+        proxy_name = "22 smollm-360m trained into a proxy"
+        with phase(proxy_name):
+            bwd_launches = proxy_phase(args.seed, card, random_init,
+                                       root / "proxy")
+    for name in (bwd_name, music_name, proxy_name):
+        print(f"phase {name.split()[0]} wall: {phase.walls[name]:.3f} s "
+              f"({card})")
     print(phase.total())
+    print(f"whole run wall: {time.perf_counter() - t_start:.1f} s ({card})")
 
     rows = []
     for name, source, replaces in (
@@ -3895,6 +4415,14 @@ def main() -> None:
                  "source": "src/repro_torch/csrc/flash_attention.cu",
                  "replaces": "src/repro/kernels/flash_attention/"
                              "flash_attention.py:94", **mla_row})
+    rows.append({"name": "flash_attention_bwd", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                 "replaces": "src/repro/kernels/flash_attention/"
+                             "flash_attention.py:94 (its gradient, which "
+                             "the JAX package takes by autodiff of jnp "
+                             "attention)",
+                 "launches": bwd_launches, "max_abs_err": bwd_err,
+                 **bwd_row})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,8 +13,8 @@ JAX package's.
 
 Token corpora for the model plane: `make_token_corpus` plants the
 `MARKER` tri-gram in a subset of random token records, and
-`contains_marker` is the exact oracle (both value for value the JAX
-package's).
+`contains_marker` is the exact oracle, and `lm_batches` gives the
+trainer's next-token batches (all value for value the JAX package's).
 """
 from __future__ import annotations
 
@@ -163,3 +163,15 @@ def contains_marker(tokens) -> np.ndarray:
         window = t[:, off:off + len(MARKER)]
         hits |= (window == np.asarray(MARKER)).all(axis=1)
     return hits
+
+
+def lm_batches(key_seed, num_steps, global_batch, seq_len, vocab,
+               start_step=0):
+    """Deterministic next-token-prediction batches (resumable by step):
+    step i's tokens come from ``default_rng((key_seed, i))``, (B, S+1)
+    int32, split into tokens and labels shifted by one."""
+    for step in range(start_step, num_steps):
+        rng = np.random.default_rng((key_seed, step))
+        toks = rng.integers(0, vocab, (global_batch, seq_len + 1),
+                            dtype=np.int32)
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -1,6 +1,9 @@
-"""Wrapper of the flash attention kernel: the CUDA kernel
-``csrc/flash_attention.cu`` for CUDA tensors, the plain version
-(`ref.attention_ref`) for CPU ones.
+"""Wrapper of the flash attention kernels: the CUDA kernels
+``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
+(its gradient, at (dh, dv) = (64, 64)) for CUDA tensors, the plain
+versions (`ref.attention_ref`, `ref.attention_bwd_ref`) for CPU ones.
+`flash_attention` is a `torch.autograd.Function`: its backward is the
+backward kernel on the card and the plain backward on the CPU.
 
 Tensors are in the model stack's (B, S, H, dh) layout, as in the JAX
 package's ``kernels/flash_attention/ops.py``. v may have a head dim dv of
@@ -25,12 +28,15 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
-# (q·k head dim, v head dim) pairs the CUDA kernels take
+# (q·k head dim, v head dim) pairs the CUDA kernels take: the forward's,
+# and the backward's
 HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
+BWD_HEAD_DIMS = ((64, 64),)
 DTYPES = (torch.bfloat16, torch.float32)
 _MAX_GRID = 65_535         # the launch grids' y and z dimensions
 
 launches = _build.LaunchCounter()
+bwd_launches = _build.LaunchCounter()
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,19 +158,30 @@ def _work_counter(device: torch.device, stream: int) -> torch.Tensor:
     return counter
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q: (B,S,H,dh); k: (B,S,KV,dh); v: (B,S,KV,dv) -> (B,S,H,dv) in q's
-    dtype: softmax(q·kᵀ/√dh)·v with float32 accumulation, query head h
-    reading KV head h // (H/KV), and the mask q_pos >= k_pos if
-    `causal`."""
-    devices = {q.device.type, k.device.type, v.device.type}
+def _on_card(*tensors) -> bool:
+    """True for tensors on one CUDA device, False for CPU tensors; raises
+    on a mix."""
+    devices = {t.device.type for t in tensors}
     if devices == {"cpu"}:
-        return ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), causal).transpose(1, 2)
-    if devices != {"cuda"} or len({q.device, k.device, v.device}) != 1:
+        return False
+    if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
         raise ValueError(f"flash_attention runs on cpu or on one cuda "
-                         f"device, got {q.device}, {k.device}, {v.device}")
+                         f"device, got {[str(t.device) for t in tensors]}")
+    return True
+
+
+def _heads_first(*tensors):
+    """(B,S,heads,d) views as (B,heads,S,d)."""
+    return [t.transpose(1, 2) for t in tensors]
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool) -> torch.Tensor:
+    """The forward kernel on CUDA tensors, the plain version on CPU
+    ones."""
+    if not _on_card(q, k, v):
+        return ref.attention_ref(*_heads_first(q, k, v),
+                                 causal).transpose(1, 2)
     _check(q, k, v)
     b, s, h, dh = q.shape
     dv = v.shape[3]
@@ -191,3 +208,95 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  "flash_attention")
     launches.bump()
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    """The built backward kernel library, its C signature bound once."""
+    lib = _build.load("flash_attention_bwd")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd_launch.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+        i32, i32, i32, ctypes.c_float, ctypes.c_float, ptr]
+    lib.flash_attention_bwd_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_backward(head_dim: int, v_dim: int) -> None:
+    """Raise ValueError unless the backward kernel takes (`head_dim`,
+    `v_dim`)."""
+    if (head_dim, v_dim) not in BWD_HEAD_DIMS:
+        raise ValueError(
+            f"the flash_attention backward kernel takes (head_dim, v_dim) "
+            f"in {BWD_HEAD_DIMS}, got {(head_dim, v_dim)}: the other pairs "
+            f"are queued in ROADMAP.md")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True):
+    """The gradient of `flash_attention`: (dq, dk, dv) in the inputs'
+    dtype, given its output o (B,S,H,dv) and dL/do. The backward kernel on
+    CUDA tensors ((dh, dv) = (64, 64), bf16 or float32; three launches,
+    one stream, counted once), `ref.attention_bwd_ref` on CPU ones."""
+    if not _on_card(q, k, v, o, do):
+        dq, dk, dv = ref.attention_bwd_ref(*_heads_first(q, k, v, o, do),
+                                           causal)
+        return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+    _check(q, k, v)
+    b, s, h, dh = q.shape
+    check_backward(dh, v.shape[3])
+    do = do.contiguous()
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != (b, s, h, v.shape[3]) or t.dtype != q.dtype \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {q.dtype} "
+                             f"(B,S,H,dv), got {tuple(t.shape)} {t.dtype}")
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        stats = torch.empty((2, b, h, s), dtype=torch.float32,
+                            device=q.device)
+        status = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats[0].data_ptr(), stats[1].data_ptr(), b, s, h, k.shape[2],
+            int(causal), int(q.dtype == torch.bfloat16),
+            math.log2(math.e) / math.sqrt(dh), 1.0 / math.sqrt(dh),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, lib.flash_attention_bwd_error_string,
+                 "flash_attention_bwd")
+    bwd_launches.bump()
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        """o of the forward kernel (or its plain version), q, k, v and o
+        kept for the backward."""
+        o = _forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        """dq, dk, dv by `flash_attention_bwd`."""
+        q, k, v, o = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, o, do, causal=ctx.causal),
+                None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B,S,H,dh); k: (B,S,KV,dh); v: (B,S,KV,dv) -> (B,S,H,dv) in q's
+    dtype: softmax(q·kᵀ/√dh)·v with float32 accumulation, query head h
+    reading KV head h // (H/KV), and the mask q_pos >= k_pos if `causal`.
+    Differentiable: where autograd records it, its gradient is
+    `flash_attention_bwd`."""
+    return _FlashAttention.apply(q, k, v, causal)

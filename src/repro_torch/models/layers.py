@@ -4,8 +4,8 @@ JAX package's ``models/layers.py``).
 Parameters live in plain `torch.nn.Module`s built by `params`, one per
 dict of the JAX package's parameter pytree, with the same names: an
 ``init_*`` function returns the module and an apply function takes it, so
-the two packages' weights map name for name. Weights carry no gradients:
-this slice only scores.
+the two packages' weights map name for name. Weights are made without
+gradients, for scoring; the trainer (`launch.train`) turns them on.
 
 dtype policy, as in the reference: parameters are stored in cfg.dtype (bf16
 in production configs); matmuls accumulate in float32 and return x's
@@ -107,6 +107,13 @@ def lm_head(p, x):
     return torch.matmul(x.float(), p.w.float())
 
 
+def codebook_heads(p, x):
+    """Logits (..., K, V) float32 of x (..., d) through K untied heads w
+    (K,d,V), each from float32 operands (the reference's
+    ``preferred_element_type``)."""
+    return torch.einsum("...d,kdv->...kv", x.float(), p.w.float())
+
+
 # --------------------------------------------------------------------------
 # Gated MLP (SwiGLU family)
 # --------------------------------------------------------------------------
@@ -168,3 +175,23 @@ def apply_rope(x, positions, theta):
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Losses
+# --------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """Mean cross entropy over tokens in float32: logsumexp of the logits
+    (..., vocab) minus the label's logit, averaged, or averaged under
+    `mask` (its sum floored at 1). The label's logit is picked by
+    `torch.gather`, the same float as the reference's where/iota sum
+    (which adds zeros to it)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

@@ -1,22 +1,26 @@
-"""Top-level model API for proxy scoring and decode (the JAX package's
-``models/model.py``):
+"""Top-level model API for proxy scoring, decode and training (the JAX
+package's ``models/model.py``):
 
     model  = init(cfg, generator=g)                   an nn.Module, on cuda
-    logits = apply_train(model, tokens)               (B,S,V) float32
+    logits = apply_train(model, tokens)               (B,S,V) or (B,S,K,V)
     scores = proxy_scores(model, tokens, target)      (B,) in [0,1]
     caches = init_caches(cfg, batch, seq_len)         zeroed, on cuda
     logits, caches = apply_decode(model, tokens, caches, pos)
+    loss, (ce, aux) = loss_fn(model, tokens, labels)  with autograd
     model  = params_from_reference(arrays, cfg)       the reference's weights
+    arrays = params_to_reference(model)               and back
     caches = caches_from_reference(arrays, cfg)       the reference's caches
 
 The proxy-score head is how the SUPG plane consumes a model: the score of a
 record is the model's probability mass on a designated predicate token at
 the last position, the A(x) the paper assumes (Sec 4.1: "executes the
 proxy model over the complete set of records"). The model carries its
-config as ``model.cfg``. Dense attention, MoE (with GQA or MLA
-attention), hybrid Mamba2 (Zamba2) and RWKV6 models so far; the loss (and
-with it the MoE's aux loss, which `transformer.body_prefill` returns) and
-the multi-codebook family wait for their slices (ROADMAP §1).
+config as ``model.cfg``. Dense attention (with one token stream or, for
+musicgen, K codebooks: K embeddings summed, K heads), MoE (with GQA or
+MLA attention), hybrid Mamba2 (Zamba2) and RWKV6 models. `loss_fn` runs
+with autograd (the MoE's aux loss, which `transformer.body_prefill`
+returns, is part of it); `apply_train`, `last_logits`, `apply_decode`
+and `init_caches` run under `torch.inference_mode`, for serving.
 
 Decode caches are nested dicts and lists of tensors, one entry per block
 (and for the hybrid one attention cache per invocation of the shared
@@ -44,30 +48,47 @@ from repro_torch.models import attention, layers, mamba, rwkv, transformer
 
 def init(cfg, *, generator: torch.Generator, device=None) -> nn.Module:
     """A model of `cfg` with weights drawn from `generator` (a generator of
-    the target device) by the reference's laws. ``device=None`` means
-    ``cuda``, and raises without a CUDA device."""
+    the target device) by the reference's laws. With K > 1 codebooks the
+    embedding table is (K, V, d) and the untied heads (K, d, V).
+    ``device=None`` means ``cuda``, and raises without a CUDA device."""
     dev = resolve_device(device)
     dt = layers.dtype_of(cfg)
+    k = cfg.num_codebooks
+    if k > 1:
+        embed = layers.params(table=torch.stack([
+            layers.init_embedding(generator, cfg.vocab_size, cfg.d_model, dt,
+                                  dev).table for _ in range(k)]))
+    else:
+        embed = layers.init_embedding(generator, cfg.vocab_size,
+                                      cfg.d_model, dt, dev)
     members = {
-        "embed": layers.init_embedding(generator, cfg.vocab_size,
-                                       cfg.d_model, dt, dev),
+        "embed": embed,
         "body": transformer.init_body(cfg, generator=generator, device=dev),
         "ln_f": layers.init_rmsnorm(cfg.d_model, dev),
     }
     if not cfg.tie_embeddings:
-        members["head"] = layers.init_lm_head(generator, cfg.d_model,
-                                              cfg.vocab_size, dt, dev)
+        if k > 1:
+            members["head"] = layers.params(w=torch.stack([
+                layers.dense_init(generator, cfg.d_model, cfg.vocab_size,
+                                  dt, dev) for _ in range(k)]))
+        else:
+            members["head"] = layers.init_lm_head(generator, cfg.d_model,
+                                                  cfg.vocab_size, dt, dev)
     model = layers.params(**members)
     model.cfg = cfg
     return model
 
 
 def _tensor(a, device) -> torch.Tensor:
-    """A numpy array (bf16 included) as a tensor of the same dtype."""
+    """A numpy array (bf16 included, or bf16 read back from an ``.npz`` as
+    raw ``|V2`` words) as a tensor of the same dtype."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(device,
                                                          torch.bfloat16)
+    if a.dtype == np.dtype("V2"):
+        return torch.from_numpy(np.ascontiguousarray(a).view(
+            np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 
 
@@ -91,8 +112,9 @@ def params_from_reference(arrays, cfg, *, device=None) -> nn.Module:
     super-block), its ``mamba_tail`` on the tail's blocks, and its
     ``shared_attn`` is not stacked; an MoE body's ``pairs_dense`` and
     ``pairs_moe`` (or ``dense_prefix`` and ``moe_blocks``) each on its
-    blocks, and an expert stack within a block stays (E, d_in, d_out).
-    ``device=None`` means ``cuda``."""
+    blocks, and an expert stack within a block stays (E, d_in, d_out), as
+    do the K codebooks' tables and heads. `params_to_reference` is the
+    inverse. ``device=None`` means ``cuda``."""
     dev = resolve_device(device)
     transformer.check_supported(cfg)
 
@@ -129,52 +151,102 @@ def params_from_reference(arrays, cfg, *, device=None) -> nn.Module:
 # Forward passes
 # --------------------------------------------------------------------------
 
+def _embed(model, tokens):
+    """(B,S) token ids -> (B,S,d); with K codebooks (B,S,K) -> the sum of
+    the K embeddings, added one codebook after another in the table's
+    dtype, as the reference's bf16 ``reduce_sum`` adds them on the CPU."""
+    if model.cfg.num_codebooks == 1:
+        return layers.embed(model.embed, tokens)
+    table = model.embed.table
+    x = table[0][tokens[..., 0]]
+    for i in range(1, model.cfg.num_codebooks):
+        x = x + table[i][tokens[..., i]]
+    return x
+
+
 def _head(model, x):
+    """Float32 logits (..., V), or (..., K, V) with K codebooks."""
     if model.cfg.tie_embeddings:
         return layers.unembed(model.embed, x)
+    if model.cfg.num_codebooks > 1:
+        return layers.codebook_heads(model.head, x)
     return layers.lm_head(model.head, x)
 
 
-def _hidden(model, tokens):
-    """Final-block hidden states (B,S,d) of `tokens` (B,S) ints."""
-    tokens = torch.as_tensor(tokens, device=model.embed.table.device).long()
-    b, s = tokens.shape
-    x = layers.embed(model.embed, tokens)
+def _tokens(model, tokens) -> torch.Tensor:
+    """Token ids as int64 on the model's device."""
+    return torch.as_tensor(tokens, device=model.embed.table.device).long()
+
+
+def _forward(model, tokens):
+    """Final-block hidden states (B,S,d) of `tokens` (B,S) ints, or
+    (B,S,K) with K codebooks, and the MoE aux loss."""
+    tokens = _tokens(model, tokens)
+    b, s = tokens.shape[:2]
+    x = _embed(model, tokens)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    return transformer.body_prefill(model.body, model.cfg, x, positions)[0]
+    return transformer.body_prefill(model.body, model.cfg, x, positions)
+
+
+def _logits(model, tokens):
+    """Float32 logits over the full sequence and the MoE aux loss."""
+    x, aux = _forward(model, tokens)
+    return _head(model, layers.rms_norm(model.ln_f, x,
+                                        model.cfg.norm_eps)), aux
 
 
 @torch.inference_mode()
 def apply_train(model, tokens) -> torch.Tensor:
-    """Logits (B,S,V) in float32 over the full sequence."""
-    x = _hidden(model, tokens)
-    return _head(model, layers.rms_norm(model.ln_f, x, model.cfg.norm_eps))
+    """Logits (B,S,V), or (B,S,K,V) with K codebooks, in float32 over the
+    full sequence."""
+    return _logits(model, tokens)[0]
 
 
 @torch.inference_mode()
 def last_logits(model, tokens) -> torch.Tensor:
-    """Logits (B,V) in float32 at the last position: ln_f and the head are
-    applied to that position only (the full (B,S,V) float32 logits are
-    25 GB at 512 x 256 x 49152)."""
-    x = _hidden(model, tokens)[:, -1]
+    """Logits (B,V), or (B,K,V), in float32 at the last position: ln_f and
+    the head are applied to that position only (the full (B,S,V) float32
+    logits are 25 GB at 512 x 256 x 49152)."""
+    x = _forward(model, tokens)[0][:, -1]
     return _head(model, layers.rms_norm(model.ln_f, x, model.cfg.norm_eps))
 
 
 def proxy_scores(model, tokens, target_token=1) -> torch.Tensor:
     """A(x) in [0,1], (B,) float32: the probability of `target_token` at
-    the last step."""
-    p = torch.softmax(last_logits(model, tokens), dim=-1)
-    return p[..., target_token]
+    the last step; with K codebooks, of the K heads' logits averaged."""
+    last = last_logits(model, tokens)
+    if model.cfg.num_codebooks > 1:
+        last = last.mean(dim=1)
+    return torch.softmax(last, dim=-1)[..., target_token]
+
+
+def loss_fn(model, tokens, labels, mask=None):
+    """(ce + aux, (ce, aux)): the float32 cross entropy of the next-token
+    labels (B,S), or (B,S,K) over every codebook (unmasked, as the
+    reference's), plus the MoE aux loss (0 for the other families). Runs
+    with autograd where it is enabled: nothing here is in inference
+    mode."""
+    logits, aux = _logits(model, tokens)
+    labels = _tokens(model, labels)
+    if model.cfg.num_codebooks > 1:
+        ce = layers.softmax_cross_entropy(
+            logits.reshape(-1, model.cfg.vocab_size), labels.reshape(-1))
+    else:
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=labels.device)
+        ce = layers.softmax_cross_entropy(logits, labels, mask)
+    return ce + aux, (ce, aux)
 
 
 @torch.inference_mode()
 def apply_decode(model, tokens, caches, pos):
-    """tokens: (B,1) ints, pos: (B,) ints (each row's position) ->
-    (logits (B,1,V) float32, caches), `caches` written in place."""
+    """tokens: (B,1) ints, or (B,1,K) with K codebooks; pos: (B,) ints
+    (each row's position) -> (logits (B,1,V) or (B,1,K,V) float32,
+    caches), `caches` written in place."""
     dev = model.embed.table.device
-    tokens = torch.as_tensor(tokens, device=dev).long()
+    tokens = _tokens(model, tokens)
     pos = torch.as_tensor(pos, device=dev).long()
-    x = layers.embed(model.embed, tokens)
+    x = _embed(model, tokens)
     x, caches = transformer.body_decode(model.body, model.cfg, x, caches,
                                         pos)
     x = layers.rms_norm(model.ln_f, x, model.cfg.norm_eps)
@@ -268,7 +340,8 @@ def caches_from_reference(arrays, cfg, *, device=None):
 def count_params_analytic(cfg, active_only=False):
     """Parameter count from the config alone, by the reference's formula
     for the families the port runs (dense attention, MoE with GQA or MLA,
-    hybrid Mamba2, RWKV6). The hybrid's shared block counts once, however
+    hybrid Mamba2, RWKV6; embeddings and untied heads count K times with K
+    codebooks). The hybrid's shared block counts once, however
     often it runs. MLA counts its down- and up-projections and wo, not its
     two RMSNorms.
     RWKV6 counts the projections and the low-rank mixes, not the vectors
@@ -279,7 +352,8 @@ def count_params_analytic(cfg, active_only=False):
     and runs one (`transformer.moe_layout`)."""
     transformer.check_supported(cfg)
     d, hd, L = cfg.d_model, cfg.head_dim, cfg.num_layers
-    total = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    total = cfg.vocab_size * d * cfg.num_codebooks \
+        * (1 if cfg.tie_embeddings else 2)
     if cfg.block == "rwkv":
         lora = cfg.rwkv_lora_dim
         per = 5 * d * d + d * cfg.d_ff * 2 + d * d   # tm + cm projections
@@ -317,3 +391,94 @@ def count_params_analytic(cfg, active_only=False):
         return total + L * attn + n_dense * mlp \
             + n_moe * (expert * experts + shared + router)
     return total + L * (attn + mlp)
+
+
+def train_flops_analytic(cfg, batch, seq):
+    """6·N_active·D plus attention's quadratic term, the reference's
+    §Roofline MODEL_FLOPS of a training step over `batch` x `seq`
+    tokens."""
+    n_active = count_params_analytic(cfg, active_only=True)
+    flops = 6.0 * n_active * batch * seq
+    if cfg.num_heads and cfg.block == "attn":
+        hd = cfg.head_dim if not cfg.use_mla else (
+            cfg.qk_nope_head_dim + cfg.qk_rope_head_dim + cfg.v_head_dim)
+        # causal: 2 matmuls * S^2/2 * heads * hd, *3 for fwd+bwd, per layer
+        flops += 3.0 * 2.0 * batch * seq * seq * cfg.num_heads * hd \
+            * cfg.num_layers / 2.0
+    return flops
+
+
+# --------------------------------------------------------------------------
+# The reference's parameter layout
+# --------------------------------------------------------------------------
+
+def reference_path(name: str):
+    """Where the port's parameter `name` lies in the reference's pytree:
+    (its keys, its indices on the leading stacked axes). Each block index
+    in a name (a position in an `nn.ModuleList`) is a stacked axis of the
+    reference: ``body.blocks.3.ln1.scale`` is ``body/blocks/ln1/scale``
+    [3], ``body.mamba_super.2.4.in_proj`` is ``[2, 4]`` of its stack."""
+    parts = name.split(".")
+    return (tuple(p for p in parts if not p.isdigit()),
+            tuple(int(p) for p in parts if p.isdigit()))
+
+
+def reference_ndim(name: str, p: torch.Tensor) -> int:
+    """The number of dims of `name`'s leaf in the reference's stacked
+    pytree: p's own, plus one for each stacked axis it sits on."""
+    return p.ndim + len(reference_path(name)[1])
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bf16 as the raw 2-byte words
+    numpy writes bf16 arrays as (``|V2``)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def to_reference(named) -> dict:
+    """Tensors keyed by the port's parameter names -> the reference's
+    nested dicts of numpy arrays on the host (bf16 as ``|V2``), each
+    block's slices stacked on the leading axes, keys in sorted order (as
+    ``jax.tree`` flattens them)."""
+    groups: dict = {}
+    for name, t in named.items():
+        keys, index = reference_path(name)
+        groups.setdefault(keys, []).append((index, t))
+    tree: dict = {}
+    for keys, entries in groups.items():
+        entries.sort(key=lambda e: e[0])
+        shape = tuple(max(i[a] for i, _ in entries) + 1
+                      for a in range(len(entries[0][0])))
+        leaf = np.stack([_numpy(t) for _, t in entries])
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf.reshape(shape + leaf.shape[1:])
+
+    def ordered(d):
+        return {k: ordered(d[k]) if isinstance(d[k], dict) else d[k]
+                for k in sorted(d)}
+    return ordered(tree)
+
+
+def from_reference(arrays, names, *, device) -> dict:
+    """The inverse of `to_reference` for the parameter `names`: each
+    name's slice of the reference's stacked arrays, as a tensor on
+    `device` (``|V2`` arrays as bf16)."""
+    out = {}
+    for name in names:
+        keys, index = reference_path(name)
+        node = arrays
+        for k in keys:
+            node = node[k]
+        out[name] = _tensor(np.asarray(node)[index], device)
+    return out
+
+
+def params_to_reference(model) -> dict:
+    """The reference's ``model.init`` pytree of the port's model, as nested
+    dicts of numpy arrays: the inverse of `params_from_reference`."""
+    return to_reference(dict(model.named_parameters()))

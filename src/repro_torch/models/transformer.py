@@ -15,11 +15,14 @@ block (one module, run at every super-block), then a tail of Mamba2 blocks.
 Decode caches follow the bodies: a list with one entry per block, and for
 the hybrid one attention cache per invocation of the shared block (the
 reference stacks them on the super-block axis). Activation checkpointing
-is not ported yet (ROADMAP §1).
+(``cfg.remat == "block"``, `_maybe_remat`) recomputes each block's
+internals in the backward, as the reference's ``jax.checkpoint`` of each
+scanned body does: a dense, MoE or RWKV6 block, a hybrid's super-block.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import attention, layers, mamba, moe, rwkv
@@ -30,13 +33,27 @@ def check_supported(cfg) -> None:
     missing = [name for name, on in (
         (f"{cfg.block} blocks", cfg.block not in ("attn", "mamba", "rwkv")),
         ("Mamba2 bodies without the shared block",
-         cfg.block == "mamba" and not cfg.shared_attn_every),
-        ("multi-codebook heads", cfg.num_codebooks > 1)) if on]
+         cfg.block == "mamba" and not cfg.shared_attn_every)) if on]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention, MoE (GQA or MLA), "
-            f"hybrid Mamba2 and RWKV6 models only; {', '.join(missing)} wait for later "
-            f"slices (ROADMAP §1)")
+            f"{cfg.name}: the port runs dense attention (one or several "
+            f"codebooks), MoE (GQA or MLA), hybrid Mamba2 and RWKV6 models "
+            f"only; {', '.join(missing)} wait for later slices (ROADMAP §1)")
+
+
+def _maybe_remat(fn, cfg):
+    """`fn` under activation checkpointing where ``cfg.remat == "block"``
+    and autograd records: its outputs are kept, its internals recomputed
+    in the backward (launching the forward kernels again)."""
+    if cfg.remat != "block":
+        return fn
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return remat
 
 
 def gate_fn_of(cfg) -> str:
@@ -175,12 +192,19 @@ def init_body(cfg, *, generator, device):
 
 
 def _zamba_prefill(p, cfg, x, positions):
-    for super_blks in p.mamba_super:
+    def super_block(super_blks, x):
         for blk in super_blks:
             x, _ = mamba.mamba_block(blk, cfg, x)
-        x, _ = attn_block_prefill(p.shared_attn, cfg, x, positions)
+        return attn_block_prefill(p.shared_attn, cfg, x, positions)[0]
+
+    def tail_block(blk, x):
+        return mamba.mamba_block(blk, cfg, x)[0]
+    super_block, tail_block = (_maybe_remat(f, cfg)
+                               for f in (super_block, tail_block))
+    for super_blks in p.mamba_super:
+        x = super_block(super_blks, x)
     for blk in getattr(p, "mamba_tail", ()):
-        x, _ = mamba.mamba_block(blk, cfg, x)
+        x = tail_block(blk, x)
     return x
 
 
@@ -191,17 +215,21 @@ def body_prefill(p, cfg, x, positions):
     aux = _zero_aux(x)
     if cfg.block == "mamba":
         return _zamba_prefill(p, cfg, x, positions), aux
+    attn_block = _maybe_remat(
+        lambda blk, x, ffn="mlp": attn_block_prefill(blk, cfg, x, positions,
+                                                     ffn), cfg)
     if cfg.moe:
         for name, _, ffn, i in _moe_order(cfg):
-            x, a = attn_block_prefill(getattr(p, name)[i], cfg, x,
-                                      positions, ffn)
+            x, a = attn_block(getattr(p, name)[i], x, ffn)
             aux = aux + a
         return x, aux
+    rwkv_block = _maybe_remat(
+        lambda blk, x: rwkv.rwkv_block(blk, cfg, x)[0], cfg)
     for blk in p.blocks:
         if cfg.block == "rwkv":
-            x, _ = rwkv.rwkv_block(blk, cfg, x)
+            x = rwkv_block(blk, x)
         else:
-            x, _ = attn_block_prefill(blk, cfg, x, positions)
+            x, _ = attn_block(blk, x)
     return x, aux
 
 

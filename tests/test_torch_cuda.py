@@ -18,7 +18,9 @@ the card against the same models on the CPU, and the MoE layer's routing and
 dispatch on the card against the CPU's from the same router logits;
 flash_attention at MLA's (dh, dv) = (192, 128), a narrow MLA + MoE model
 through it and deepseek-v2's absorbed-latent decode on the card against
-the CPU.
+the CPU; the flash_attention backward kernel against its plain backward,
+train steps of a narrow model on the card against the CPU, and a
+checkpoint restored onto the card.
 """
 import dataclasses
 import pathlib
@@ -31,6 +33,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
 from repro_torch import random as R  # noqa: E402
+from repro_torch.ckpt.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.core import binned, sampling  # noqa: E402
 from repro_torch.core import distributed as dplane  # noqa: E402
 from repro_torch.core import queries as qpath  # noqa: E402
@@ -47,8 +50,10 @@ from repro_torch.kernels.score_hist import ops as sh_ops  # noqa: E402
 from repro_torch.kernels.score_hist import ref as sh_ref  # noqa: E402
 from repro_torch.kernels.threshold_select import ops as ts_ops  # noqa: E402
 from repro_torch.kernels.threshold_select import ref as ts_ref  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.live import IngestPlane  # noqa: E402
 from repro_torch.models import attention, mamba, model, moe  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serve import SelectionServer  # noqa: E402
 from repro_torch.testing import CrashInjector, SimulatedCrash  # noqa: E402
 
@@ -1415,3 +1420,122 @@ def test_moe_prefill_on_the_card_matches_cpu(card, layout):
     want = model.apply_train(cpu_model, tokens)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=2e-5 * float(want.abs().max()))
+
+
+# The backward kernel sums in float32 and rounds dq, dk and dv once; in
+# bf16 it rounds P and dS before the products that take them. So in bf16
+# each output lies within one rounding of the plain backward's float32
+# sums (BF16_RTOL) plus what those roundings move
+# (chip_smoke.BWD_BF16_ATOL).
+BWD_BF16_ATOL = 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,h,kv", [(2, 200, 4, 2), (1, 333, 3, 3),
+                                      (2, 64, 6, 1)])
+def test_flash_attention_bwd_kernel_matches_plain(card, b, s, h, kv, causal,
+                                                  dtype):
+    """dq, dk and dv of the backward kernel against the plain backward in
+    float32 from the same inputs (bf16 within BWD_BF16_ATOL + 2^-7
+    |plain|, float32 within 2e-5 abs + rel); two calls bitwise equal."""
+    g = torch.Generator(device=card).manual_seed(s + h)
+    q = torch.randn(b, s, h, 64, generator=g, device=card).to(dtype)
+    k = torch.randn(b, s, kv, 64, generator=g, device=card).to(dtype)
+    v = torch.randn(b, s, kv, 64, generator=g, device=card).to(dtype)
+    do = torch.randn(b, s, h, 64, generator=g, device=card).to(dtype)
+    o = fa_ops.flash_attention(q, k, v, causal=causal)
+    before = fa_ops.bwd_launches.count
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    plain = fa_ref.attention_bwd_ref(*(x.float().transpose(1, 2) for x in
+                                       (q, k, v, o, do)), causal)
+    torch.cuda.synchronize()
+    assert fa_ops.bwd_launches.count == before + 2
+    for a, a2, w, like in zip(got, again, plain, (q, k, v)):
+        w = w.transpose(1, 2)
+        assert a.dtype == dtype and a.shape == like.shape
+        assert torch.equal(a, a2)
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(a.float(), w, atol=BWD_BF16_ATOL,
+                                       rtol=BF16_RTOL)
+        else:
+            torch.testing.assert_close(a, w, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_gradient_on_the_card_is_the_kernel(card):
+    """Autograd through `flash_attention` on CUDA tensors runs the backward
+    kernel once; other head dims raise, naming ROADMAP.md."""
+    q, k, v = (torch.randn(1, 128, 2, 64, device=card, requires_grad=True)
+               for _ in range(3))
+    before = fa_ops.bwd_launches.count
+    fa_ops.flash_attention(q, k, v).sum().backward()
+    assert fa_ops.bwd_launches.count == before + 1
+    q, k, v = (torch.randn(1, 128, 2, 128, device=card, dtype=torch.bfloat16,
+                           requires_grad=True) for _ in range(3))
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        fa_ops.flash_attention(q, k, v).sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,accum", [("smollm-360m", 2),
+                                        ("musicgen-medium", 1)])
+def test_train_steps_on_the_card_match_cpu(card, arch, accum):
+    """Three float32 train steps of a narrow model at head dim 64 (remat
+    on) on the card against the same weights and batches on the CPU: the
+    metrics within 1e-5 relative, the weights within lr (as the CPU test
+    holds the port to the reference), one backward launch a layer a
+    microbatch."""
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), d_model=128,
+                              num_heads=2, num_kv_heads=2, head_dim=64,
+                              remat="block")
+    opts = train.TrainOptions(grad_accum=accum, adamw=adamw.AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=10))
+    runs = {}
+    for dev in ("cpu", card):
+        m = model.init(cfg, generator=torch.Generator().manual_seed(3),
+                       device="cpu").to(dev)
+        m.cfg = cfg
+        o = adamw.init(m)
+        step = train.make_train_step(cfg, opts)
+        mets = []
+        for i in range(3):
+            rng = np.random.default_rng(i)
+            shape = (4, 96) + ((cfg.num_codebooks,) if cfg.num_codebooks > 1
+                               else ())
+            batch = {key: rng.integers(0, cfg.vocab_size, shape)
+                     for key in ("tokens", "labels")}
+            before = fa_ops.bwd_launches.count
+            m, o, met = step(m, o, batch)
+            if dev != "cpu":
+                assert fa_ops.bwd_launches.count == before \
+                    + accum * cfg.num_layers
+            mets.append({key: float(v) for key, v in met.items()})
+        runs[str(dev)] = (m, mets)
+    (cpu_m, cpu_mets), (card_m, card_mets) = runs.values()
+    for a, b_ in zip(card_mets, cpu_mets):
+        for key in a:
+            assert a[key] == pytest.approx(b_[key], rel=1e-5, abs=1e-9), key
+    for (name, p), (_, p_cpu) in zip(card_m.named_parameters(),
+                                     cpu_m.named_parameters()):
+        assert float((p.detach().cpu() - p_cpu.detach()).abs().max()) \
+            <= 1e-3, name
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_the_card(card, tmp_path):
+    cfg = configs.get_smoke_config("musicgen-medium")
+    m = model.init(cfg, generator=torch.Generator(device=card).manual_seed(1))
+    o = adamw.init(m)
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(2, m, o)
+    m2, o2, step, _ = mgr.restore()
+    assert step == 2
+    params, params2 = dict(m.named_parameters()), dict(m2.named_parameters())
+    assert params.keys() == params2.keys()
+    for n, p in params.items():
+        assert params2[n].device.type == "cuda", n
+        assert torch.equal(p, params2[n]), n
+    assert all(torch.equal(o.mu[n], o2.mu[n]) for n in o.mu)

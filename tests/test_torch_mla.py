@@ -380,7 +380,7 @@ def test_deepseek_v2_is_registered_as_the_reference_config():
         got = getattr(configs, get)(DSV2)
         assert dataclasses.asdict(got) == dataclasses.asdict(
             getattr(jconfigs, get)(DSV2))
-    assert DSV2 in configs.ARCH_IDS and len(configs.ARCH_IDS) == 9
+    assert DSV2 in configs.ARCH_IDS and len(configs.ARCH_IDS) == 10
 
 
 @pytest.mark.parametrize("q_rank", Q_RANKS)

@@ -281,14 +281,15 @@ def test_init_without_a_device_needs_cuda():
         model.params_from_reference(_reference_arrays(JSMOKE), SMOKE)
 
 
-@pytest.mark.parametrize("change", [dict(moe=True, num_codebooks=2),
+@pytest.mark.parametrize("change", [dict(block="mamba", shared_attn_every=0),
                                     dict(block="xlstm"),
                                     dict(moe=True, moe_layer_step=2,
-                                         num_codebooks=2),
-                                    dict(num_codebooks=4)])
+                                         block="hyena"),
+                                    dict(num_codebooks=4, block="xlstm")])
 def test_unported_families_raise(change):
-    """Multi-codebook heads and unknown block kinds raise, on any body (MLA
-    is ported: tests/test_torch_mla.py)."""
+    """Unknown block kinds and Mamba2 bodies without the shared block
+    raise, on any body (MLA is ported: tests/test_torch_mla.py; multi-
+    codebook heads: tests/test_torch_musicgen.py)."""
     cfg = dataclasses.replace(SMOKE, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model.init(cfg, generator=torch.Generator(), device="cpu")
@@ -317,7 +318,7 @@ def test_count_params_analytic_matches_reference(case):
 def test_registry_holds_the_ported_arch():
     assert configs.ARCH_IDS == ("smollm-360m", "zamba2-1.2b", "rwkv6-7b",
                                 *DENSE, "llama4-maverick-400b-a17b",
-                                "deepseek-v2-236b")
+                                "deepseek-v2-236b", "musicgen-medium")
     for arch in configs.ARCH_IDS:
         for get, jget in ((configs.get_config, jconfigs.get_config),
                           (configs.get_smoke_config,
@@ -342,8 +343,9 @@ def test_registry_holds_the_ported_arch():
                                  configs.get_smoke_config])
 def test_registry_names_the_known_archs(get):
     with pytest.raises(KeyError,
-                       match="rwkv6-7b.*smollm-360m.*yi-6b.*zamba2-1.2b"):
-        get("musicgen-medium")
+                       match="musicgen-medium.*rwkv6-7b.*smollm-360m.*yi-6b"
+                             ".*zamba2-1.2b"):
+        get("musicgen-large")
 
 
 # -- token corpora ---------------------------------------------------------------
