@@ -7,9 +7,10 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
 1. Device: prints ``nvidia-smi --query-gpu=name,power.limit``; then
    builds every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
-   each, all at once) and prints each one's build time, registers and
-   shared memory. The script prints its whole run's wall time at the
-   end.
+   each, all at once) and prints each source's build time and, for each
+   kernel in it, its registers, spills and ptxas advisories (C75xx, such
+   as "wgmma serialized"). The script prints its whole run's wall time at
+   the end.
 2. Kernels: holds the engine's two CUDA kernels against their plain
    PyTorch versions on the card, at the main path's shapes: 2^22-record
    chunks, 4096 and 64 bins.
@@ -81,7 +82,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    line) and at the scoring shape and zamba2's prefill and scoring shapes
    (a line each), beside its bound, its plain version and
    `scaled_dot_product_attention` (the yardstick; the port never calls
-   it) by its fastest fused backend, each backend's time printed.
+   it) by its fastest fused backend, each backend's time printed; at the
+   same four shapes, the forward with and without its lse store (the
+   logsumexp the backward takes), timed in turns.
 9. linear_scan against its plain version on the card, each case labelled
    with the kernel its route launched (`ls_ops.route`: the chunked
    tensor-core kernel for Mamba2's views, the channel kernel otherwise,
@@ -313,16 +316,20 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     record corpus scored in calls of 128 (8 flash_attention launches a
     call) and one RT query selected as in phase 7 (score_hist and
     threshold_select on the path).
-20. flash_attention's backward kernel (``csrc/flash_attention_bwd.cu``)
+20. flash_attention's backward kernel (``csrc/flash_attention_bwd.cu``:
+    bf16 on wgmma with TMA in two launches, float32 on the CUDA cores)
     against its plain backward (float32 from the same inputs): dq, dk and
     dv at smollm-360m's (4, 4096, 15/5, 64) and musicgen-medium's (4,
-    4096, 24/24, 64), causal, and at a ragged (2, 1000, 15/5, 64) causal
-    and not, in bf16 (`BWD_BF16_ATOL` + 2^-7 |plain| each,
-    `BWD_BF16_FRO_TOL` of each tensor's norm) and float32 (F32_TOL abs +
-    rel); two calls bitwise equal. Its time at both training shapes
-    beside its operations bound (2.5 times the forward's products), the
-    plain backward and the backward of `scaled_dot_product_attention` by
-    each fused backend (library_ms is the fastest).
+    4096, 24/24, 64), causal, at a ragged (2, 1000, 15/5, 64) causal and
+    not and a ragged (2, 1000, 12/2, 64), in bf16 (`BWD_BF16_ATOL` +
+    2^-7 |plain| each, `BWD_BF16_FRO_TOL` of each tensor's norm) and
+    float32 (F32_TOL abs + rel), each from the lse the forward kernel
+    kept, which is held against the plain lse (`LSE_TOL`); two calls
+    bitwise equal. Its time at both training shapes beside its operations
+    bound (the five products of the gradient: 2.5 times the forward's)
+    and the seven its design runs, the plain backward and the backward of
+    `scaled_dot_product_attention` by each fused backend (library_ms is
+    the fastest).
 21. musicgen-medium at full width (48 layers, d 1536, four codebooks,
     bf16): a (4, 4096, 4) prefill (48 flash_attention launches) with its
     four heads' logits against plain attention and its float32 copy
@@ -333,7 +340,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     x 4 codebooks from `lm_batches`, grad_accum 2, remat="block": loss,
     grad_norm, wall, tokens/s, train mfu (`train_flops_analytic`), peak
     memory, and 192 forward (the forward and its recompute) and 96
-    backward flash_attention launches a step, exactly; and a
+    backward flash_attention launches a step, exactly; a profiled step
+    by kernel group (`TRAIN_GROUPS`: the backward's two kernels); and a
     `CheckpointManager` save and restore of the weights and AdamW state
     on the card, every tensor equal.
 22. smollm-360m at full width trained into a proxy on phase 7's corpus
@@ -367,6 +375,7 @@ import functools
 import json
 import math
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -745,6 +754,43 @@ def check_scan_routes(expected: int, where: str,
           f"{where}: linear_scan launches by route {routes}, expected "
           f"{expected} {route}")
     print(f"{where}: linear_scan launches by route {routes}")
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled one: the last name before its
+    arguments, with its integer and bool template arguments
+    (`flash_bf16<64, 64, 1>`)."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    rest, names = mangled[3:], []
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group()
+        names.append(rest[len(n):len(n) + int(n)])
+        rest = rest[len(n) + int(n):]
+    args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+    targs = re.findall(r"L[ib](\d+)E", args.group(1)) if args else []
+    return names[-1] + (f"<{', '.join(targs)}>" if targs else "")
+
+
+def ptxas_report(log: str) -> list:
+    """One line a kernel from `nvcc -Xptxas -v`'s report: its registers,
+    spill stores and loads, and the ptxas advisories (C75xx) naming it."""
+    lines, current, notes = [], None, {}
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", ln)
+        advisory = re.search(r"\((C75\d\d)\).*function '(\w+)'", ln)
+        if advisory:
+            notes.setdefault(advisory.group(2), []).append(advisory.group(1))
+        elif entry:
+            current = entry.group(1)
+            lines.append([current, "", ""])
+        elif current and "spill stores" in ln:
+            lines[-1][2] = ln.strip()
+        elif current and "Used" in ln:
+            lines[-1][1] = re.search(r"Used \d+ registers", ln).group()
+    return [f"{kernel_name(m)}: {regs}; {spills}"
+            + (f"; advisories {', '.join(notes[m])}" if m in notes else "")
+            for m, regs, spills in lines]
 
 
 def check(ok: bool, what: str) -> None:
@@ -1492,7 +1538,8 @@ def profile_scoring_call(model, cfg, seed: int, groups: dict) -> None:
 def profile_call(fn, groups: dict, label: str) -> None:
     """One call of `fn` under torch.profiler: its wall, the device's busy
     share of it, device time in `groups` (a name for each substring of a
-    kernel's name), matmuls and the rest, and the top kernels."""
+    kernel's name), matmuls and the rest, the top kernels and every kernel
+    of a group."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
@@ -1522,7 +1569,9 @@ def profile_call(fn, groups: dict, label: str) -> None:
           f"{sum(n for _, _, n in kernels)} kernels, by group: " + ", ".join(
               f"{g} {t / 1e3:.3f} ms ({t / busy_us:.3f})"
               for g, t in sorted(by_group.items(), key=lambda kv: -kv[1])))
-    for name, t, n in sorted(kernels, key=lambda k: -k[1])[:10]:
+    ranked = sorted(kernels, key=lambda k: -k[1])
+    for name, t, n in ranked[:10] + [k for k in ranked[10:] if any(
+            key in k[0].lower() for key in groups)]:
         print(f"  {t / 1e3:9.3f} ms  x{n:<4d} {name[:100]}")
 
 
@@ -1578,6 +1627,24 @@ def flash_row(shape, seed: int, plain_fn=plain_attention) -> dict:
         else (t_bytes, "bytes")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms}
+
+
+def lse_store_ms(shape, seed: int) -> None:
+    """The forward's device time at `shape`, bf16 causal, storing o alone
+    (what scoring and prefill run) and o with its lse (what a training
+    forward runs), timed in turns: o, o + lse, o + lse, o."""
+    q, k, v = attention_inputs(shape, torch.bfloat16,
+                               torch.Generator(device=DEVICE)
+                               .manual_seed(seed + 13))
+    o_only, with_lse = [], []
+    for run in (o_only, with_lse, with_lse, o_only):
+        fn = (fa_ops.flash_attention if run is o_only
+              else fa_ops.flash_attention_fwd)
+        run.append(device_ms(lambda: fn(q, k, v), 20))
+    print(f"flash_attention at {shape}, device time: o alone {o_only[0]:.4f}, "
+          f"{o_only[1]:.4f} ms; o and lse {with_lse[0]:.4f}, "
+          f"{with_lse[1]:.4f} ms (the lse store "
+          f"{(sum(with_lse) - sum(o_only)) / 2:+.4f} ms)")
 
 
 # -- phase 9 -------------------------------------------------------------------
@@ -3801,7 +3868,8 @@ FA_MUSICGEN = (4, 4096, 24, 24, 64)    # musicgen-medium's prefill attention
 # flash_attention's backward against its plain backward (phase 20), at
 # smollm's and musicgen's training shapes and a ragged S, causal and not.
 FA_BWD_CASES = ((FA_PREFILL, True), (FA_MUSICGEN, True),
-                ((2, 1000, 15, 5, 64), True), ((2, 1000, 15, 5, 64), False))
+                ((2, 1000, 15, 5, 64), True), ((2, 1000, 15, 5, 64), False),
+                ((2, 1000, 12, 2, 64), True))
 # The kernel sums in float32 and rounds dq, dk and dv once; in bf16 it
 # rounds P and dS to bf16 before the products that take them, as the
 # forward rounds p before p·v. The plain backward computes in float32 from
@@ -3809,14 +3877,22 @@ FA_BWD_CASES = ((FA_PREFILL, True), (FA_MUSICGEN, True),
 # lies within one rounding, BF16_RTOL |plain|, plus what P's and dS's
 # roundings move, which BWD_BF16_ATOL bounds; in float32 (the CUDA-core
 # kernels, no rounding between the products) within the forward's F32_TOL
-# abs + rel. Over FA_BWD_CASES at --seed 0, 1 and 2 on an H100 80GB HBM3 at
-# 700 W: |err| - 2^-7 |plain| at most 9.04e-3 (dv; BWD_BF16_ATOL is 2.2
-# times that), ||err|| / ||plain|| 2.283e-3 to 2.378e-3 (the bar is about
-# twice), float32 at most 3.34e-6 abs. The CUDA-core kernels this bf16
-# path replaced read 7.13e-7 over one rounding: their excess was the float32
-# sums' alone.
+# abs + rel. The wgmma kernels, P from the forward's lse, over
+# FA_BWD_CASES at --seed 0 on an H100 80GB HBM3 at 700 W: |err| - 2^-7
+# |plain| at most 9.50e-3 (dv at (2, 1000, 12/2); BWD_BF16_ATOL is 2.1
+# times that), ||err|| / ||plain|| 2.314e-3 to 2.377e-3 (the bar is about
+# twice), float32 at most 3.81e-6 abs. The mma.sync kernels they replaced,
+# which recomputed the statistics, read at most 9.04e-3 and 2.283e-3 to
+# 2.378e-3 at --seed 0, 1 and 2; the CUDA-core kernels before those 7.13e-7
+# over one rounding: their excess was the float32 sums' alone.
 BWD_BF16_ATOL = 2e-2
 BWD_BF16_FRO_TOL = 5e-3
+# The forward kernel's lse against the plain lse of the same inputs (abs +
+# rel): both sum the same products in float32 in other orders, and the
+# kernel's exp2 is the hardware's approximation. Over FA_BWD_CASES at
+# --seed 0 on an H100 80GB HBM3 at 700 W the largest reading was 1.91e-6
+# at |lse| <= 9.3, in bf16 and float32 alike.
+LSE_TOL = 2e-5
 
 
 def plain_attention_bwd(q, k, v, o, do, causal=True):
@@ -3827,19 +3903,31 @@ def plain_attention_bwd(q, k, v, o, do, causal=True):
 
 
 def hold_flash_bwd(shape, dtype, causal: bool, g) -> float:
-    """dq, dk and dv of the backward kernel on standard normal q, k, v and
-    dO at `shape` against the plain backward: in bf16 each output within
-    BWD_BF16_ATOL + BF16_RTOL |plain| and each tensor within
-    BWD_BF16_FRO_TOL of its norm, in float32 within F32_TOL abs + rel; two
-    calls equal bit for bit. Returns the largest |kernel - plain|."""
+    """The forward kernel's lse and dq, dk and dv of the backward kernel
+    (given that lse) on standard normal q, k, v and dO at `shape` against
+    the plain lse and backward: the lse within LSE_TOL abs + rel; in bf16
+    each output within BWD_BF16_ATOL + BF16_RTOL |plain| and each tensor
+    within BWD_BF16_FRO_TOL of its norm, in float32 within F32_TOL abs +
+    rel; two calls equal bit for bit. Returns the largest |kernel -
+    plain| of dq, dk and dv."""
     q, k, v = attention_inputs(shape, dtype, g)
-    o = fa_ops.flash_attention(q, k, v, causal=causal)
+    o, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal)
     do = torch.randn(o.shape, generator=g, device=DEVICE).to(dtype)
-    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
-    again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
-    plain = plain_attention_bwd(q, k, v, o, do, causal)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                       lse=lse)
+    _, plain_lse = fa_ref.attention_ref(
+        *(x.float().transpose(1, 2) for x in (q, k, v)), causal,
+        return_lse=True)
     torch.cuda.synchronize()
     what = f"flash_attention_bwd {shape} {dtype} causal={causal}"
+    lse_err = float((lse - plain_lse).abs().max())
+    check(bool(((lse - plain_lse).abs()
+                <= LSE_TOL + LSE_TOL * plain_lse.abs()).all()),
+          f"{what}: the forward's lse {lse_err:.4g} from the plain lse")
+    del plain_lse
+    plain = plain_attention_bwd(q, k, v, o, do, causal)
+    torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"{what}: two calls differ")
     worst, readings = 0.0, []
@@ -3858,9 +3946,11 @@ def hold_flash_bwd(shape, dtype, causal: bool, g) -> float:
             check(bool((err <= F32_TOL + F32_TOL * w.abs()).all()),
                   f"{what} {name}: max |err| {float(err.max()):.4g}")
             readings.append(f"{name} max {float(err.max()):.4g}")
-    print(f"{what}: max |kernel - plain| {worst:.6g}; "
-          + ", ".join(readings) + "; two calls bitwise equal")
-    del q, k, v, o, do, got, again, plain
+    print(f"{what}: the forward's lse within {lse_err:.4g} of the plain "
+          f"lse (tol {LSE_TOL} abs + rel); max |kernel - plain| "
+          f"{worst:.6g}; " + ", ".join(readings)
+          + "; two calls bitwise equal")
+    del q, k, v, o, lse, do, got, again, plain
     return worst
 
 
@@ -3889,17 +3979,20 @@ def fused_sdpa_bwd_ms(qt, kt, vt, dot) -> float:
 
 
 def flash_bwd_row(shape, seed: int) -> dict:
-    """The backward kernel's time at `shape`, bf16 causal, beside its
-    bound (2.5 times the forward's products: q·kᵀ again, dO·vᵀ, Pᵀ·dO,
-    dSᵀ·q and dS·k over the causal half; q, k, v, o and dO read, dq, dk
-    and dv written once), the plain backward's time and the backward of
+    """The backward kernel's time at `shape`, bf16 causal, from the
+    forward's lse, beside its bound (the gradient's five products, 2.5
+    times the forward's: q·kᵀ again, dO·vᵀ, Pᵀ·dO, dSᵀ·q and dS·k over
+    the causal half; q, k, v, o, dO and the lse read, dq, dk and dv
+    written once) and the time of the seven products its design runs at
+    the card's peak, the plain backward's time and the backward of
     `scaled_dot_product_attention` by its fastest fused backend."""
     b, s, h, kv, dh = shape
     g = torch.Generator(device=DEVICE).manual_seed(seed + 17)
     q, k, v = attention_inputs(shape, torch.bfloat16, g)
-    o = fa_ops.flash_attention(q, k, v)
+    o, lse = fa_ops.flash_attention_fwd(q, k, v)
     do = torch.randn(o.shape, generator=g, device=DEVICE).to(q.dtype)
-    ms = cuda_ms(lambda: fa_ops.flash_attention_bwd(q, k, v, o, do), 10)
+    ms = cuda_ms(lambda: fa_ops.flash_attention_bwd(q, k, v, o, do,
+                                                    lse=lse), 10)
     plain_ms = cuda_ms(lambda: plain_attention_bwd(q, k, v, o, do), 2)
     group = h // kv
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in
@@ -3907,7 +4000,7 @@ def flash_bwd_row(shape, seed: int) -> dict:
                         v.repeat_interleave(group, dim=2), do))
     lib_ms = fused_sdpa_bwd_ms(qt, kt, vt, dot)
     ops = 2.5 * b * h * s * s * (dh + dh)
-    moved = 2 * (4 * q.numel() + 4 * k.numel())
+    moved = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
     t_ops = ops / BF16_OPS_PER_S * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes \
@@ -3915,7 +4008,9 @@ def flash_bwd_row(shape, seed: int) -> dict:
     row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": lib_ms}
     print(f"flash_attention_bwd at (B, S, H, KV, dh) = {shape}, bf16 causal: "
-          f"{json.dumps(row)}")
+          f"{json.dumps(row)}; its seven products at the card's peak "
+          f"{7 / 5 * t_ops:.4f} ms ({7 / 5 * t_ops / ms:.3f} of its time), "
+          f"the five of the bound {t_ops / ms:.3f}")
     return row
 
 
@@ -3950,9 +4045,8 @@ TRAIN_SHAPE = (4, 4096)
 TRAIN_ACCUM = 2
 TRAIN_STEPS = 3
 # A training step's device time by kernel group (`profile_call`).
-TRAIN_GROUPS = {"mma_stats": "flash_attention_bwd",
-                "mma_dkdv": "flash_attention_bwd",
-                "mma_dq": "flash_attention_bwd",
+TRAIN_GROUPS = {"dq_wgmma": "flash_attention_bwd",
+                "dkdv_wgmma": "flash_attention_bwd",
                 "flash_bf16": "flash_attention"}
 
 
@@ -4236,10 +4330,9 @@ def main() -> None:
             build_s = dict(zip(names, pool.map(timed_load, names)))
         print(f"built {names}")
         for name in names:
-            regs = [ln.strip() for ln in _build.build_log(name).splitlines()
-                    if "Used" in ln or "spill" in ln or "C75" in ln]
-            print(f"  {name}: built in {build_s[name]:.1f} s; "
-                  f"{'; '.join(regs)}")
+            print(f"  {name}: built in {build_s[name]:.1f} s")
+            for line in ptxas_report(_build.build_log(name)):
+                print(f"    {line}")
 
     with phase("2-4 engine kernels, engine, times"):
         t0 = time.perf_counter()
@@ -4300,6 +4393,8 @@ def main() -> None:
         for shape in (FA_SCORING, FA_ZAMBA, FA_ZAMBA_SCORING):
             print(f"flash_attention at (B, S, H, KV, dh) = {shape}, bf16 "
                   f"causal: {json.dumps(fa_rows[shape])}")
+        for shape in fa_rows:
+            lse_store_ms(shape, args.seed)
 
     with phase("9 linear_scan"):
         ls_err = check_scan(args.seed)

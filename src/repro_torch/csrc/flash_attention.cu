@@ -13,6 +13,19 @@
 // reference's model computes in `chunked_causal_attention` with the same
 // 1/√dh scale. Pairs: (64, 64), (128, 128) and (192, 128).
 //
+// Given a pointer `lse` (a float32 (B, H, s_pad) buffer, s_pad = S rounded
+// up to 128), both paths also write each row's logsumexp of its scaled,
+// masked scores, in natural units: ln 2 · (m + log2 l) from the (m, l) the
+// online softmax ends with (m in log2 units). Every row of every query tile
+// is written, rows past S too (their q reads as zeros, so theirs is
+// finite). The backward kernel (flash_attention_bwd.cu) takes P from it
+// instead of recomputing the statistics. With a null pointer (scoring and
+// prefill, which need no gradient) nothing more is stored: the bf16 kernel
+// is instantiated with and without the store, so those launches run the
+// code they ran before it (a runtime branch in the epilogue cost the
+// no-store launch up to 6% at zamba2's scoring shape in a side-by-side
+// run, where each work tile reads one key tile).
+//
 // Bound on this card: operations. At the smollm-360m prefill shape
 // (B=4, S=4096, H=15, dh=64, causal) the two products take
 // 2·2·B·H·(S²/2)·dh = 1.29e11 bf16 operations (0.130 ms at 989 TFLOP/s)
@@ -91,12 +104,9 @@
 // ms at the scoring shape (256, 128, 15/5, 64) against 0.0908 ms. The
 // mma.sync kernel this design replaced took 1.2694, 2.6201 and 0.1728 ms
 // on the same card and limit (PERF.md §6).
-#include <cuda.h>           // CUtensorMap and its enums (header only)
-#include <cudaTypedefs.h>   // PFN_cuTensorMapEncodeTiled
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -104,7 +114,7 @@ constexpr int kBQ = 64;                 // query rows a CTA (float32)
 constexpr int kBK32 = 32;               // keys a tile (float32)
 constexpr int kThreads32 = 256;         // float32: 64 rows x 4 threads
 constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // -- bf16: tiles, shared memory, barriers ------------------------------------
 
@@ -112,9 +122,7 @@ constexpr int kTileQ = 128;             // query rows a CTA: 2 x 64
 constexpr int kTileK = 128;             // keys a K/V tile
 constexpr int kMaxStages = 4;           // K/V ring depth at dh 64 (Layout)
 constexpr int kThreadsBf16 = 384;       // producer + 2 consumer warpgroups
-constexpr int kRowBytes = 128;          // a swizzled row: 64 bf16 columns
 constexpr int kConsumerWarps = 8;
-constexpr uint32_t kTurn0 = 1;          // named barriers 1, 2: the turns
 static_assert(kTileQ == kTileK, "the causal tile count assumes it");
 
 constexpr int kQBlock = kTileQ * kRowBytes;    // a 64-column block of q
@@ -141,115 +149,6 @@ struct Layout {
   static constexpr int kBytes = kV + kStages * kVTileBytes + 1024;  // + align
   static_assert(kStages <= kMaxStages && kBytes <= 232448 - 128, "smem");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// Wait for the phase of parity `parity` to complete. A wait that lasts
-// about ten seconds (a broken pipeline, never a slow one) traps, so the
-// launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long start = -1;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    const long long now = clock64();
-    if (start < 0) start = now;
-    else if (now - start > (1ll << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_sync(uint32_t id) {
-  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(uint32_t id) {
-  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of a wgmma operand across
-// this point (the wgmma runs asynchronously to the instructions around it).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i]) :: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i]) :: "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (16-byte units), layout type 1 in bits
-// 62-63. K-major tiles: rows of 128 bytes, 8-row groups 1024 bytes apart
-// (the stride offset), the leading offset unused. MN-major (v): the
-// leading offset steps 64-column blocks, the stride offset 8-key groups.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lead,
-                                              uint32_t stride) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | static_cast<uint64_t>((lead >> 4) & 0x3FFF) << 16
-         | static_cast<uint64_t>((stride >> 4) & 0x3FFF) << 32
-         | 1ull << 62;
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two floats as a bf16 pair, `lo` in the low half (the lower column).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // d (64 x 128, float32) += a · bᵀ, a (64 x 16) and b (128 x 16) bf16 in
 // shared memory, both K-major (descriptors); d is overwritten if !accumulate.
@@ -284,30 +183,6 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (64 x 64, float32) += a · b: a (64 x 16) bf16 in registers (the
-// accumulator's fragment layout), b (16 x 64) bf16 in shared memory,
-// MN-major (its 64 columns contiguous: trans-b).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // d (64 x 128, float32) += a · b: a (64 x 16) bf16 in registers (the
@@ -346,14 +221,6 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-
-// Lane 0 of the warp arrives on `bar` (a predicate, not a branch).
-__device__ __forceinline__ void mbar_arrive_lane0(uint32_t bar, int lane) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.eq.s32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
-      :: "r"(bar), "r"(lane) : "memory");
-}
 
 // Online softmax of one tile of scores in log2 units, for this thread's
 // rows row0 and row1: the row maxima m and sums l move on, s becomes
@@ -480,13 +347,16 @@ __device__ __forceinline__ WorkTile work_tile(int w, int q_tiles, int heads,
   return t;
 }
 
-template <int DQK, int DV>
+// kLse: store each row's logsumexp into `lse` (an instance of its own,
+// so the launches that store none run the code they ran before).
+template <int DQK, int DV, bool kLse>
 __global__ void __launch_bounds__(kThreadsBf16, 1)
 flash_bf16(const __grid_constant__ CUtensorMap q_map,
            const __grid_constant__ CUtensorMap k_map,
            const __grid_constant__ CUtensorMap v_map,
-           __nv_bfloat16* __restrict__ o, int* __restrict__ sched, int seq,
-           int batch, int heads, int kv_heads, int causal, float scale_log2) {
+           __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+           int lse_stride, int* __restrict__ sched, int seq, int batch,
+           int heads, int kv_heads, int causal, float scale_log2) {
   using L = Layout<DQK, DV>;
   constexpr int kStages = L::kStages, kQStages = L::kQStages;
   extern __shared__ uint8_t smem_raw[];
@@ -660,6 +530,12 @@ flash_bf16(const __grid_constant__ CUtensorMap q_map,
       l0 += __shfl_xor_sync(kFull, l0, 2);
       l1 += __shfl_xor_sync(kFull, l1, 1);
       l1 += __shfl_xor_sync(kFull, l1, 2);
+      if (kLse && t4 == 0) {                // rows past S too: finite
+        float* lb = lse + (static_cast<long long>(t.b) * heads + t.h)
+                              * lse_stride;
+        lb[row0] = kLn2 * (m0 + log2f(l0));
+        lb[row1] = kLn2 * (m1 + log2f(l1));
+      }
       const float inv0 = 1.f / fmaxf(l0, 1e-30f);
       const float inv1 = 1.f / fmaxf(l1, 1e-30f);
       const long long o_stride = static_cast<long long>(heads) * DV;
@@ -689,8 +565,9 @@ __device__ __forceinline__ int key_tiles(int qt, int seq, int causal,
 template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads32)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ o, int seq,
-          int heads, int kv_heads, int causal, float scale_log2) {
+          const float* __restrict__ v, float* __restrict__ o,
+          float* __restrict__ lse, int lse_stride, int seq, int heads,
+          int kv_heads, int causal, float scale_log2) {
   constexpr int kPerQ = DQK / 4;        // dims a thread holds: part + 4*i
   constexpr int kPerV = DV / 4;
   __shared__ float ks[kBK32 * DQK];     // 40 KB at (192, 128)
@@ -777,53 +654,15 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kPerV; ++i) ob[row * o_stride + part + 4 * i] = acc[i] / denom;
   }
+  if (lse != nullptr && part == 0)        // rows past S too: finite
+    lse[(static_cast<long long>(blockIdx.z) * heads + h) * lse_stride + row] =
+        kLn2 * (m + log2f(l));
 }
 
-
-// cuTensorMapEncodeTiled is a libcuda call; the runtime hands out its
-// address, so the library needs no -lcuda.
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  void* fn = nullptr;
-  cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-  const cudaError_t err = cudaGetDriverEntryPointByVersion(
-      "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-  const cudaError_t err = cudaGetDriverEntryPoint(
-      "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-    return nullptr;
-  return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-}
-
-// A 4-D bf16 tensor map with 128-byte swizzle over `geom`: dims (dh,
-// heads, S, batch), then the byte strides of dims 1-3; boxes of 64
-// columns, one head, `rows` rows and one batch. Rows past S read zeros.
-cudaError_t encode_map(CUtensorMap* map, const void* ptr,
-                       const long long* geom, int rows) {
-  static const PFN_cuTensorMapEncodeTiled_v12000 encode =
-      tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {
-      static_cast<cuuint64_t>(geom[0]), static_cast<cuuint64_t>(geom[1]),
-      static_cast<cuuint64_t>(geom[2]), static_cast<cuuint64_t>(geom[3])};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(geom[4]),
-                                 static_cast<cuuint64_t>(geom[5]),
-                                 static_cast<cuuint64_t>(geom[6])};
-  const cuuint32_t box[4] = {kRowBytes / 2, 1, static_cast<cuuint32_t>(rows),
-                             1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
 
 template <int DQK, int DV>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        float* lse, int lse_stride,
                         const long long* q_geom, const long long* k_geom,
                         const long long* v_geom, int causal, float scale_log2,
                         int ctas, int* sched, int smem_bytes,
@@ -835,13 +674,16 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = encode_map(&q_map, q, q_geom, kTileQ);
   if (err == cudaSuccess) err = encode_map(&k_map, k, k_geom, kTileK);
   if (err == cudaSuccess) err = encode_map(&v_map, v, v_geom, kTileK);
+  const auto kernel = lse != nullptr ? flash_bf16<DQK, DV, true>
+                                     : flash_bf16<DQK, DV, false>;
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bf16<DQK, DV>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes);
   if (err != cudaSuccess) return err;
-  flash_bf16<DQK, DV><<<ctas, kThreadsBf16, smem_bytes, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), sched,
+  kernel<<<ctas, kThreadsBf16, smem_bytes, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), lse, lse_stride,
+      sched,
       static_cast<int>(q_geom[2]), static_cast<int>(q_geom[3]),
       static_cast<int>(q_geom[1]), static_cast<int>(k_geom[1]), causal,
       scale_log2);
@@ -858,9 +700,12 @@ extern "C" {
 // CTAs take the work tiles from `sched`, two ints that are 0 before the
 // launch and 0 again after it (the last CTA resets them); `smem_bytes` is
 // the dynamic shared memory, which must be the kernel's layout for
-// (`head_dim`, `v_dim`): (64, 64), (128, 128) or (192, 128).
+// (`head_dim`, `v_dim`): (64, 64), (128, 128) or (192, 128). A non-null
+// `lse` (batch, heads, lse_stride) float32, lse_stride S rounded up to 128,
+// receives each row's logsumexp in natural units.
 int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
-                                void* o, const long long* q_geom,
+                                void* o, float* lse, int lse_stride,
+                                const long long* q_geom,
                                 const long long* k_geom,
                                 const long long* v_geom, int head_dim,
                                 int v_dim, int causal, float scale_log2,
@@ -868,23 +713,24 @@ int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
                                 cudaStream_t stream) {
   cudaError_t err = cudaErrorInvalidValue;
   if (head_dim == 64 && v_dim == 64)
-    err = launch_bf16<64, 64>(q, k, v, o, q_geom, k_geom, v_geom, causal,
-                              scale_log2, ctas, sched, smem_bytes, stream);
+    err = launch_bf16<64, 64>(q, k, v, o, lse, lse_stride, q_geom, k_geom,
+        v_geom, causal, scale_log2, ctas, sched, smem_bytes, stream);
   else if (head_dim == 128 && v_dim == 128)
-    err = launch_bf16<128, 128>(q, k, v, o, q_geom, k_geom, v_geom, causal,
-                                scale_log2, ctas, sched, smem_bytes, stream);
+    err = launch_bf16<128, 128>(q, k, v, o, lse, lse_stride, q_geom, k_geom,
+        v_geom, causal, scale_log2, ctas, sched, smem_bytes, stream);
   else if (head_dim == 192 && v_dim == 128)
-    err = launch_bf16<192, 128>(q, k, v, o, q_geom, k_geom, v_geom, causal,
-                                scale_log2, ctas, sched, smem_bytes, stream);
+    err = launch_bf16<192, 128>(q, k, v, o, lse, lse_stride, q_geom, k_geom,
+        v_geom, causal, scale_log2, ctas, sched, smem_bytes, stream);
   return static_cast<int>(err);
 }
 
 // float32 o = attention(q, k, v): q (batch, seq, heads, head_dim), k
 // (batch, seq, kv_heads, head_dim), v (batch, seq, kv_heads, v_dim), o
 // (batch, seq, heads, v_dim), contiguous; (head_dim, v_dim) is (64, 64),
-// (128, 128) or (192, 128).
+// (128, 128) or (192, 128); `lse` as for the bf16 launch (null: none).
 int flash_attention_f32_launch(const void* q, const void* k, const void* v,
-                               void* o, int batch, int seq, int heads,
+                               void* o, float* lse, int lse_stride,
+                               int batch, int seq, int heads,
                                int kv_heads, int head_dim, int v_dim,
                                int causal, float scale_log2,
                                cudaStream_t stream) {
@@ -896,8 +742,8 @@ int flash_attention_f32_launch(const void* q, const void* k, const void* v,
   const dim3 grid((seq + kBQ - 1) / kBQ, heads, batch);
   kernel<<<grid, kThreads32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), seq, heads,
-      kv_heads, causal, scale_log2);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, lse_stride,
+      seq, heads, kv_heads, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,55 +8,83 @@
 // The port runs its forward kernel (flash_attention.cu) where the
 // reference runs jnp attention, so training needs this kernel: the port's
 // counterpart of the gradient JAX derives. Given q (B,S,H,64), k and v
-// (B,S,KV,64), the forward's o (B,S,H,64) and dO = dL/do, it returns dq,
-// dk and dv in the inputs' dtype (bf16 or float32), query head h reading
-// KV head h / (H/KV), with the forward's mask (key >= S, or key > row when
-// causal) and scale 1/√dh. With P = softmax(q·kᵀ/√dh):
+// (B,S,KV,64), the forward's o (B,S,H,64) and its rows' logsumexp `lse`
+// ((B, H, s_pad) float32, natural units, s_pad = S rounded up to 128: the
+// forward kernel writes it), and dO = dL/do, it returns dq, dk and dv in
+// the inputs' dtype (bf16 or float32), query head h reading KV head
+// h / (H/KV), with the forward's mask (key >= S, or key > row when causal)
+// and scale 1/√dh. With P = exp(q·kᵀ/√dh − lse):
 //   dv = Pᵀ·dO,  dP = dO·vᵀ,  dS = P ∘ (dP − D),  D = rowsum(dO ∘ o),
 //   dq = dS·k/√dh,  dk = dSᵀ·q/√dh.
 //
-// Bound on this card: operations. At the smollm-360m prefill shape
-// (B=4, S=4096, H=15, causal) the gradient's five products take
-// 2.5 times the forward's 1.29e11 operations (0.33 ms at 989 TFLOP/s
-// bf16) against 168 MB of inputs and outputs (0.05 ms at 3.35 TB/s).
+// Bound on this card: operations. The gradient's five products (q·kᵀ
+// again, dO·vᵀ, Pᵀ·dO, dSᵀ·q, dS·k) are 2.5 times the forward's two: at
+// the smollm-360m training shape (B=4, S=4096, H=15, causal) 3.22e11 bf16
+// operations, 0.326 ms at 989 TFLOP/s, against 168 MB of inputs and
+// outputs (0.05 ms at 3.35 TB/s).
 //
-// Design: the simple, deterministic one. Three kernels, one stream, each
-// in two versions: bf16 on the tensor cores (mma.sync, `mma_*`) and
-// float32 on the CUDA cores (`bwd_*`), the card's exact float32 path; both
-// sum in float32 and round each output once:
-// * `*_stats`: a block a 64-row query tile of one head recomputes the
-//   rows' logsumexp of q·kᵀ/√dh (in log2 units) over the key tiles the
-//   mask leaves, and D = rowsum(dO ∘ o). (The forward does not keep its
-//   logsumexp; taking it from there is later work, ROADMAP.md.)
-// * `*_dkdv`: a block a 64-key tile of one KV head holds its k and v
-//   tiles and its dk and dv sums in registers, and loops over the group's
-//   H/KV query heads and over their query tiles at or below the diagonal:
-//   P and dS of each (query tile, key tile) go into dv += Pᵀ·dO and
-//   dk += dSᵀ·q. No two blocks write one key's gradient, so
-//   GQA needs no atomics.
-// * `*_dq`: a block a 64-row query tile of one head loops over the key
-//   tiles at or below the diagonal: dq += dS·k.
-// float32: every tile lies in shared memory as float32 rows padded to 65
-// words, and thread (ty, tx) of 16 x 16 owns rows ty + 16 i and columns
-// tx + 16 j (i, j < 4) of each 64 x 64 product, which keeps the warps'
-// reads of shared memory free of bank conflicts. bf16: see the note that
-// opens its section below.
+// bf16 design: two launches on one stream, both persistent (one CTA an
+// SM) with the forward's shape: a producer warpgroup whose first thread
+// issues every TMA load and gives its registers away (setmaxnreg), and two
+// consumer warpgroups of 64 rows each on wgmma m64n64k16 (bf16 operands,
+// float32 sums). CTAs take work tiles from a counter in device memory,
+// longest first; the last CTA of each launch resets it, so no launch needs
+// a memset. Tiles lie in shared memory as the forward's: 64 columns of
+// 128-byte rows with the 128-byte swizzle, written by TMA from 4-D tensor
+// maps over (head dim, heads, S, batch), rows past S read as zeros.
+// * `dq_wgmma`, over query tiles of 128 rows of one head: each row's
+//   D = rowsum(dO ∘ o), read once from device memory and written to a
+//   (B, H, s_pad) scratch for the second launch; then over the key tiles
+//   the mask leaves, 64 keys a stage of a 4-deep ring of k and v tiles:
+//   S = q·kᵀ and dP = dO·vᵀ with both operands in shared memory, P and dS
+//   in registers, and dq += dS·k with dS as the register A operand (the
+//   accumulator re-packed to bf16, as the forward re-packs p) and k read
+//   as it lies (MN-major). q and dO are double-buffered across work tiles.
+// * `dkdv_wgmma`, over key tiles of 128 keys of one KV head: k and v stay in
+//   shared memory and dk, dv in registers while the group's H/KV query
+//   heads and their query tiles at or below the diagonal stream through a
+//   4-deep ring (64 rows of q and dO, 64 floats of lse and of D a stage;
+//   the statistics by 1-D bulk copies). Sᵀ = k·qᵀ and dPᵀ = v·dOᵀ, so Pᵀ
+//   and dSᵀ come out as register A operands; then dv += Pᵀ·dO and
+//   dk += dSᵀ·q read dO and q MN-major. No two CTAs write one key's
+//   gradient, so GQA needs no atomics.
+// * In both, the two consumer warpgroups take turns issuing to the tensor
+//   cores (named barriers, as in the forward), warpgroup 1 half a step
+//   behind the other, so one's exp2s run while the other's products do.
+//   Free-running, the two tend to fall into step (both wait on the same
+//   stage and issue together), and the tensor cores idle while both
+//   compute exp2s; with the turns the backward ran 4-10% faster
+//   (tools/flash_ab.py and chip_smoke.py before and after, PERF.md §6).
+// Seven products in all: q·kᵀ and dO·vᵀ run once in each launch. The five
+// of the bound would need dq summed across key tiles by atomics
+// (FlashAttention-3), whose order changes from run to run; the repeat
+// costs 2/5 more operations and keeps every sum in a fixed order. No
+// statistics pass: P comes from the forward's logsumexp. P and dS are
+// rounded to bf16 before the products that take them, as the forward
+// rounds p before p·v; each output is rounded once.
+//
+// float32 (`bwd_*`): the card's exact float32 arbiter, on the CUDA cores,
+// three launches: D = rowsum(dO ∘ o) (`bwd_delta`), dk and dv over key
+// tiles, dq over query tiles, each a 64-row tile of a block, P from the
+// forward's lse as in bf16. Every tile lies in shared memory as float32
+// rows padded to 65 words, and thread (ty, tx) of 16 x 16 owns rows
+// ty + 16 i and columns tx + 16 j (i, j < 4) of each 64 x 64 product.
+//
 // Each sum runs in a fixed order and nothing is added by atomics: two
-// calls give the same bits. wgmma, TMA and the forward's logsumexp are
-// later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// calls give the same bits.
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 constexpr int D = 64;         // head dim of q, k and v
 constexpr int TILE = 64;      // query rows or keys a tile
 constexpr int LD = D + 1;     // row stride of a shared tile, in floats
 constexpr int THREADS = 256;  // 16 x 16
 constexpr int TILE_FLOATS = TILE * LD;
-constexpr int STATS_SMEM = 2 * TILE_FLOATS * 4;
 constexpr int DKDV_SMEM = (6 * TILE_FLOATS + 2 * TILE) * 4;
 constexpr int DQ_SMEM = (5 * TILE_FLOATS + 2 * TILE) * 4;
 
@@ -131,67 +159,15 @@ __device__ __forceinline__ int first_query_tile(int key_tile, int causal) {
   return causal ? key_tile : 0;
 }
 
-// Per-row logsumexp of q·kᵀ/√dh in log2 units and D = rowsum(dO ∘ o),
-// each (B, H, S) float32. Block: (query tile, head, batch).
+// D = rowsum(dO ∘ o) of one 64-row query tile into the (B, H, s_pad)
+// scratch. Block: (query tile, head, batch).
 __global__ void __launch_bounds__(THREADS)
-    bwd_stats(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ o, const float* __restrict__ dout,
-              float* __restrict__ lse, float* __restrict__ delta, int s,
-              int h, int kv, int causal, float scale_log2) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + TILE_FLOATS;
+    bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
+              float* __restrict__ delta, int s, int s_pad, int h) {
   const int qt = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
-  const int kvh = head / (h / kv);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const long long qstride = (long long)h * D, kstride = (long long)kv * D;
+  const long long qstride = (long long)h * D;
   const long long qoff = ((long long)b * s * h + head) * D;
-  const float* kb = k + ((long long)b * s * kv + kvh) * D;
-  load_tile(qs, q + qoff, qt * TILE, s, qstride);
-
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  const int n_kt = causal ? qt + 1 : (s + TILE - 1) / TILE;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();
-    load_tile(ks, kb, kt * TILE, s, kstride);
-    __syncthreads();
-    float acc[4][4] = {};
-    mm_nt(acc, qs, ks, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = qt * TILE + ty + 16 * i, key = kt * TILE + tx + 16 * j;
-        if (!unmasked(row, key, s, causal)) continue;
-        const float x = acc[i][j] * scale_log2;
-        if (x > m[i]) {
-          l[i] = l[i] * exp2f(m[i] - x) + 1.f;
-          m[i] = x;
-        } else {
-          l[i] += exp2f(x - m[i]);
-        }
-      }
-  }
-  // each row's (m, l) over the 16 lanes that share it (one half-warp)
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int off = 8; off >= 1; off >>= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m[i], off);
-      const float l2 = __shfl_xor_sync(0xffffffffu, l[i], off);
-      const float mx = fmaxf(m[i], m2);
-      if (mx != -INFINITY) {
-        l[i] = (m[i] == -INFINITY ? 0.f : l[i] * exp2f(m[i] - mx)) +
-               (m2 == -INFINITY ? 0.f : l2 * exp2f(m2 - mx));
-        m[i] = mx;
-      }
-    }
-  }
   // D over the row's 64 columns: 4 a lane, then the half-warp
   float dsum[4];
 #pragma unroll
@@ -214,17 +190,14 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = qt * TILE + ty + 16 * i;
-      if (row < s) {
-        const long long at = ((long long)b * h + head) * s + row;
-        lse[at] = m[i] + log2f(l[i]);
-        delta[at] = dsum[i];
-      }
+      if (row < s) delta[((long long)b * h + head) * s_pad + row] = dsum[i];
     }
   }
 }
 
 // P and dS of query tile `qt` against the key tile held in shared memory:
-// p[i][j] and ds[i][j] for rows ty + 16 i, keys tx + 16 j.
+// p[i][j] and ds[i][j] for rows ty + 16 i, keys tx + 16 j; lse_s in log2
+// units.
 __device__ __forceinline__ void softmax_grad(
     float (&p)[4][4], float (&ds)[4][4], const float* qs, const float* dos,
     const float* ks, const float* vs, const float* lse_s, const float* d_s,
@@ -249,14 +222,14 @@ __device__ __forceinline__ void softmax_grad(
 }
 
 // The row statistics of query tile `qt` of one (batch, head) into shared
-// memory (0 past S).
+// memory: lse in log2 units, and D (0 past S).
 __device__ __forceinline__ void load_stats(float* lse_s, float* d_s,
                                            const float* lse,
                                            const float* delta,
                                            long long row0, int qt, int s) {
   if (threadIdx.x < TILE) {
     const int row = qt * TILE + threadIdx.x;
-    lse_s[threadIdx.x] = row < s ? lse[row0 + row] : 0.f;
+    lse_s[threadIdx.x] = row < s ? lse[row0 + row] * kLog2e : 0.f;
     d_s[threadIdx.x] = row < s ? delta[row0 + row] : 0.f;
   }
 }
@@ -267,8 +240,8 @@ __global__ void __launch_bounds__(THREADS)
     bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dk, float* __restrict__ dv, int s, int h, int kv,
-             int causal, float scale_log2, float scale) {
+             float* __restrict__ dk, float* __restrict__ dv, int s, int s_pad,
+             int h, int kv, int causal, float scale_log2, float scale) {
   extern __shared__ float smem[];
   float* ks = smem;
   float* vs = ks + TILE_FLOATS;
@@ -290,7 +263,7 @@ __global__ void __launch_bounds__(THREADS)
   const int n_qt = (s + TILE - 1) / TILE;
   for (int head = kvh * group; head < (kvh + 1) * group; ++head) {
     const long long qoff = ((long long)b * s * h + head) * D;
-    const long long row0 = ((long long)b * h + head) * s;
+    const long long row0 = ((long long)b * h + head) * s_pad;
     for (int qt = first_query_tile(kt, causal); qt < n_qt; ++qt) {
       __syncthreads();
       load_tile(qs, q + qoff, qt * TILE, s, qstride);
@@ -332,8 +305,8 @@ __global__ void __launch_bounds__(THREADS)
     bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           float* __restrict__ dq, int s, int h, int kv, int causal,
-           float scale_log2, float scale) {
+           float* __restrict__ dq, int s, int s_pad, int h, int kv,
+           int causal, float scale_log2, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;
   float* dos = qs + TILE_FLOATS;
@@ -350,7 +323,8 @@ __global__ void __launch_bounds__(THREADS)
   const long long koff = ((long long)b * s * kv + kvh) * D;
   load_tile(qs, q + qoff, qt * TILE, s, qstride);
   load_tile(dos, dout + qoff, qt * TILE, s, qstride);
-  load_stats(lse_s, d_s, lse, delta, ((long long)b * h + head) * s, qt, s);
+  load_stats(lse_s, d_s, lse, delta, ((long long)b * h + head) * s_pad, qt,
+             s);
 
   float dq_acc[4][4] = {};
   const int n_kt = causal ? qt + 1 : (s + TILE - 1) / TILE;
@@ -381,10 +355,10 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const void* o, const void* dout, void* dq, void* dk,
-                       void* dv, float* lse, float* delta, int b, int s,
-                       int h, int kv, int causal, float scale_log2,
-                       float scale, cudaStream_t stream) {
+                       const void* o, const void* dout, const float* lse,
+                       void* dq, void* dk, void* dv, float* delta, int b,
+                       int s, int s_pad, int h, int kv, int causal,
+                       float scale_log2, float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       bwd_dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, DKDV_SMEM);
   if (err != cudaSuccess) return err;
@@ -397,410 +371,634 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   const float* dof = static_cast<const float*>(dout);
-  bwd_stats<<<by_query, THREADS, STATS_SMEM, stream>>>(
-      qf, kf, static_cast<const float*>(o), dof, lse, delta, s, h, kv,
-      causal, scale_log2);
+  bwd_delta<<<by_query, THREADS, 0, stream>>>(
+      static_cast<const float*>(o), dof, delta, s, s_pad, h);
   bwd_dkdv<<<by_key, THREADS, DKDV_SMEM, stream>>>(
       qf, kf, vf, dof, lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), s, h, kv, causal, scale_log2, scale);
+      static_cast<float*>(dv), s, s_pad, h, kv, causal, scale_log2, scale);
   bwd_dq<<<by_query, THREADS, DQ_SMEM, stream>>>(
-      qf, kf, vf, dof, lse, delta, static_cast<float*>(dq), s, h, kv,
+      qf, kf, vf, dof, lse, delta, static_cast<float*>(dq), s, s_pad, h, kv,
       causal, scale_log2, scale);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the same three kernels on the tensor cores (mma.sync m16n8k16, bf16
-// operands, float32 sums). A block is 4 warps; warp w owns rows 16w..16w+15
-// of the 64-row tile its kernel writes (query rows for the statistics and
-// dq, keys for dk and dv), so no two warps add into one output. Tiles lie
-// in shared memory as bf16 rows of 72 (64 and 8 of padding, which keeps
-// ldmatrix free of bank conflicts). P and dS are rounded to bf16 before
-// the products that take them (dv += Pᵀ·dO, dk += dSᵀ·q, dq += dS·k), as
-// the forward rounds p before p·v.
-
-constexpr int MMA_THREADS = 128;
-constexpr int LDS = D + 8;                 // bf16 row stride of a tile
-constexpr int MMA_TILE = TILE * LDS;       // bf16 elements of a tile
-constexpr int MMA_STATS_SMEM = 2 * MMA_TILE * 2;
-constexpr int MMA_SMEM = 4 * MMA_TILE * 2 + 2 * TILE * 4;
+// bf16 on wgmma with TMA loads (see the note at the top).
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kThreadsBf16 = 384;       // producer + 2 consumer warpgroups
+constexpr int kConsumerWarps = 8;
+constexpr int kStatBytes = 256;         // 64 floats of lse or D
 
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + TILE) of one head's (S, 64) bf16 slab, rows `stride`
-// elements apart, into a shared tile of row stride LDS; zeros past S.
-__device__ void load_tile_bf16(bf16* tile, const bf16* src, int row0, int s,
-                               long long stride) {
-  for (int c = threadIdx.x; c < TILE * D / 8; c += MMA_THREADS) {
-    const int r = c / (D / 8), col = (c % (D / 8)) * 8, row = row0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row < s) v = *reinterpret_cast<const uint4*>(src + row * stride + col);
-    *reinterpret_cast<uint4*>(tile + r * LDS + col) = v;
+// The two consumer warpgroups take turns issuing to the tensor cores
+// (named barriers `mine` and `theirs`), warpgroup 1 half a step behind:
+// in each work tile its first turn is empty (`turns_begin`) and so is
+// warpgroup 0's last (`turns_end`), so each one's exp2s run while the
+// other's products do, and both leave the tile together: carried across
+// tiles, warpgroup 0 would wait for the next tile's k and v, which wait
+// for warpgroup 1 to free this tile's, which waits for warpgroup 0's turn.
+__device__ __forceinline__ void turns_begin(int wg, uint32_t mine,
+                                            uint32_t theirs) {
+  if (wg == 1) {
+    named_arrive(theirs);
+    named_sync(mine);
+    named_arrive(theirs);
   }
 }
 
-// The A fragments of this warp's 16 rows of a shared tile, k = 0..63.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* tile,
-                                       int lane, int warp) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    ldsm(a[kk], tile + (16 * warp + (lane & 15)) * LDS + 16 * kk +
-                    (lane >> 4) * 8);
-}
-
-// acc (this warp's 16 rows x 64 columns) += a · bᵀ, b a shared tile stored
-// [column][k].
-__device__ __forceinline__ void mma_nt(float (&acc)[8][4],
-                                       const uint32_t (&a)[4][4],
-                                       const bf16* b, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t f[4];
-      ldsm(f, b + (16 * j + (lane & 7) + ((lane >> 4) << 3)) * LDS +
-                  16 * kk + ((lane >> 3) & 1) * 8);
-      mma(acc[2 * j], a[kk], f[0], f[1]);
-      mma(acc[2 * j + 1], a[kk], f[2], f[3]);
-    }
-}
-
-// acc (16 rows x 64 columns) += a · b, b a shared tile stored [k][column].
-__device__ __forceinline__ void mma_nn(float (&acc)[8][4],
-                                       const uint32_t (&a)[4][4],
-                                       const bf16* b, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      uint32_t f[4];
-      ldsm_t(f, b + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
-                    16 * j + (lane >> 4) * 8);
-      mma(acc[2 * j], a[kk], f[0], f[1]);
-      mma(acc[2 * j + 1], a[kk], f[2], f[3]);
-    }
-}
-
-// A fragments (k = the 64 columns) of accumulators c rounded to bf16.
-__device__ __forceinline__ void to_a(uint32_t (&a)[4][4],
-                                     const float (&c)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+__device__ __forceinline__ void turns_end(int wg, uint32_t mine,
+                                          uint32_t theirs) {
+  if (wg == 0) {
+    named_sync(mine);
+    named_arrive(theirs);
+    named_sync(mine);
   }
 }
 
-__device__ __forceinline__ void zero(float (&c)[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+// `dq_wgmma`: work tiles of 128 query rows; k and v in stages of 64 keys.
+// Shared memory from a 1024-aligned base: two buffers of q then dO
+// (16 KB each), then the ring's stages of k then v (8 KB each).
+constexpr int kDqRows = 128;
+constexpr int kDqKeys = 64;
+constexpr int kDqStages = 4;
+constexpr int kDqQBufs = 2;
+constexpr int kDqTile = kDqRows * kRowBytes;         // q or dO of a tile
+constexpr int kDqKV = kDqKeys * kRowBytes;           // k or v of a stage
+constexpr int kDqRing = kDqQBufs * 2 * kDqTile;
+constexpr int kDqSmem = kDqRing + kDqStages * 2 * kDqKV + 1024;
+
+// `dkdv_wgmma`: work tiles of 128 keys; q, dO, lse and D in stages of 64
+// query rows. Shared memory from a 1024-aligned base: k then v (16 KB
+// each), then the ring's stages: q, dO (8 KB each), lse, D (256 B each),
+// padded to 1024 bytes.
+constexpr int kKvKeys = 128;
+constexpr int kKvRows = 64;
+constexpr int kKvStages = 4;
+constexpr int kKvTile = kKvKeys * kRowBytes;         // k or v of a tile
+constexpr int kKvQ = kKvRows * kRowBytes;            // q or dO of a stage
+constexpr int kKvStage = 2 * kKvQ + 1024;
+constexpr int kKvRing = 2 * kKvTile;
+constexpr int kKvSmem = kKvRing + kKvStages * kKvStage + 1024;
+static_assert(2 * kKvQ + 2 * kStatBytes <= kKvStage, "stage");
+static_assert(kDqSmem <= 232448 - 128 && kKvSmem <= 232448 - 128, "smem");
+
+// `bytes` (a multiple of 16) from 16-byte aligned device memory.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(bar)
+      : "memory");
 }
 
-// Accumulator element (n, e) of a lane lies at row g + 8 (e / 2) of the
-// warp's 16 and column 8 n + 2 t + e % 2, g = lane / 4, t = lane % 4.
-__device__ __forceinline__ int acc_row(int lane, int e) {
-  return (lane >> 2) + 8 * (e >> 1);
-}
-__device__ __forceinline__ int acc_col(int lane, int n, int e) {
-  return 8 * n + 2 * (lane & 3) + (e & 1);
+// d (64 x 64, float32) = a · bᵀ over 16 columns, a (64 x 16) and b
+// (64 x 16) bf16 in shared memory, both K-major; d is overwritten if
+// !accumulate.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// D = rowsum(dO ∘ o) of a 64-row query tile: two threads a row.
-__device__ __forceinline__ void tile_delta(const bf16* o, const bf16* dout,
-                                           float* delta, long long qoff,
-                                           long long qstride,
-                                           long long row0, int qt, int s) {
-  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-  const int row = qt * TILE + r;
+// d (64 x 64) = a · bᵀ over the 64 head dims: a's and b's 64 rows in
+// shared memory (K-major), 4 steps of 16 columns (32 bytes) each.
+__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a_rows,
+                                           uint32_t b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_n64(d, smem_desc(a_rows + kk * 32, 16, 8 * kRowBytes),
+                 smem_desc(b_rows + kk * 32, 16, 8 * kRowBytes), kk > 0);
+}
+
+// d (64 x 64) += a · b over b's 64 rows: a the bf16 A fragments of a
+// 64 x 64 accumulator, b in shared memory as it lies (MN-major), 4 steps
+// of 16 rows each.
+__device__ __forceinline__ void product_rs(float (&d)[32],
+                                           const uint32_t (&a)[16],
+                                           uint32_t b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_n64(d, &a[4 * kk],
+                 smem_desc(b_rows + kk * 16 * kRowBytes, 64 * kRowBytes,
+                           8 * kRowBytes));
+}
+
+// The persistent launches' work counter: `sched[0]` hands out tiles; every
+// CTA takes one past the end and then counts itself in `sched[1]`, and
+// the last to do so resets both for the next launch on this stream.
+__device__ __forceinline__ void release_counter(int* sched) {
+  __threadfence();
+  if (atomicAdd(sched + 1, 1) == static_cast<int>(gridDim.x) - 1) {
+    sched[0] = 0;
+    sched[1] = 0;
+  }
+}
+
+// D = rowsum(dO ∘ o) of one row, (B, S, H, 64) bf16 at element offset
+// `at`: this thread's 16 columns, then the row's four threads.
+__device__ __forceinline__ float row_delta(const bf16* o, const bf16* dout,
+                                           long long at, bool in, int t4) {
   float sum = 0.f;
-  if (row < s) {
-    const long long at = qoff + row * qstride + half * 32;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c)
-      sum = fmaf(__bfloat162float(dout[at + c]), __bfloat162float(o[at + c]),
-                 sum);
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  if (row < s && half == 0) delta[row0 + row] = sum;
-}
-
-__global__ void __launch_bounds__(MMA_THREADS)
-    mma_stats(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ o, const bf16* __restrict__ dout,
-              float* __restrict__ lse, float* __restrict__ delta, int s,
-              int h, int kv, int causal, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + MMA_TILE;
-  const int qt = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
-  const int kvh = head / (h / kv);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long qstride = (long long)h * D, kstride = (long long)kv * D;
-  const long long qoff = ((long long)b * s * h + head) * D;
-  const long long row0 = ((long long)b * h + head) * s;
-  const bf16* kb = k + ((long long)b * s * kv + kvh) * D;
-  tile_delta(o, dout, delta, qoff, qstride, row0, qt, s);
-  load_tile_bf16(qs, q + qoff, qt * TILE, s, qstride);
-  __syncthreads();
-  uint32_t qf[4][4];
-  load_a(qf, qs, lane, warp);
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int n_kt = causal ? qt + 1 : (s + TILE - 1) / TILE;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();
-    load_tile_bf16(ks, kb, kt * TILE, s, kstride);
-    __syncthreads();
-    float acc[8][4];
-    zero(acc);
-    mma_nt(acc, qf, ks, lane);
+  if (in) {
+    const uint4* po = reinterpret_cast<const uint4*>(o + at + 16 * t4);
+    const uint4* pd = reinterpret_cast<const uint4*>(dout + at + 16 * t4);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = qt * TILE + 16 * warp + (lane >> 2) + 8 * r;
-      float mx = -INFINITY;
+    for (int c = 0; c < 2; ++c) {
+      const uint4 a = po[c], b = pd[c];
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          const int key = kt * TILE + acc_col(lane, n, e);
-          acc[n][e] = unmasked(row, key, s, causal)
-                          ? acc[n][e] * scale_log2 : -INFINITY;
-          mx = fmaxf(mx, acc[n][e]);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      if (m_new == -INFINITY) continue;
-      float sum = m[r] == -INFINITY ? 0.f : l[r] * exp2f(m[r] - m_new);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e)
-          sum += acc[n][e] == -INFINITY ? 0.f : exp2f(acc[n][e] - m_new);
-      m[r] = m_new;
-      l[r] = sum;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int row = qt * TILE + 16 * warp + (lane >> 2) + 8 * r;
-    if ((lane & 3) == 0 && row < s) lse[row0 + row] = m[r] + log2f(l[r]);
-  }
-}
-
-// P and dS of the warp's 16 rows against 64 columns from the products s
-// (rows · cols) and dp, in place: s becomes P, dp becomes dS. The
-// statistics are the rows' (`by_row`) or the columns'.
-__device__ __forceinline__ void softmax_grad_mma(
-    float (&s_)[8][4], float (&dp)[8][4], const float* lse_s,
-    const float* d_s, bool by_row, int qrow0, int kcol0, int s, int causal,
-    float scale_log2, int lane, int warp) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = 16 * warp + acc_row(lane, e), c = acc_col(lane, n, e);
-      const int stat = by_row ? r : c;
-      // by_row: rows are queries, columns keys; else the transpose
-      const int query = by_row ? qrow0 + r : qrow0 + c;
-      const int key = by_row ? kcol0 + c : kcol0 + r;
-      const float p = unmasked(query, key, s, causal)
-                          ? exp2f(s_[n][e] * scale_log2 - lse_s[stat]) : 0.f;
-      s_[n][e] = p;
-      dp[n][e] = p * (dp[n][e] - d_s[stat]);
-    }
-}
-
-__global__ void __launch_bounds__(MMA_THREADS)
-    mma_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             bf16* __restrict__ dk, bf16* __restrict__ dv, int s, int h,
-             int kv, int causal, float scale_log2, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + MMA_TILE;
-  bf16* qs = vs + MMA_TILE;
-  bf16* dos = qs + MMA_TILE;
-  float* lse_s = reinterpret_cast<float*>(dos + MMA_TILE);
-  float* d_s = lse_s + TILE;
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int group = h / kv;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long qstride = (long long)h * D, kstride = (long long)kv * D;
-  const long long koff = ((long long)b * s * kv + kvh) * D;
-  load_tile_bf16(ks, k + koff, kt * TILE, s, kstride);
-  load_tile_bf16(vs, v + koff, kt * TILE, s, kstride);
-  __syncthreads();
-  uint32_t kf[4][4], vf[4][4];
-  load_a(kf, ks, lane, warp);
-  load_a(vf, vs, lane, warp);
-
-  float dk_acc[8][4], dv_acc[8][4];
-  zero(dk_acc);
-  zero(dv_acc);
-  const int n_qt = (s + TILE - 1) / TILE;
-  for (int head = kvh * group; head < (kvh + 1) * group; ++head) {
-    const long long qoff = ((long long)b * s * h + head) * D;
-    const long long row0 = ((long long)b * h + head) * s;
-    for (int qt = first_query_tile(kt, causal); qt < n_qt; ++qt) {
-      __syncthreads();
-      load_tile_bf16(qs, q + qoff, qt * TILE, s, qstride);
-      load_tile_bf16(dos, dout + qoff, qt * TILE, s, qstride);
-      if (threadIdx.x < TILE) {
-        const int row = qt * TILE + threadIdx.x;
-        lse_s[threadIdx.x] = row < s ? lse[row0 + row] : 0.f;
-        d_s[threadIdx.x] = row < s ? delta[row0 + row] : 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(a2[e]);
+        const float2 y = __bfloat1622float2(b2[e]);
+        sum = fmaf(x.x, y.x, sum);
+        sum = fmaf(x.y, y.y, sum);
       }
-      __syncthreads();
-      float st[8][4], dpt[8][4];      // (keys of this warp) x (64 queries)
-      zero(st);
-      zero(dpt);
-      mma_nt(st, kf, qs, lane);       // k · qᵀ
-      mma_nt(dpt, vf, dos, lane);     // v · dOᵀ
-      softmax_grad_mma(st, dpt, lse_s, d_s, false, qt * TILE, kt * TILE, s,
-                       causal, scale_log2, lane, warp);
-      uint32_t pf[4][4], dsf[4][4];
-      to_a(pf, st);
-      to_a(dsf, dpt);
-      mma_nn(dv_acc, pf, dos, lane);  // dv += Pᵀ · dO
-      mma_nn(dk_acc, dsf, qs, lane);  // dk += dSᵀ · q
     }
   }
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; e += 2) {
-      const int key = kt * TILE + 16 * warp + acc_row(lane, e);
-      if (key >= s) continue;
-      const long long at = koff + key * kstride + acc_col(lane, n, e);
-      *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
-          dk_acc[n][e] * scale, dk_acc[n][e + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
-          __floats2bfloat162_rn(dv_acc[n][e], dv_acc[n][e + 1]);
-    }
+  sum += __shfl_xor_sync(kFull, sum, 1);
+  sum += __shfl_xor_sync(kFull, sum, 2);
+  return sum;
 }
 
-__global__ void __launch_bounds__(MMA_THREADS)
-    mma_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const bf16* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           bf16* __restrict__ dq, int s, int h, int kv, int causal,
-           float scale_log2, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + MMA_TILE;
-  bf16* ks = dos + MMA_TILE;
-  bf16* vs = ks + MMA_TILE;
-  float* lse_s = reinterpret_cast<float*>(vs + MMA_TILE);
-  float* d_s = lse_s + TILE;
-  const int qt = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
-  const int kvh = head / (h / kv);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long qstride = (long long)h * D, kstride = (long long)kv * D;
-  const long long qoff = ((long long)b * s * h + head) * D;
-  const long long koff = ((long long)b * s * kv + kvh) * D;
-  const long long row0 = ((long long)b * h + head) * s;
-  load_tile_bf16(qs, q + qoff, qt * TILE, s, qstride);
-  load_tile_bf16(dos, dout + qoff, qt * TILE, s, qstride);
-  if (threadIdx.x < TILE) {
-    const int row = qt * TILE + threadIdx.x;
-    lse_s[threadIdx.x] = row < s ? lse[row0 + row] : 0.f;
-    d_s[threadIdx.x] = row < s ? delta[row0 + row] : 0.f;
+// One `dq_wgmma` work tile: 128 query rows of one head and batch, numbered
+// query tile fastest, longest (highest) first, and the key tiles of 64
+// the mask leaves.
+struct DqTile {
+  int q0, h, b, kvh, n_tiles;
+};
+
+__device__ __forceinline__ DqTile dq_tile(int w, int q_tiles, int heads,
+                                          int kv_heads, int seq, int causal) {
+  const int qt = q_tiles - 1 - w % q_tiles, hb = w / q_tiles;
+  DqTile t;
+  t.q0 = qt * kDqRows;
+  t.h = hb % heads;
+  t.b = hb / heads;
+  t.kvh = t.h / (heads / kv_heads);
+  const int keys = causal ? min(seq, t.q0 + kDqRows) : seq;
+  t.n_tiles = (keys + kDqKeys - 1) / kDqKeys;
+  return t;
+}
+
+// P = exp2(s·scale_log2 − lse2) and dS = P ∘ (dP − D) of a 64 x 64 tile in
+// this thread's fragment (rows row0 and row1, keys key0 + 8 i + {0, 1}),
+// dS rounded to bf16 as the A fragments of dS·k. With `mask` (uniform),
+// keys past S or past the row when causal get P = 0.
+__device__ __forceinline__ void dq_grad(const float (&s)[32],
+                                        const float (&dp)[32],
+                                        uint32_t (&ds)[16], bool mask,
+                                        int key0, int row0, int row1, int seq,
+                                        int causal, float lse0, float lse1,
+                                        float d0, float d1, float scale_log2) {
+#pragma unroll
+  for (int r = 0; r < 32; r += 2) {
+    const bool hi = (r & 2) != 0;
+    const float lse2 = hi ? lse1 : lse0, d = hi ? d1 : d0;
+    float p0 = ex2(fmaf(s[r], scale_log2, -lse2));
+    float p1 = ex2(fmaf(s[r + 1], scale_log2, -lse2));
+    if (mask) {
+      const int key = key0 + 8 * (r >> 2), row = hi ? row1 : row0;
+      if (key >= seq || (causal && key > row)) p0 = 0.f;
+      if (key + 1 >= seq || (causal && key + 1 > row)) p1 = 0.f;
+    }
+    ds[r >> 1] = pack_bf16(p0 * (dp[r] - d), p1 * (dp[r + 1] - d));
+  }
+}
+
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+dq_wgmma(const __grid_constant__ CUtensorMap q_map,     // 128-row boxes
+       const __grid_constant__ CUtensorMap do_map,    // 128-row boxes
+       const __grid_constant__ CUtensorMap k_map,     // 64-row boxes
+       const __grid_constant__ CUtensorMap v_map,     // 64-row boxes
+       const bf16* __restrict__ o, const bf16* __restrict__ dout,
+       const float* __restrict__ lse, float* __restrict__ delta,
+       bf16* __restrict__ dq, int* __restrict__ sched, int seq, int s_pad,
+       int batch, int heads, int kv_heads, int causal, float scale_log2,
+       float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  // mbarriers: per q buffer full and empty; per stage full and empty
+  __shared__ __align__(8) uint64_t bars[2 * kDqQBufs + 2 * kDqStages];
+  __shared__ int tile_slot[kDqQBufs];       // the work tile each buffer holds
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_full = smem_u32(&bars[0]);              // + 8 * buffer
+  const uint32_t q_empty = smem_u32(&bars[kDqQBufs]);
+  const uint32_t kv_full = smem_u32(&bars[2 * kDqQBufs]);  // + 8 * stage
+  const uint32_t kv_empty = smem_u32(&bars[2 * kDqQBufs + kDqStages]);
+  const int q_tiles = (seq + kDqRows - 1) / kDqRows;
+  const int work = q_tiles * heads * batch;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kDqQBufs; ++i) {
+      mbar_init(q_full + 8 * i, 1);
+      mbar_init(q_empty + 8 * i, kConsumerWarps);
+    }
+    for (int st = 0; st < kDqStages; ++st) {
+      mbar_init(kv_full + 8 * st, 1);
+      mbar_init(kv_empty + 8 * st, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  uint32_t qf[4][4], dof[4][4];
-  load_a(qf, qs, lane, warp);
-  load_a(dof, dos, lane, warp);
 
-  float dq_acc[8][4];
-  zero(dq_acc);
-  const int n_kt = causal ? qt + 1 : (s + TILE - 1) / TILE;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();
-    load_tile_bf16(ks, k + koff, kt * TILE, s, kstride);
-    load_tile_bf16(vs, v + koff, kt * TILE, s, kstride);
-    __syncthreads();
-    float sc[8][4], dp[8][4];         // (rows of this warp) x (64 keys)
-    zero(sc);
-    zero(dp);
-    mma_nt(sc, qf, ks, lane);         // q · kᵀ
-    mma_nt(dp, dof, vs, lane);        // dO · vᵀ
-    softmax_grad_mma(sc, dp, lse_s, d_s, true, qt * TILE, kt * TILE, s,
-                     causal, scale_log2, lane, warp);
-    uint32_t dsf[4][4];
-    to_a(dsf, dp);
-    mma_nn(dq_acc, dsf, ks, lane);    // dq += dS · k
-  }
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; e += 2) {
-      const int row = qt * TILE + 16 * warp + acc_row(lane, e);
-      if (row >= s) continue;
-      *reinterpret_cast<__nv_bfloat162*>(
-          dq + qoff + row * qstride + acc_col(lane, n, e)) =
-          __floats2bfloat162_rn(dq_acc[n][e] * scale,
-                                dq_acc[n][e + 1] * scale);
+  // The warpgroup index, warp-uniform as the compiler sees it (a shuffle),
+  // so no wgmma sits on a path it must treat as divergent.
+  const int role = __shfl_sync(kFull, static_cast<int>(threadIdx.x) / 128, 0);
+  if (role == 0) {
+    // Producer: its first thread takes work tiles from the counter and
+    // keeps q, dO and the k/v ring full, running ahead into the next tile.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int g = 0;                            // k/v stages issued so far
+      for (int it = 0;; ++it) {
+        const int w = atomicAdd(sched, 1);
+        const int qb = it % kDqQBufs;
+        const uint32_t qf = q_full + 8 * qb;
+        if (it >= kDqQBufs)
+          mbar_wait(q_empty + 8 * qb, ((it / kDqQBufs) & 1) ^ 1);
+        tile_slot[qb] = w;
+        if (w >= work) {
+          mbar_arrive(qf);                  // no more work: let them exit
+          break;
+        }
+        const DqTile t = dq_tile(w, q_tiles, heads, kv_heads, seq, causal);
+        const uint32_t q_dst = base + qb * 2 * kDqTile;
+        mbar_expect_tx(qf, 2 * kDqTile);
+        tma_load(q_dst, &q_map, qf, 0, t.h, t.q0, t.b);
+        tma_load(q_dst + kDqTile, &do_map, qf, 0, t.h, t.q0, t.b);
+        for (int j = 0; j < t.n_tiles; ++j, ++g) {
+          const int st = g % kDqStages;
+          const uint32_t full = kv_full + 8 * st;
+          if (g >= kDqStages)
+            mbar_wait(kv_empty + 8 * st, ((g / kDqStages) & 1) ^ 1);
+          const uint32_t dst = base + kDqRing + st * 2 * kDqKV;
+          mbar_expect_tx(full, 2 * kDqKV);
+          tma_load(dst, &k_map, full, 0, t.kvh, j * kDqKeys, t.b);
+          tma_load(dst + kDqKV, &v_map, full, 0, t.kvh, j * kDqKeys, t.b);
+        }
+      }
+      release_counter(sched);
     }
+  } else {
+    // Consumer warpgroups 0 and 1: 64 query rows each of every work tile.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = role - 1;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g4 = lane >> 2, t4 = lane & 3;
+    const uint32_t mine = kTurn0 + wg, theirs = kTurn0 + 1 - wg;
+    float s[32], dp[32], acc[32];
+    uint32_t ds[16];
+    int g = 0;                              // k/v stages consumed so far
+    for (int it = 0;; ++it) {
+      const int qb = it % kDqQBufs;
+      mbar_wait(q_full + 8 * qb, (it / kDqQBufs) & 1);
+      // Read from shared memory, then shuffled: warp-uniform to ptxas.
+      const int w = __shfl_sync(
+          kFull, *reinterpret_cast<volatile int*>(&tile_slot[qb]), 0);
+      if (w >= work) break;
+      const DqTile t = dq_tile(w, q_tiles, heads, kv_heads, seq, causal);
+      const uint32_t q_rows = base + qb * 2 * kDqTile + wg * 64 * kRowBytes;
+      const uint32_t do_rows = q_rows + kDqTile;
+      // This thread's two rows (the accumulator fragment's g and g + 8),
+      // their D (written for the second launch; 0 past S) and lse.
+      const int row0 = t.q0 + wg * 64 + warp * 16 + g4, row1 = row0 + 8;
+      const long long o_stride = static_cast<long long>(heads) * 64;
+      const long long at = static_cast<long long>(t.b) * seq * o_stride
+                           + t.h * 64;
+      const float d0 = row_delta(o, dout, at + row0 * o_stride, row0 < seq,
+                                 t4);
+      const float d1 = row_delta(o, dout, at + row1 * o_stride, row1 < seq,
+                                 t4);
+      const long long stat = (static_cast<long long>(t.b) * heads + t.h)
+                             * s_pad;
+      if (t4 == 0) {
+        delta[stat + row0] = d0;
+        delta[stat + row1] = d1;
+      }
+      const float lse0 = row0 < seq ? lse[stat + row0] * kLog2e : 0.f;
+      const float lse1 = row1 < seq ? lse[stat + row1] * kLog2e : 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      turns_begin(wg, mine, theirs);
+
+      for (int j = 0; j < t.n_tiles; ++j, ++g) {
+        const int st = g % kDqStages;
+        const uint32_t k_tile = base + kDqRing + st * 2 * kDqKV;
+        mbar_wait(kv_full + 8 * st, (g / kDqStages) & 1);
+        named_sync(mine);
+        wgmma_fence();
+        product_ss(s, q_rows, k_tile);                  // q·kᵀ
+        product_ss(dp, do_rows, k_tile + kDqKV);        // dO·vᵀ
+        wgmma_commit();
+        named_arrive(theirs);
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        const int k0 = j * kDqKeys;
+        dq_grad(s, dp, ds,
+                k0 + kDqKeys > seq || (causal && k0 + kDqKeys > t.q0),
+                k0 + 2 * t4, row0, row1, seq, causal, lse0, lse1, d0, d1,
+                scale_log2);
+        named_sync(mine);
+        wgmma_fence();
+        product_rs(acc, ds, k_tile);                    // dq += dS·k
+        wgmma_commit();
+        named_arrive(theirs);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(ds);
+        mbar_arrive_lane0(kv_empty + 8 * st, lane);    // stage st is free
+      }
+      turns_end(wg, mine, theirs);
+      mbar_arrive_lane0(q_empty + 8 * qb, lane);       // q, dO read: refill
+
+      bf16* out = dq + at + 2 * t4;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (row0 < seq)
+          *reinterpret_cast<uint32_t*>(out + row0 * o_stride + 8 * i) =
+              pack_bf16(acc[4 * i] * scale, acc[4 * i + 1] * scale);
+        if (row1 < seq)
+          *reinterpret_cast<uint32_t*>(out + row1 * o_stride + 8 * i) =
+              pack_bf16(acc[4 * i + 2] * scale, acc[4 * i + 3] * scale);
+      }
+    }
+  }
 }
 
-cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const void* o, const void* dout, void* dq, void* dk,
-                       void* dv, float* lse, float* delta, int b, int s,
-                       int h, int kv, int causal, float scale_log2,
-                       float scale, cudaStream_t stream) {
-  const int tiles = (s + TILE - 1) / TILE;
-  const dim3 by_query(tiles, h, b), by_key(tiles, kv, b);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  const bf16* dob = static_cast<const bf16*>(dout);
-  mma_stats<<<by_query, MMA_THREADS, MMA_STATS_SMEM, stream>>>(
-      qb, kb, static_cast<const bf16*>(o), dob, lse, delta, s, h, kv, causal,
-      scale_log2);
-  mma_dkdv<<<by_key, MMA_THREADS, MMA_SMEM, stream>>>(
-      qb, kb, vb, dob, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), s, h, kv, causal, scale_log2, scale);
-  mma_dq<<<by_query, MMA_THREADS, MMA_SMEM, stream>>>(
-      qb, kb, vb, dob, lse, delta, static_cast<bf16*>(dq), s, h, kv, causal,
-      scale_log2, scale);
+// Pᵀ and dSᵀ of a 64-key x 64-query tile in this thread's fragment: rows
+// are keys key0 and key1, columns queries q0 + 8 i + 2 t4 + {0, 1}, whose
+// lse (natural units) and D lie in shared memory. Both come out rounded to
+// bf16 as the A fragments of Pᵀ·dO and dSᵀ·q. With `mask` (uniform),
+// queries past S, or before the key when causal, get P = 0.
+__device__ __forceinline__ void dkdv_grad(
+    const float (&st)[32], const float (&dpt)[32], uint32_t (&p)[16],
+    uint32_t (&ds)[16], const float* lse_s, const float* d_s, bool mask,
+    int q0, int t4, int key0, int key1, int seq, int causal,
+    float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = 8 * i + 2 * t4;
+    const float2 l = *reinterpret_cast<const float2*>(lse_s + c);
+    const float2 d = *reinterpret_cast<const float2*>(d_s + c);
+    const float la = l.x * kLog2e, lb = l.y * kLog2e;
+    float pr[4] = {ex2(fmaf(st[4 * i], scale_log2, -la)),
+                   ex2(fmaf(st[4 * i + 1], scale_log2, -lb)),
+                   ex2(fmaf(st[4 * i + 2], scale_log2, -la)),
+                   ex2(fmaf(st[4 * i + 3], scale_log2, -lb))};
+    if (mask) {
+      const int qa = q0 + c, qb = qa + 1;
+      if (qa >= seq || (causal && key0 > qa)) pr[0] = 0.f;
+      if (qb >= seq || (causal && key0 > qb)) pr[1] = 0.f;
+      if (qa >= seq || (causal && key1 > qa)) pr[2] = 0.f;
+      if (qb >= seq || (causal && key1 > qb)) pr[3] = 0.f;
+    }
+    p[2 * i] = pack_bf16(pr[0], pr[1]);
+    p[2 * i + 1] = pack_bf16(pr[2], pr[3]);
+    ds[2 * i] = pack_bf16(pr[0] * (dpt[4 * i] - d.x),
+                          pr[1] * (dpt[4 * i + 1] - d.y));
+    ds[2 * i + 1] = pack_bf16(pr[2] * (dpt[4 * i + 2] - d.x),
+                              pr[3] * (dpt[4 * i + 3] - d.y));
+  }
+}
+
+// One `dkdv_wgmma` work tile: 128 keys of one KV head and batch, numbered
+// key tile fastest, lowest (longest when causal) first.
+struct KvTile {
+  int k0, kvh, b, first;                    // first: the first query tile
+};
+
+__device__ __forceinline__ KvTile kv_tile(int w, int k_tiles, int kv_heads,
+                                          int causal) {
+  const int kt = w % k_tiles, hb = w / k_tiles;
+  KvTile t;
+  t.k0 = kt * kKvKeys;
+  t.kvh = hb % kv_heads;
+  t.b = hb / kv_heads;
+  t.first = causal ? t.k0 / kKvRows : 0;
+  return t;
+}
+
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+dkdv_wgmma(const __grid_constant__ CUtensorMap k_map,    // 128-row boxes
+         const __grid_constant__ CUtensorMap v_map,    // 128-row boxes
+         const __grid_constant__ CUtensorMap q_map,    // 64-row boxes
+         const __grid_constant__ CUtensorMap do_map,   // 64-row boxes
+         const float* __restrict__ lse, const float* __restrict__ delta,
+         bf16* __restrict__ dk, bf16* __restrict__ dv,
+         int* __restrict__ sched, int seq, int s_pad, int batch, int heads,
+         int kv_heads, int causal, float scale_log2, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  // mbarriers: k/v full and empty; per stage full and empty
+  __shared__ __align__(8) uint64_t bars[2 + 2 * kKvStages];
+  __shared__ int tile_slot;                 // the work tile k and v hold
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint8_t* base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t kv_full = smem_u32(&bars[0]);
+  const uint32_t kv_empty = smem_u32(&bars[1]);
+  const uint32_t full = smem_u32(&bars[2]);                // + 8 * stage
+  const uint32_t empty = smem_u32(&bars[2 + kKvStages]);
+  const int k_tiles = (seq + kKvKeys - 1) / kKvKeys;
+  const int n_qt = (seq + kKvRows - 1) / kKvRows;
+  const int group = heads / kv_heads;
+  const int work = k_tiles * kv_heads * batch;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, kConsumerWarps);
+    for (int st = 0; st < kKvStages; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int role = __shfl_sync(kFull, static_cast<int>(threadIdx.x) / 128, 0);
+  if (role == 0) {
+    // Producer: k and v of each work tile, then the group's query heads'
+    // q, dO, lse and D tiles through the ring.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int g = 0;                            // stages issued so far
+      for (int it = 0;; ++it) {
+        const int w = atomicAdd(sched, 1);
+        if (it > 0) mbar_wait(kv_empty, (it & 1) ^ 1);
+        tile_slot = w;
+        if (w >= work) {
+          mbar_arrive(kv_full);             // no more work: let them exit
+          break;
+        }
+        const KvTile t = kv_tile(w, k_tiles, kv_heads, causal);
+        mbar_expect_tx(kv_full, 2 * kKvTile);
+        tma_load(base, &k_map, kv_full, 0, t.kvh, t.k0, t.b);
+        tma_load(base + kKvTile, &v_map, kv_full, 0, t.kvh, t.k0, t.b);
+        for (int h = t.kvh * group; h < (t.kvh + 1) * group; ++h) {
+          const float* lse_h =
+              lse + (static_cast<long long>(t.b) * heads + h) * s_pad;
+          const float* delta_h =
+              delta + (static_cast<long long>(t.b) * heads + h) * s_pad;
+          for (int qt = t.first; qt < n_qt; ++qt, ++g) {
+            const int st = g % kKvStages;
+            const uint32_t bar = full + 8 * st;
+            if (g >= kKvStages)
+              mbar_wait(empty + 8 * st, ((g / kKvStages) & 1) ^ 1);
+            const uint32_t dst = base + kKvRing + st * kKvStage;
+            mbar_expect_tx(bar, 2 * kKvQ + 2 * kStatBytes);
+            tma_load(dst, &q_map, bar, 0, h, qt * kKvRows, t.b);
+            tma_load(dst + kKvQ, &do_map, bar, 0, h, qt * kKvRows, t.b);
+            bulk_load(dst + 2 * kKvQ, lse_h + qt * kKvRows, kStatBytes, bar);
+            bulk_load(dst + 2 * kKvQ + kStatBytes, delta_h + qt * kKvRows,
+                      kStatBytes, bar);
+          }
+        }
+      }
+      release_counter(sched);
+    }
+  } else {
+    // Consumer warpgroups 0 and 1: 64 keys each of every work tile.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = role - 1;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g4 = lane >> 2, t4 = lane & 3;
+    const uint32_t mine = kTurn0 + wg, theirs = kTurn0 + 1 - wg;
+    const uint32_t k_rows = base + wg * 64 * kRowBytes;
+    const uint32_t v_rows = k_rows + kKvTile;
+    float st_[32], dpt[32], dk_acc[32], dv_acc[32];
+    uint32_t p[16], ds[16];
+    int g = 0;                              // stages consumed so far
+    for (int it = 0;; ++it) {
+      mbar_wait(kv_full, it & 1);
+      const int w = __shfl_sync(
+          kFull, *reinterpret_cast<volatile int*>(&tile_slot), 0);
+      if (w >= work) break;
+      const KvTile t = kv_tile(w, k_tiles, kv_heads, causal);
+      // This thread's two keys (the accumulator fragment's g and g + 8).
+      const int key0 = t.k0 + wg * 64 + warp * 16 + g4, key1 = key0 + 8;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        dk_acc[i] = 0.f;
+        dv_acc[i] = 0.f;
+      }
+      turns_begin(wg, mine, theirs);
+      for (int h = 0; h < group; ++h) {
+        for (int qt = t.first; qt < n_qt; ++qt, ++g) {
+          const int sg = g % kKvStages;
+          const uint32_t q_tile = base + kKvRing + sg * kKvStage;
+          const uint32_t do_tile = q_tile + kKvQ;
+          const float* lse_s = reinterpret_cast<const float*>(
+              base_ptr + kKvRing + sg * kKvStage + 2 * kKvQ);
+          mbar_wait(full + 8 * sg, (g / kKvStages) & 1);
+          named_sync(mine);
+          wgmma_fence();
+          product_ss(st_, k_rows, q_tile);              // k·qᵀ
+          product_ss(dpt, v_rows, do_tile);             // v·dOᵀ
+          wgmma_commit();
+          named_arrive(theirs);
+          wgmma_wait<0>();
+          fence_regs(st_);
+          fence_regs(dpt);
+          dkdv_grad(st_, dpt, p, ds, lse_s, lse_s + kStatBytes / 4,
+                    (causal && qt < t.first + 2)
+                        || (qt + 1) * kKvRows > seq,
+                    qt * kKvRows, t4, key0, key1, seq, causal, scale_log2);
+          named_sync(mine);
+          wgmma_fence();
+          product_rs(dv_acc, p, do_tile);               // dv += Pᵀ·dO
+          product_rs(dk_acc, ds, q_tile);               // dk += dSᵀ·q
+          wgmma_commit();
+          named_arrive(theirs);
+          wgmma_wait<0>();
+          fence_regs(dv_acc);
+          fence_regs(dk_acc);
+          fence_regs(p);
+          fence_regs(ds);
+          mbar_arrive_lane0(empty + 8 * sg, lane);     // stage sg is free
+        }
+      }
+      turns_end(wg, mine, theirs);
+      mbar_arrive_lane0(kv_empty, lane);               // k, v read: refill
+
+      const long long k_stride = static_cast<long long>(kv_heads) * 64;
+      const long long at = static_cast<long long>(t.b) * seq * k_stride
+                           + t.kvh * 64 + 2 * t4;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (key0 < seq) {
+          *reinterpret_cast<uint32_t*>(dk + at + key0 * k_stride + 8 * i) =
+              pack_bf16(dk_acc[4 * i] * scale, dk_acc[4 * i + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + at + key0 * k_stride + 8 * i) =
+              pack_bf16(dv_acc[4 * i], dv_acc[4 * i + 1]);
+        }
+        if (key1 < seq) {
+          *reinterpret_cast<uint32_t*>(dk + at + key1 * k_stride + 8 * i) =
+              pack_bf16(dk_acc[4 * i + 2] * scale, dk_acc[4 * i + 3] * scale);
+          *reinterpret_cast<uint32_t*>(dv + at + key1 * k_stride + 8 * i) =
+              pack_bf16(dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
+        }
+      }
+    }
+  }
+}
+
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const float* lse,
+                        void* dq, void* dk, void* dv, float* delta,
+                        const long long* q_geom, const long long* k_geom,
+                        int s_pad, int causal, float scale_log2, float scale,
+                        int ctas_dq, int ctas_dkdv, int* sched,
+                        cudaStream_t stream) {
+  const int seq = static_cast<int>(q_geom[2]);
+  if (q_geom[0] != D || k_geom[0] != D || s_pad % kDqRows != 0
+      || s_pad < seq || ctas_dq < 1 || ctas_dkdv < 1)
+    return cudaErrorInvalidValue;
+  // dO is laid out as q, and v as k (the wrapper checks both).
+  CUtensorMap q128, do128, k64, v64, k128, v128, q64, do64;
+  cudaError_t err = encode_map(&q128, q, q_geom, kDqRows);
+  if (err == cudaSuccess) err = encode_map(&do128, dout, q_geom, kDqRows);
+  if (err == cudaSuccess) err = encode_map(&k64, k, k_geom, kDqKeys);
+  if (err == cudaSuccess) err = encode_map(&v64, v, k_geom, kDqKeys);
+  if (err == cudaSuccess) err = encode_map(&k128, k, k_geom, kKvKeys);
+  if (err == cudaSuccess) err = encode_map(&v128, v, k_geom, kKvKeys);
+  if (err == cudaSuccess) err = encode_map(&q64, q, q_geom, kKvRows);
+  if (err == cudaSuccess) err = encode_map(&do64, dout, q_geom, kKvRows);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        dq_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        dkdv_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kKvSmem);
+  if (err != cudaSuccess) return err;
+  const int batch = static_cast<int>(q_geom[3]);
+  const int heads = static_cast<int>(q_geom[1]);
+  const int kv_heads = static_cast<int>(k_geom[1]);
+  // dq first: it writes D, which the second launch reads.
+  dq_wgmma<<<ctas_dq, kThreadsBf16, kDqSmem, stream>>>(
+      q128, do128, k64, v64, static_cast<const bf16*>(o),
+      static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq),
+      sched, seq, s_pad, batch, heads, kv_heads, causal, scale_log2, scale);
+  dkdv_wgmma<<<ctas_dkdv, kThreadsBf16, kKvSmem, stream>>>(
+      k128, v128, q64, do64, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), sched, seq, s_pad, batch, heads, kv_heads,
+      causal, scale_log2, scale);
   return cudaGetLastError();
 }
 
@@ -810,22 +1008,32 @@ extern "C" {
 
 // dq, dk, dv of o = attention(q, k, v): q, o, dout and dq (batch, seq,
 // heads, 64), k, v, dk and dv (batch, seq, kv_heads, 64), all contiguous
-// and of one dtype (`is_bf16`: bf16, else float32); `lse` and `delta`
-// are (batch, heads, seq) float32 scratch. `scale_log2` is log2(e)/√64 and
-// `scale` 1/√64.
+// and of one dtype (`is_bf16`: bf16, else float32); `lse` the forward's
+// (batch, heads, s_pad) float32 logsumexp in natural units, s_pad = seq
+// rounded up to 128, and `delta` (batch, heads, s_pad) float32 scratch.
+// `scale_log2` is log2(e)/√64 and `scale` 1/√64. bf16 only: `q_geom` and
+// `k_geom` are the tensor maps' (64, heads, seq, batch) and byte strides of
+// q (and dO) and of k (and v); `ctas_dq` and `ctas_dkdv` persistent CTAs
+// take the two launches' work tiles from `sched`, two ints that are 0
+// before the launches and 0 after each.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
-                               const void* o, const void* dout, void* dq,
-                               void* dk, void* dv, float* lse, float* delta,
-                               int batch, int seq, int heads, int kv_heads,
-                               int causal, int is_bf16, float scale_log2,
-                               float scale, cudaStream_t stream) {
+                               const void* o, const void* dout,
+                               const float* lse, void* dq, void* dk,
+                               void* dv, float* delta,
+                               const long long* q_geom,
+                               const long long* k_geom, int batch, int seq,
+                               int heads, int kv_heads, int s_pad, int causal,
+                               int is_bf16, float scale_log2, float scale,
+                               int ctas_dq, int ctas_dkdv, int* sched,
+                               cudaStream_t stream) {
   if (is_bf16)
-    return static_cast<int>(launch_mma(q, k, v, o, dout, dq, dk, dv, lse,
-                                       delta, batch, seq, heads, kv_heads,
-                                       causal, scale_log2, scale, stream));
-  return static_cast<int>(launch_f32(q, k, v, o, dout, dq, dk, dv, lse,
-                                     delta, batch, seq, heads, kv_heads,
-                                     causal, scale_log2, scale, stream));
+    return static_cast<int>(launch_bf16(
+        q, k, v, o, dout, lse, dq, dk, dv, delta, q_geom, k_geom, s_pad,
+        causal, scale_log2, scale, ctas_dq, ctas_dkdv, sched, stream));
+  return static_cast<int>(launch_f32(q, k, v, o, dout, lse, dq, dk, dv,
+                                     delta, batch, seq, s_pad, heads,
+                                     kv_heads, causal, scale_log2, scale,
+                                     stream));
 }
 
 const char* flash_attention_bwd_error_string(int status) {

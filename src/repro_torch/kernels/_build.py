@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 `ctypes`. Nothing is built when a module is imported: the first `load` of a
 source builds its library. Each source has its own lock, so `load` called
 from several threads runs one ``nvcc`` per source, all at once. Libraries
-are named by a hash of their source and flags, so an edited source is
-rebuilt and an unchanged one is reused; `build_log` reads the compiler's
+are named by a hash of their source, the shared headers ``csrc/*.cuh``
+and the flags, so an edited source or header is rebuilt and an unchanged
+one is reused; `build_log` reads the compiler's
 report (registers, shared memory) of the built library. Every C entry
 point returns ``cudaGetLastError()`` after its launches; `check` raises on
 a non-zero status.
@@ -79,7 +80,11 @@ def sources() -> List[str]:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    every shared header ``csrc/*.cuh`` (a source may include any) and the
+    flags."""
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

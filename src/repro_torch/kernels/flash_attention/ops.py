@@ -5,6 +5,13 @@ versions (`ref.attention_ref`, `ref.attention_bwd_ref`) for CPU ones.
 `flash_attention` is a `torch.autograd.Function`: its backward is the
 backward kernel on the card and the plain backward on the CPU.
 
+Where a gradient is wanted the forward also keeps each row's logsumexp of
+its scaled, masked scores, `lse` (B, H, S) float32 in natural units
+(`flash_attention_fwd`): the backward takes P = exp(q·kᵀ/√dh − lse) from
+it. On the card the kernels keep it in a (B, H, `lse_rows(S)`) buffer, S
+rounded up to the 128-row tile, and `lse` is a view of its first S
+columns.
+
 Tensors are in the model stack's (B, S, H, dh) layout, as in the JAX
 package's ``kernels/flash_attention/ops.py``. v may have a head dim dv of
 its own (MLA's prefill: q·k at 192, v at 128), as the reference's
@@ -46,10 +53,10 @@ def _lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     geom = ctypes.POINTER(ctypes.c_longlong)
     lib.flash_attention_bf16_launch.argtypes = [
-        ptr, ptr, ptr, ptr, geom, geom, geom, i32, i32, i32, ctypes.c_float,
-        i32, ptr, i32, ptr]
+        ptr, ptr, ptr, ptr, ptr, i32, geom, geom, geom, i32, i32, i32,
+        ctypes.c_float, i32, ptr, i32, ptr]
     lib.flash_attention_f32_launch.argtypes = [
-        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
         ctypes.c_float, ptr]
     for fn in (lib.flash_attention_bf16_launch,
                lib.flash_attention_f32_launch):
@@ -175,13 +182,23 @@ def _heads_first(*tensors):
     return [t.transpose(1, 2) for t in tensors]
 
 
+def lse_rows(s: int) -> int:
+    """Columns of the kernels' (B, H, ·) logsumexp and D buffers: S rounded
+    up to the bf16 kernels' 128-row tiles, so each tile's rows are written
+    and read whole."""
+    return -(-s // TILE_Q) * TILE_Q
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             causal: bool) -> torch.Tensor:
-    """The forward kernel on CUDA tensors, the plain version on CPU
-    ones."""
+             causal: bool, with_lse: bool = False):
+    """The forward kernel on CUDA tensors, the plain version on CPU ones:
+    o, or (o, lse) with `with_lse`."""
     if not _on_card(q, k, v):
-        return ref.attention_ref(*_heads_first(q, k, v),
-                                 causal).transpose(1, 2)
+        out = ref.attention_ref(*_heads_first(q, k, v), causal,
+                                return_lse=with_lse)
+        if with_lse:
+            return out[0].transpose(1, 2), out[1]
+        return out.transpose(1, 2)
     _check(q, k, v)
     b, s, h, dh = q.shape
     dv = v.shape[3]
@@ -189,6 +206,10 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale_log2 = math.log2(math.e) / math.sqrt(dh)
     with torch.cuda.device(q.device):
         out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
+        lse = (torch.empty((b, h, lse_rows(s)), dtype=torch.float32,
+                           device=q.device) if with_lse else None)
+        lse_ptr = lse.data_ptr() if with_lse else None
+        stride = lse_rows(s)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if q.dtype == torch.bfloat16:
             plan = bf16_launch_plan(q, k, v, _sm_count(q.device.index))
@@ -196,18 +217,27 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      for name in ("q_geom", "k_geom", "v_geom")]
             status = lib.flash_attention_bf16_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                *geoms, dh, dv, int(causal), scale_log2, plan["ctas"],
-                _work_counter(q.device, stream).data_ptr(),
+                lse_ptr, stride, *geoms, dh, dv, int(causal), scale_log2,
+                plan["ctas"], _work_counter(q.device, stream).data_ptr(),
                 plan["smem_bytes"], stream)
         else:
             status = lib.flash_attention_f32_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, s, h, k.shape[2], dh, dv, int(causal), scale_log2,
-                stream)
+                lse_ptr, stride, b, s, h, k.shape[2], dh, dv, int(causal),
+                scale_log2, stream)
     _build.check(status, lib.flash_attention_error_string,
                  "flash_attention")
     launches.bump()
-    return out
+    return (out, lse[:, :, :s]) if with_lse else out
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True):
+    """(o, lse): `flash_attention`'s output and each row's logsumexp of
+    its scaled, masked scores, (B, H, S) float32 in natural units (on the
+    card a view of the kernel's (B, H, `lse_rows(S)`) buffer). One launch
+    of the forward kernel on CUDA tensors; not differentiable."""
+    return _forward(q, k, v, causal, with_lse=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -215,9 +245,11 @@ def _bwd_lib() -> ctypes.CDLL:
     """The built backward kernel library, its C signature bound once."""
     lib = _build.load("flash_attention_bwd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    geom = ctypes.POINTER(ctypes.c_longlong)
     lib.flash_attention_bwd_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-        i32, i32, i32, ctypes.c_float, ctypes.c_float, ptr]
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, geom, geom, i32,
+        i32, i32, i32, i32, i32, i32, ctypes.c_float, ctypes.c_float, i32,
+        i32, ptr, ptr]
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -234,16 +266,56 @@ def check_backward(head_dim: int, v_dim: int) -> None:
             f"are queued in ROADMAP.md")
 
 
+# The bf16 backward's two persistent launches (csrc/flash_attention_bwd.cu):
+# dq over work tiles of BWD_DQ_ROWS query rows of one head, dk and dv over
+# work tiles of BWD_DKDV_KEYS keys of one KV head; each one CTA an SM up to
+# its work, with the forward's 384 threads.
+BWD_DQ_ROWS = 128
+BWD_DKDV_KEYS = 128
+
+
+def bwd_launch_plan(q: torch.Tensor, k: torch.Tensor, sms: int) -> dict:
+    """The bf16 backward's launches on a card of `sms` SMs: each kernel's
+    work tiles and persistent CTAs, the columns of its lse and D buffers,
+    and the tensor maps of q (and dO, laid out as q) and of k (and v)."""
+    b, s, h, _ = q.shape
+    dq_work = -(-s // BWD_DQ_ROWS) * h * b
+    dkdv_work = -(-s // BWD_DKDV_KEYS) * k.shape[2] * b
+    return {"dq_work": dq_work, "dq_ctas": min(dq_work, sms),
+            "dkdv_work": dkdv_work, "dkdv_ctas": min(dkdv_work, sms),
+            "threads": BF16_THREADS, "s_pad": lse_rows(s),
+            "q_geom": tensor_map_geometry(q),
+            "k_geom": tensor_map_geometry(k)}
+
+
+def _check_lse(lse, b: int, h: int, s: int, device) -> None:
+    """Raise unless `lse` is what the backward kernel reads: a float32
+    (B, H, S) tensor on `device` whose rows lie `lse_rows(S)` apart from a
+    16-byte aligned start, as `flash_attention_fwd` returns it."""
+    pad = lse_rows(s)
+    if lse is None or tuple(lse.shape) != (b, h, s) \
+            or lse.dtype != torch.float32 or lse.device != device \
+            or lse.stride() != (h * pad, pad, 1) or lse.data_ptr() % 16:
+        got = None if lse is None else (tuple(lse.shape), lse.dtype,
+                                        lse.stride())
+        raise ValueError(
+            f"flash_attention_bwd on the card needs the forward's lse "
+            f"(flash_attention_fwd): a float32 (B, H, S) = {(b, h, s)} "
+            f"tensor on {device} with rows {pad} apart, got {got}")
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
-                        causal: bool = True):
+                        causal: bool = True, lse=None):
     """The gradient of `flash_attention`: (dq, dk, dv) in the inputs'
-    dtype, given its output o (B,S,H,dv) and dL/do. The backward kernel on
-    CUDA tensors ((dh, dv) = (64, 64), bf16 or float32; three launches,
-    one stream, counted once), `ref.attention_bwd_ref` on CPU ones."""
+    dtype, given its output o (B,S,H,dv), its rows' logsumexp `lse`
+    (B,H,S) from `flash_attention_fwd`, and dL/do. The backward kernel on
+    CUDA tensors ((dh, dv) = (64, 64); bf16: two launches on one stream,
+    float32: three; counted once), where a missing or mis-shaped lse
+    raises; `ref.attention_bwd_ref` on CPU ones (with `lse` if given)."""
     if not _on_card(q, k, v, o, do):
         dq, dk, dv = ref.attention_bwd_ref(*_heads_first(q, k, v, o, do),
-                                           causal)
+                                           causal, lse=lse)
         return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
     _check(q, k, v)
     b, s, h, dh = q.shape
@@ -251,21 +323,28 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     do = do.contiguous()
     for name, t in (("o", o), ("do", do)):
         if t.shape != (b, s, h, v.shape[3]) or t.dtype != q.dtype \
-                or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {q.dtype} "
-                             f"(B,S,H,dv), got {tuple(t.shape)} {t.dtype}")
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"{q.dtype} (B,S,H,dv), got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    _check_lse(lse, b, h, s, q.device)
     lib = _bwd_lib()
+    plan = bwd_launch_plan(q, k, _sm_count(q.device.index))
+    geoms = [(ctypes.c_longlong * 7)(*plan[name])
+             for name in ("q_geom", "k_geom")]
     with torch.cuda.device(q.device):
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        stats = torch.empty((2, b, h, s), dtype=torch.float32,
+        delta = torch.empty((b, h, plan["s_pad"]), dtype=torch.float32,
                             device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
         status = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats[0].data_ptr(), stats[1].data_ptr(), b, s, h, k.shape[2],
-            int(causal), int(q.dtype == torch.bfloat16),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), *geoms, b, s, h, k.shape[2],
+            plan["s_pad"], int(causal), int(q.dtype == torch.bfloat16),
             math.log2(math.e) / math.sqrt(dh), 1.0 / math.sqrt(dh),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            plan["dq_ctas"], plan["dkdv_ctas"],
+            _work_counter(q.device, stream).data_ptr(), stream)
     _build.check(status, lib.flash_attention_bwd_error_string,
                  "flash_attention_bwd")
     bwd_launches.bump()
@@ -277,19 +356,23 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        """o of the forward kernel (or its plain version), q, k, v and o
-        kept for the backward."""
-        o = _forward(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, o)
+        """o of the forward kernel (or its plain version); where an input
+        needs a gradient, its lse too, kept with q, k, v and o for the
+        backward."""
+        if any(ctx.needs_input_grad[:3]):
+            o, lse = _forward(q, k, v, causal, with_lse=True)
+        else:
+            o, lse = _forward(q, k, v, causal), None
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        """dq, dk, dv by `flash_attention_bwd`."""
-        q, k, v, o = ctx.saved_tensors
-        return (*flash_attention_bwd(q, k, v, o, do, causal=ctx.causal),
-                None)
+        """dq, dk, dv by `flash_attention_bwd` from the forward's lse."""
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, o, do, causal=ctx.causal,
+                                     lse=lse), None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

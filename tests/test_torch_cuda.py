@@ -1428,27 +1428,60 @@ def test_moe_prefill_on_the_card_matches_cpu(card, layout):
 # sums (BF16_RTOL) plus what those roundings move
 # (chip_smoke.BWD_BF16_ATOL).
 BWD_BF16_ATOL = 2e-2
+# The forward kernel's lse against the plain lse of the same inputs in
+# float32: both sum the same products in float32, in other orders, and the
+# kernel's exp2 is the hardware's approximation (chip_smoke.LSE_TOL).
+LSE_TOL = 2e-5
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,s,h,kv", [(2, 200, 4, 2), (1, 333, 3, 3),
-                                      (2, 64, 6, 1)])
+                                      (2, 64, 6, 1), (1, 1, 2, 1)])
+def test_flash_attention_forward_lse_matches_plain(card, b, s, h, kv, causal,
+                                                   dtype):
+    """`flash_attention_fwd`'s lse, a (B, H, S) view of the kernel's
+    (B, H, lse_rows(S)) buffer, against the plain lse within LSE_TOL abs +
+    rel; its o bitwise the o of a launch that stores no lse."""
+    g = torch.Generator(device=card).manual_seed(s + h)
+    q = torch.randn(b, s, h, 64, generator=g, device=card).to(dtype)
+    k = torch.randn(b, s, kv, 64, generator=g, device=card).to(dtype)
+    v = torch.randn(b, s, kv, 64, generator=g, device=card).to(dtype)
+    o, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal)
+    o2 = fa_ops.flash_attention(q, k, v, causal=causal)
+    _, want = fa_ref.attention_ref(*(x.float().transpose(1, 2) for x in
+                                     (q, k, v)), causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    assert lse.stride() == (h * fa_ops.lse_rows(s), fa_ops.lse_rows(s), 1)
+    assert torch.equal(o, o2)
+    torch.testing.assert_close(lse, want, atol=LSE_TOL, rtol=LSE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,s,h,kv", [(2, 200, 4, 2), (1, 333, 3, 3),
+                                      (2, 64, 6, 1), (1, 130, 6, 6),
+                                      (1, 257, 12, 2)])
 def test_flash_attention_bwd_kernel_matches_plain(card, b, s, h, kv, causal,
                                                   dtype):
-    """dq, dk and dv of the backward kernel against the plain backward in
-    float32 from the same inputs (bf16 within BWD_BF16_ATOL + 2^-7
-    |plain|, float32 within 2e-5 abs + rel); two calls bitwise equal."""
+    """dq, dk and dv of the backward kernel, given the forward's lse,
+    against the plain backward in float32 from the same inputs (bf16
+    within BWD_BF16_ATOL + 2^-7 |plain|, float32 within 2e-5 abs + rel);
+    two calls bitwise equal. The shapes reach the grid's edges: S not a
+    multiple of the 64- and 128-row tiles, H/KV of 1, 2, 3 and 6."""
     g = torch.Generator(device=card).manual_seed(s + h)
     q = torch.randn(b, s, h, 64, generator=g, device=card).to(dtype)
     k = torch.randn(b, s, kv, 64, generator=g, device=card).to(dtype)
     v = torch.randn(b, s, kv, 64, generator=g, device=card).to(dtype)
     do = torch.randn(b, s, h, 64, generator=g, device=card).to(dtype)
-    o = fa_ops.flash_attention(q, k, v, causal=causal)
+    o, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal)
     before = fa_ops.bwd_launches.count
-    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
-    again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                       lse=lse)
     plain = fa_ref.attention_bwd_ref(*(x.float().transpose(1, 2) for x in
                                        (q, k, v, o, do)), causal)
     torch.cuda.synchronize()
@@ -1465,14 +1498,36 @@ def test_flash_attention_bwd_kernel_matches_plain(card, b, s, h, kv, causal,
 
 
 @pytest.mark.cuda
+def test_flash_attention_bwd_on_the_card_needs_the_lse(card):
+    """A missing lse, or one not laid out as the forward keeps it, raises
+    before any launch."""
+    q, k, v, do = (torch.randn(1, 200, 2, 64, device=card,
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = fa_ops.flash_attention_fwd(q, k, v)
+    before = fa_ops.bwd_launches.count
+    for bad in (None, lse[:, :1], lse.double(), lse.contiguous()):
+        with pytest.raises(ValueError, match="forward's lse"):
+            fa_ops.flash_attention_bwd(q, k, v, o, do, lse=bad)
+    assert fa_ops.bwd_launches.count == before
+    fa_ops.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    assert fa_ops.bwd_launches.count == before + 1
+
+
+@pytest.mark.cuda
 def test_flash_attention_gradient_on_the_card_is_the_kernel(card):
     """Autograd through `flash_attention` on CUDA tensors runs the backward
-    kernel once; other head dims raise, naming ROADMAP.md."""
+    kernel once, from the lse its forward kept; other head dims raise,
+    naming ROADMAP.md."""
     q, k, v = (torch.randn(1, 128, 2, 64, device=card, requires_grad=True)
                for _ in range(3))
     before = fa_ops.bwd_launches.count
-    fa_ops.flash_attention(q, k, v).sum().backward()
+    with mock.patch.object(fa_ops, "flash_attention_bwd",
+                           wraps=fa_ops.flash_attention_bwd) as bwd:
+        fa_ops.flash_attention(q, k, v).sum().backward()
     assert fa_ops.bwd_launches.count == before + 1
+    lse = bwd.call_args.kwargs["lse"]
+    _, want = fa_ops.flash_attention_fwd(*(x.detach() for x in (q, k, v)))
+    assert torch.equal(lse, want)
     q, k, v = (torch.randn(1, 128, 2, 128, device=card, dtype=torch.bfloat16,
                            requires_grad=True) for _ in range(3))
     with pytest.raises(ValueError, match="ROADMAP.md"):

@@ -4,8 +4,11 @@ the CPU, and dispatch by tensor device.
 flash_attention's plain version is held against the JAX package's kernel in
 interpret mode and against its ``backend="ref"`` at the reference's own
 tolerances (tests/test_kernels.py): atol = rtol = 2e-5 in float32, 2e-2 in
-bf16. The CUDA kernels themselves are
-held against their plain versions on the card (tests/test_torch_cuda.py)."""
+bf16. Its logsumexp (the forward's `lse`, which the backward takes) is
+held against `jax.nn.logsumexp` of the reference's masked, scaled scores.
+The CUDA kernels themselves are held against their plain versions on the
+card (tests/test_torch_cuda.py)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -307,6 +310,48 @@ def test_flash_attention_plain_ragged_matches_reference(s, causal):
                                   got.transpose(1, 2).numpy())
 
 
+# The plain lse against jax.nn.logsumexp of the reference's scores
+# (ref.attention_ref's einsum, scale and -1e30 mask), float32, from the same
+# numpy inputs: rtol 2e-6 (a few float32 ulps of the sum's log), and atol
+# 1e-6 for rows whose lse lies near 0 (causal row 0 is its one score, whose
+# 64-term dot products the two einsums sum in other orders).
+LSE_RTOL, LSE_ATOL = 2e-6, 1e-6
+
+
+@pytest.mark.parametrize("s", [77, 200])
+@pytest.mark.parametrize("h,kv", [(3, 3), (6, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_lse_matches_jax_logsumexp(s, h, kv, causal):
+    q, k, v = _qkv(2, s, h, kv, 64, s + h)
+    o, lse = fa_ref.attention_ref(
+        *(torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)), causal,
+        return_lse=True)
+    qg = jnp.asarray(q.transpose(0, 2, 1, 3)).reshape(2, kv, h // kv, s, 64)
+    scores = jnp.einsum("bkgqd,bkpd->bkgqp", qg,
+                        jnp.asarray(k.transpose(0, 2, 1, 3))) / 8.0
+    if causal:
+        scores = jnp.where(jnp.tril(jnp.ones((s, s), bool)), scores, -1e30)
+    want = jax.nn.logsumexp(scores, axis=-1).reshape(2, h, s)
+    assert lse.shape == (2, h, s) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want),
+                               rtol=LSE_RTOL, atol=LSE_ATOL)
+    np.testing.assert_array_equal(
+        o.numpy(), fa_ref.attention_ref(
+            *(torch.from_numpy(x).transpose(1, 2) for x in (q, k, v)),
+            causal).numpy())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_fwd_on_cpu_is_the_plain_o_and_lse(causal):
+    q, k, v = map(torch.from_numpy, _qkv(2, 50, 6, 2, 64, 3))
+    o, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal)
+    want_o, want_lse = fa_ref.attention_ref(
+        *(x.transpose(1, 2) for x in (q, k, v)), causal, return_lse=True)
+    assert torch.equal(o, want_o.transpose(1, 2))
+    assert torch.equal(lse, want_lse)
+    assert torch.equal(o, fa_ops.flash_attention(q, k, v, causal=causal))
+
+
 def test_flash_attention_cpu_never_touches_the_build(monkeypatch):
     def refuse(name):
         raise AssertionError(f"CPU path loaded the {name} kernel")
@@ -430,6 +475,68 @@ def test_flash_bf16_launch_plan(b, s, h, kv, dh):
                               2 * s * kv * dv)
     assert all(x % 16 == 0 for name in ("q_geom", "k_geom", "v_geom")
                for x in plan[name][4:])
+
+
+@pytest.mark.parametrize("b,s,h,kv", [
+    (4, 4096, 15, 5),      # smollm-360m training
+    (4, 4096, 24, 24),     # musicgen-medium training
+    (2, 1000, 12, 2),      # ragged S, GQA 6
+    (1, 1, 2, 1)])
+def test_flash_bwd_launch_plan(b, s, h, kv):
+    """The bf16 backward's two launches: dq over 128-row query tiles of
+    every head and batch, dk and dv over 128-key tiles of every KV head
+    and batch, each one CTA an SM up to its work, 384 threads; lse and D
+    in rows of S rounded up to 128; tensor maps of q and k from their
+    strides."""
+    q = torch.empty(b, s, h, 64, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(b, s, kv, 64, dtype=torch.bfloat16, device="meta")
+    plan = fa_ops.bwd_launch_plan(q, k, sms=132)
+    assert plan["dq_work"] == -(-s // 128) * h * b
+    assert plan["dkdv_work"] == -(-s // 128) * kv * b
+    assert plan["dq_ctas"] == min(plan["dq_work"], 132)
+    assert plan["dkdv_ctas"] == min(plan["dkdv_work"], 132)
+    assert plan["threads"] == 384
+    assert plan["s_pad"] == fa_ops.lse_rows(s) == -(-s // 128) * 128
+    assert plan["q_geom"] == fa_ops.tensor_map_geometry(q)
+    assert plan["k_geom"] == (64, kv, s, b, 128, 128 * kv, 128 * s * kv)
+
+
+def test_check_lse_takes_only_the_forwards_layout():
+    """The backward reads lse as rows lse_rows(S) apart: the forward's
+    (B, H, S) view of its (B, H, lse_rows(S)) buffer passes; a missing
+    lse, another shape or dtype, or rows S apart where S is not a
+    multiple of 128 raise."""
+    dev = torch.device("cpu")
+    view = torch.randn(2, 3, 256)[:, :, :200]
+    fa_ops._check_lse(view, 2, 3, 200, dev)
+    fa_ops._check_lse(torch.randn(2, 3, 256), 2, 3, 256, dev)
+    for bad in (None, view[:, :2], view.double(), view.contiguous(),
+                view[..., :199]):
+        with pytest.raises(ValueError, match="forward's lse"):
+            fa_ops._check_lse(bad, 2, 3, 200, dev)
+
+
+class _CudaLookingAny(_CudaLookingQKV):
+    """A stand-in CUDA tensor that `flash_attention_bwd` can make
+    contiguous."""
+
+    def contiguous(self):
+        return self
+
+
+def test_flash_attention_bwd_on_cuda_tensors_needs_the_lse(monkeypatch):
+    """CUDA tensors with no lse raise before any build or launch."""
+    def refuse(name):
+        raise AssertionError("built a kernel for a refused input")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(fa_ops, "_bwd_lib", fa_ops._bwd_lib.__wrapped__)
+    q = _CudaLookingAny((2, 100, 6, 64))
+    kv = _CudaLookingAny((2, 100, 2, 64))
+    before = fa_ops.bwd_launches.count
+    with pytest.raises(ValueError, match="forward's lse"):
+        fa_ops.flash_attention_bwd(q, kv, kv, q, q)
+    assert fa_ops.bwd_launches.count == before
 
 
 @pytest.mark.parametrize("which", ["q", "k", "v"])

@@ -399,6 +399,69 @@ def test_attention_bwd_ref_matches_autograd(shape, causal):
         torch.testing.assert_close(op, w, atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 37, 6, 2, 16, 16), (1, 20, 4, 4, 24,
+                                                           16)])
+def test_attention_bwd_ref_given_the_lse_matches_it_without(shape, causal):
+    """The plain backward with P = exp(scores − lse) from the forward's
+    lse against the same backward with its own softmax (float32,
+    atol = rtol = 1e-6: the two P differ by float32 rounding)."""
+    from repro_torch.kernels.flash_attention import ref
+    b, s, h, kv, dh, dv = shape
+    rng = np.random.default_rng(10)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               for sh in ((b, h, s, dh), (b, kv, s, dh), (b, kv, s, dv)))
+    do = torch.from_numpy(rng.standard_normal((b, h, s, dv)).astype(
+        np.float32))
+    o, lse = ref.attention_ref(q, k, v, causal, return_lse=True)
+    with_lse = ref.attention_bwd_ref(q, k, v, o, do, causal, lse=lse)
+    without = ref.attention_bwd_ref(q, k, v, o, do, causal)
+    for a, w in zip(with_lse, without):
+        torch.testing.assert_close(a, w, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("grad", [True, False])
+def test_flash_attention_keeps_the_lse_only_for_a_gradient(monkeypatch,
+                                                           grad):
+    """The autograd Function asks the forward for its lse only where an
+    input needs a gradient, and hands that lse to the backward; the
+    gradients equal autograd through the plain forward (float32,
+    atol = rtol = 2e-5)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .requires_grad_(grad)
+               for sh in ((1, 30, 4, 16), (1, 30, 2, 16), (1, 30, 2, 16)))
+    asked, given = [], []
+    plain_fwd, plain_bwd = ref.attention_ref, ref.attention_bwd_ref
+
+    def fwd(*a, return_lse=False):
+        asked.append(return_lse)
+        return plain_fwd(*a, return_lse=return_lse)
+
+    def bwd(*a, lse=None):
+        given.append(lse)
+        return plain_bwd(*a, lse=lse)
+
+    monkeypatch.setattr(ref, "attention_ref", fwd)
+    monkeypatch.setattr(ref, "attention_bwd_ref", bwd)
+    o = ops.flash_attention(q, k, v)
+    assert asked == [grad]
+    if not grad:
+        assert not o.requires_grad
+        return
+    do = torch.from_numpy(rng.standard_normal(o.shape).astype(np.float32))
+    got = torch.autograd.grad(o, (q, k, v), do)
+    _, lse = plain_fwd(*(t.detach().transpose(1, 2) for t in (q, k, v)),
+                       True, return_lse=True)
+    assert len(given) == 1 and torch.equal(given[0], lse)
+    want = torch.autograd.grad(
+        plain_fwd(*(t.transpose(1, 2) for t in (q, k, v)), True),
+        (q, k, v), do.transpose(1, 2))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5)
+
+
 # -- lm_batches ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("start", [0, 3])
