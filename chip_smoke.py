@@ -352,6 +352,32 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     threshold_select on the path); the AUC over the records no batch drew
     must reach PROXY_AUC, printed beside phase 7's random-init proxy's,
     with both queries' recall and oracle calls.
+23. Launch and sharding on a torch DeviceMesh. (a) nccl at world size 1,
+    a (1, 1) ("data", "model") mesh: smollm-360m at full width, its
+    `launch.sharding.param_specs`, a `CheckpointManager` checkpoint
+    restored onto the mesh (every parameter a DTensor whose full tensor
+    equals the plain restore's bit for bit), and a (4, 4096) prefill
+    with shard_activations under the mesh whose last-position logits
+    equal the prefill without a mesh bit for bit (32 flash_attention
+    launches each; with one rank a group no parallel path engages). (b)
+    Four gloo ranks on CUDA tensors sharing the card as a (2, 2) mesh,
+    spawned after the kernels are built, each join time-limited, each
+    data shard a (4, 4096) batch: `attention.context_parallel_attention`
+    at smollm-360m's (15/5, 64) and deepseek-v2's (128/128, (192, 128))
+    widths, one flash_attention launch a rank and shape (Sq 2048; Sk 2048
+    or 4096), the gathered rows equal to one launch over all rows bit for
+    bit, each rank's piece held against the plain version (plain
+    attention at Sk > Sq, by groups of heads at (192, 128); phase 5's
+    bf16 bars) and its launch timed alone beside that launch; `moe_apply`
+    expert-parallel at deepseek-v2's MoE widths (80 experts a model rank,
+    EP_TOKENS a data shard): its kept assignments those of the dense
+    `moe_apply` on the same shard, exactly, the output within
+    `EP_ROUNDINGS` bf16 roundings of |shared| + Σ g|y|, the aux loss the
+    dense shards' mean; `layers.matmul_rowparallel` at yi-6b's wo (4096 x
+    4096) within `ROW_ROUNDINGS` bf16 roundings of |x|·|w| of x·w in
+    float32. Then, in this process, the longest piece's launch at
+    smollm's shape beside its bound, the plain version and SDPA with a
+    lower-right causal mask (the kernels line's row).
 
 Each phase prints its wall time as it ends, and the line before the
 kernels line sums them.
@@ -359,8 +385,9 @@ kernels line sums them.
 The line before the last is ``{"kernels": [...]}`` (a row for each kernel:
 linear_scan's chunked kernel and its channel kernel each have one,
 flash_attention's dh-128 path one of its own at llama4's shape and its
-(192, 128) path one at deepseek-v2's, and its backward kernel one at
-smollm's shape, its launches phase 22's); the last line is
+(192, 128) path one at deepseek-v2's, its backward kernel one at
+smollm's shape, its launches phase 22's, and its context-parallel
+launches at Sk > Sq one, its launches phase 23's ranks'); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -429,9 +456,11 @@ from repro_torch.launch.fault import (LoopConfig,  # noqa: E402
                                       RestartRequired, TrainLoop)
 from repro_torch.launch.train import TrainOptions  # noqa: E402
 from repro_torch.launch.train import make_train_step  # noqa: E402
+from repro_torch.launch import sharding as shardlib  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.models import (attention, layers, mamba,  # noqa: E402
-                                moe, rwkv, transformer)
+                                meshctx, moe, rwkv, transformer)
 from repro_torch.models import model as modellib  # noqa: E402
 from repro_torch.serve import SelectionServer  # noqa: E402
 
@@ -1580,18 +1609,23 @@ def profile_call(fn, groups: dict, label: str) -> None:
 SDPA_FUSED = ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION")
 
 
-def fused_sdpa_ms(qt, kt, vt) -> float:
+def fused_sdpa_ms(qt, kt, vt, lower_right: bool = False) -> float:
     """ms of `scaled_dot_product_attention` (causal) on (B,H,S,d) tensors
     by its fastest fused backend: each backend alone (`sdpa_kernel`), its
-    time or its refusal printed. The math backend, which materializes the
-    S x S scores, is not among them; fails if none runs."""
+    time or its refusal printed. With `lower_right` the causal mask is
+    aligned bottom-right for Sk > Sq (`causal_lower_right`), as the
+    kernel aligns it. The math backend, which materializes the S x S
+    scores, is not among them; fails if none runs."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention.bias import causal_lower_right
+    kw = ({"attn_mask": causal_lower_right(qt.shape[2], kt.shape[2])}
+          if lower_right else {"is_causal": True})
     times = {}
     for name in SDPA_FUSED:
         try:
             with sdpa_kernel([getattr(SDPBackend, name)]):
                 times[name] = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True), 20)
+                    qt, kt, vt, **kw), 20)
         except RuntimeError as e:          # this backend takes no such input
             print(f"  scaled_dot_product_attention {name}: refused "
                   f"({str(e).strip().splitlines()[0][:120]})")
@@ -3603,10 +3637,14 @@ def plain_kept(ids: np.ndarray, num_experts: int, cap: int) -> np.ndarray:
     return kept.reshape(ids.shape)
 
 
-def moe_plain_f32(p, cfg, x, ids, gates, kept) -> torch.Tensor:
+def moe_plain_f32(p, cfg, x, ids, gates, kept,
+                  absolute: bool = False) -> torch.Tensor:
     """The MoE layer's output (n, d) in float32 for the routing (ids,
     gates, kept; each (n, k)), one expert at a time, each expert's weights
-    cast to float32 alone, plus the shared experts in float32."""
+    cast to float32 alone, plus the shared experts in float32; with
+    `absolute`, the sum of the terms' magnitudes instead (|shared| + Σ
+    g·|y|)."""
+    mag = torch.abs if absolute else (lambda t: t)
     xt = x.reshape(-1, cfg.d_model).float()
     out = torch.zeros_like(xt)
     for e in range(cfg.num_experts):
@@ -3615,11 +3653,12 @@ def moe_plain_f32(p, cfg, x, ids, gates, kept) -> torch.Tensor:
             continue
         xe = xt[tok]
         h = F.silu(xe @ p.w_gate[e].float()) * (xe @ p.w_up[e].float())
-        out.index_add_(0, tok, gates[tok, j, None] * (h @ p.w_down[e].float()))
+        out.index_add_(0, tok, gates[tok, j, None]
+                       * mag(h @ p.w_down[e].float()))
     if cfg.num_shared_experts:
         sh = p.shared
-        out += (F.silu(xt @ sh.w_gate.float()) * (xt @ sh.w_up.float())) \
-            @ sh.w_down.float()
+        out += mag((F.silu(xt @ sh.w_gate.float()) * (xt @ sh.w_up.float()))
+                   @ sh.w_down.float())
     return out
 
 
@@ -4281,6 +4320,377 @@ def proxy_phase(seed: int, card: str, random_init: dict,
     torch.cuda.empty_cache()
     return launches["flash_attention_bwd"]
 
+# -- phase 23 ------------------------------------------------------------------
+
+# Four gloo ranks share the card as a (2, 2) ("data", "model") mesh, each
+# data shard a (4, 4096) batch: context-parallel attention at smollm-360m's
+# (15/5 heads, 64) and deepseek-v2's MLA (128/128 heads, (192, 128)) widths,
+# the expert-parallel MoE at deepseek-v2's MoE widths (`DSV2_MOE`, 80
+# experts a model rank) on EP_TOKENS a data shard, and the row-parallel
+# matmul at yi-6b's wo on ROW_X a data shard.
+MESH_SHAPE = (2, 2)
+MESH_RANKS = 4
+MESH_JOIN_S = 300
+CP_SHAPES = (FA_PREFILL, FA_DSV2)
+EP_TOKENS = (2, 4096)
+ROW_X = (1, 4096, 4096)
+ROW_W = (4096, 4096)
+# The expert-parallel output against the dense `moe_apply` on the same data
+# shard, which keeps the same assignments in the same slots: the two differ
+# by bf16 roundings only. Each rank's partial adds its kept terms g·y in
+# bf16 (g rounded, each product and each add rounded: k + 2 roundings of
+# at most the token's T = |shared| + Σ g·|y|), the all-reduce of the m
+# partials rounds once more and the shared experts' add once, where the
+# dense path sums in float32 and rounds once: k + 5 bf16 unit roundoffs
+# (2^-8) of T. Beyond those, the two bmms (80 experts a batch against 160)
+# may accumulate g and u in another order, so that g, u and h round the
+# other way, which moves y by more than its own rounding where the down
+# projection's 1536 terms cancel. Measured against 13 roundings of T (T in
+# float32, `moe_plain_f32` with absolute terms): 0.8746 to 0.9197 on the
+# four ranks (--seed 0, H100 80GB HBM3 at 700 W). EP_ROUNDINGS is three
+# times that; a token sent to another expert's weights, or dropped, moves
+# its output by about T.
+EP_ROUNDINGS = 40
+# The row-parallel product against x·w in float32: each of the m = 2 local
+# products rounds to bf16 once and their sum once more, so each output
+# lies within ROW_ROUNDINGS bf16 unit roundoffs of (|x|·|w|) at that
+# output.
+ROW_ROUNDINGS = 2
+BF16_U = 2.0 ** -8
+
+
+def mesh_world_one(seed: int, card: str, root: pathlib.Path) -> None:
+    """Phase 23 (a): smollm-360m on a (1, 1) mesh on nccl at world size 1:
+    its specs, a checkpoint restored onto the mesh (each DTensor's full
+    tensor the plain restore's, bit for bit), and a (4, 4096) prefill with
+    shard_activations under the mesh, whose logits equal the prefill
+    without one bit for bit (with one rank a group no parallel path
+    engages)."""
+    from torch.distributed.tensor import DTensor
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(root / "mesh_nccl"), 1), rank=0, world_size=1,
+        device_id=torch.device(DEVICE, 0))
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+        cfg = get_config(ARCH)
+        model = init_model(cfg, seed)
+        specs = shardlib.param_specs(cfg, model, mesh)
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(root / "mesh_ckpt", cfg=cfg)
+        mgr.save(1, model)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain, _, _, _ = mgr.restore()
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_mesh, _, _, _ = mgr.restore(mesh=mesh, specs=specs)
+        mesh_s = time.perf_counter() - t0
+        want = dict(plain.named_parameters())
+        orig = dict(model.named_parameters())
+        n = 0
+        for name, p in on_mesh.named_parameters():
+            full = p.full_tensor()
+            check(isinstance(p.data, DTensor) and torch.equal(full, want[name])
+                  and torch.equal(full, orig[name]),
+                  f"{name}: the restore onto the mesh differs")
+            n += 1
+        print(f"{cfg.name} on a (1, 1) nccl mesh: specs of {len(specs)} "
+              f"parameters ({sum(any(e is not None for e in sp) for sp in specs.values())} "
+              f"name a mesh axis), a checkpoint saved in {save_s:.2f} s, "
+              f"restored plain in {plain_s:.2f} s and onto the mesh in "
+              f"{mesh_s:.2f} s: {n} DTensors whose full tensors equal the "
+              f"plain restore's and the saved model's bit for bit")
+        del plain, on_mesh, want
+        tokens = rand_tokens(cfg, FA_PREFILL[:2], torch.Generator(
+            device=DEVICE).manual_seed(seed + 91))
+        reset_counts(["flash_attention"])
+        logits = modellib.last_logits(model, tokens)
+        torch.cuda.synchronize()
+        plain_launches = fa_ops.launches.count
+        model.cfg = dataclasses.replace(cfg, shard_activations=True)
+        reset_counts(["flash_attention"])
+        with meshctx.mesh_context(mesh):
+            on_mesh_logits = modellib.last_logits(model, tokens)
+        torch.cuda.synchronize()
+        launches = fa_ops.launches.count
+        model.cfg = cfg
+        check(plain_launches == launches == cfg.num_layers,
+              f"flash_attention launches {plain_launches}, {launches}")
+        check(torch.equal(logits, on_mesh_logits),
+              "the prefill under the (1, 1) mesh differs from the one "
+              "without a mesh")
+        print(f"{cfg.name} (4, 4096) prefill with shard_activations under "
+              f"the (1, 1) mesh: last-position logits equal the prefill "
+              f"without a mesh bit for bit; launches "
+              f"{{'flash_attention': {launches}}} ({card})")
+        del model
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def cp_piece(q, k, v, lo: int, hi: int) -> tuple:
+    """One model rank's context-parallel inputs: query rows [lo, hi) and
+    keys [0, hi)."""
+    return (q[:, lo:hi].contiguous(), k[:, :hi].contiguous(),
+            v[:, :hi].contiguous())
+
+
+def cp_piece_row(q, k, v, lo: int, hi: int, library: bool) -> dict:
+    """One model rank's context-parallel launch (`cp_piece`) timed alone
+    beside one launch over all rows and its bound; with `library` the
+    plain version's time and SDPA's (lower-right causal)."""
+    b, _, h, dh = q.shape
+    dv = v.shape[3]
+    piece = cp_piece(q, k, v, lo, hi)
+    rows = hi - lo
+    ms = device_ms(lambda: fa_ops.flash_attention(*piece), 20)
+    full_ms = device_ms(lambda: fa_ops.flash_attention(q, k, v), 20)
+    pairs = rows * lo + rows * (rows + 1) / 2
+    ops = 2.0 * b * h * pairs * (dh + dv)
+    moved = 2 * (sum(t.numel() for t in piece) + b * rows * h * dv)
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    row = {"ms": ms, "full_ms": full_ms, "sq": rows, "sk": hi,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if dh == dv and library:
+        row["plain_ms"] = cuda_ms(lambda: plain_attention(*piece), 3)
+        group = h // k.shape[2]
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (
+            piece[0], piece[1].repeat_interleave(group, dim=2),
+            piece[2].repeat_interleave(group, dim=2)))
+        row["library_ms"] = fused_sdpa_ms(qt, kt, vt, lower_right=True)
+    return row
+
+
+def _mesh_rank(rank: int, world: int, root: str, seed: int) -> None:
+    """One of the gloo ranks of phase 23's (2, 2) mesh on the card; writes
+    what it measured to ``mesh<r>.json``. Nothing is caught: a failed
+    check or launch ends the rank with an error."""
+    t_spawned = float((pathlib.Path(root) / "spawned").read_text())
+    root = pathlib.Path(root)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(root / "mesh_gloo"), world), rank=rank, world_size=world)
+    torch.zeros(1, device=DEVICE)
+    t_init = time.time()
+    try:
+        mesh = make_test_mesh(MESH_SHAPE, ("data", "model"))
+        d = mesh.get_local_rank("data")
+        m = mesh.get_local_rank("model")
+        m_size = MESH_SHAPE[1]
+        out = {"data": d, "model": m,
+               "steps_s": {"start": t_init - t_spawned}}
+
+        # context-parallel attention: the main path's launches
+        inputs = {shape: attention_inputs(shape, torch.bfloat16,
+                                          torch.Generator(device=DEVICE)
+                                          .manual_seed(seed + 61 + d))
+                  for shape in CP_SHAPES}
+        reset_counts(["flash_attention"])
+        t0 = time.perf_counter()
+        with meshctx.mesh_context(mesh):
+            cp = {shape: attention.context_parallel_attention(
+                *inputs[shape], m_size=m_size) for shape in CP_SHAPES}
+        torch.cuda.synchronize()
+        out["cp_s"] = time.perf_counter() - t0
+        out["launches"] = fa_ops.launches.count
+        out["cp"] = {}
+        for shape in CP_SHAPES:
+            q, k, v = inputs[shape]
+            full = fa_ops.flash_attention(q, k, v)
+            rows = q.shape[1] // m_size
+            entry = {"bitwise": torch.equal(cp[shape], full)}
+            del full
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for turn in range(world):    # held and timed alone, in turns
+                dist.barrier()
+                if turn == rank:
+                    lo, hi = m * rows, (m + 1) * rows
+                    entry["max_abs_err"] = hold_flash(
+                        *cp_piece(q, k, v, lo, hi), True,
+                        f"mesh rank {rank} context-parallel flash_attention "
+                        f"{shape} rows [{lo}, {hi}) keys [0, {hi})",
+                        plain_attention if q.shape[3] == v.shape[3]
+                        else plain_attention_by_heads)
+                    entry.update(cp_piece_row(q, k, v, lo, hi, False))
+                    torch.cuda.synchronize()
+            dist.barrier()
+            out["cp"][str(shape)] = entry
+            out["steps_s"][f"times at {shape}"] = time.perf_counter() - t1
+        out["steps_s"]["cp and its checks"] = time.perf_counter() - t0
+        del inputs, cp
+        torch.cuda.empty_cache()
+
+        # expert-parallel MoE
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(DSV2_MOE, shard_activations=True)
+        p = moe.init_moe(DSV2_MOE, generator=torch.Generator(device=DEVICE)
+                         .manual_seed(seed + 41), device=DEVICE)
+        xs = [torch.randn(*EP_TOKENS, cfg.d_model, device=DEVICE,
+                          generator=torch.Generator(device=DEVICE)
+                          .manual_seed(seed + 71 + i)).to(torch.bfloat16)
+              for i in range(MESH_SHAPE[0])]
+        x = xs[d]
+        dist.barrier()
+        out["steps_s"]["ep's weights"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with meshctx.mesh_context(mesh):
+            out_ep, aux_ep = moe.moe_apply(p, cfg, x, "softmax")
+        torch.cuda.synchronize()
+        out["ep_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dense = [moe.moe_apply(p, DSV2_MOE, xi, "softmax") for xi in xs]
+        out_d = dense[d][0]
+        aux_mean = sum(a for _, a in dense) / len(dense)
+        n, k = x.shape[0] * x.shape[1], cfg.num_experts_per_tok
+        ids, gates, _ = moe.top_k_routing(
+            layers.matmul(x.reshape(n, -1).float(), p.router), k, "softmax")
+        cap = moe.capacity(cfg, n)
+        e_loc = cfg.num_experts // m_size
+        kept = {}
+        for name, (order, _, _, keep) in (
+                ("dense", moe.dispatch(ids, cfg.num_experts, cap)),
+                ("ep", moe.local_dispatch(ids, m * e_loc, e_loc, cap))):
+            flat = torch.zeros(n * k, dtype=torch.bool, device=DEVICE)
+            flat[order] = keep
+            kept[name] = flat.reshape(n, k)
+        mine = (ids >= m * e_loc) & (ids < (m + 1) * e_loc)
+        check(torch.equal(kept["ep"], kept["dense"] & mine),
+              f"rank {rank}: the expert-parallel kept set differs")
+        terms = moe_plain_f32(p, DSV2_MOE, x, ids, gates, kept["dense"],
+                              absolute=True)
+        diff = (out_ep.reshape(n, -1).float()
+                - out_d.reshape(n, -1).float()).abs()
+        out["ep_ratio"] = float((diff / (EP_ROUNDINGS * BF16_U * terms
+                                         + 1e-30)).max())
+        out["ep_max_abs"] = float(diff.max())
+        out["ep_kept"] = int(kept["ep"].sum())
+        out["ep_cap"] = cap
+        out["aux"] = (float(aux_ep), float(aux_mean))
+        check(out["ep_ratio"] <= 1.0 and bool(torch.isfinite(out_ep).all()),
+              f"rank {rank}: expert-parallel output {out['ep_ratio']:.4g} of "
+              "its bar")
+        check(abs(float(aux_ep) - float(aux_mean))
+              <= 1e-6 * abs(float(aux_mean)),
+              f"rank {rank}: aux {float(aux_ep)} vs {float(aux_mean)}")
+        del p, xs, x, dense, out_ep, out_d, terms, diff
+        torch.cuda.empty_cache()
+        out["steps_s"]["ep's check"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # the row-parallel matmul at yi-6b's wo
+        row_cfg = dataclasses.replace(get_config("yi-6b"),
+                                      shard_activations=True)
+        w = (torch.randn(*ROW_W, device=DEVICE, generator=torch.Generator(
+            device=DEVICE).manual_seed(seed + 81)) / 64).to(torch.bfloat16)
+        x = torch.randn(*ROW_X, device=DEVICE, generator=torch.Generator(
+            device=DEVICE).manual_seed(seed + 83 + d)).to(torch.bfloat16)
+        with meshctx.mesh_context(mesh):
+            rp = layers.matmul_rowparallel(x, w, row_cfg)
+        whole = layers.matmul(x, w)
+        ref32 = x.float() @ w.float()
+        abs32 = x.float().abs() @ w.float().abs()
+        out["row_ratio"] = float(((rp.float() - ref32).abs()
+                                  / (ROW_ROUNDINGS * BF16_U * abs32
+                                     + 1e-30)).max())
+        out["row_vs_whole"] = float((rp.float() - whole.float()).abs().max())
+        check(out["row_ratio"] <= 1.0,
+              f"rank {rank}: row-parallel {out['row_ratio']:.4g} of its bar")
+        dist.barrier()
+        out["steps_s"]["row-parallel"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    (root / f"mesh{rank}.json").write_text(json.dumps(out))
+
+
+def mesh_phase(seed: int, card: str) -> dict:
+    """Phase 23: launch and sharding on torch DeviceMesh (see the module's
+    docstring). Returns the context-parallel row of the kernels line (its
+    launches, all ranks', from the main path's run; its times the longest
+    piece's at smollm-360m's shape, the last model rank's, timed in this
+    process; its max_abs_err the largest |kernel - plain| of every
+    rank's pieces at both shapes, each held to phase 5's bf16 bars)."""
+    with tempfile.TemporaryDirectory() as tmpdir:
+        root = pathlib.Path(tmpdir)
+        mesh_world_one(seed, card, root)
+        t0 = time.perf_counter()
+        (root / "spawned").write_text(repr(time.time()))
+        ctx = tmp.start_processes(_mesh_rank, args=(MESH_RANKS, str(root),
+                                                    seed),
+                                  nprocs=MESH_RANKS, join=False,
+                                  start_method="spawn")
+        deadline = time.monotonic() + MESH_JOIN_S
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                check(False, f"the mesh ranks did not end in {MESH_JOIN_S} s")
+        ranks = [json.loads((root / f"mesh{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+    wall = time.perf_counter() - t0
+    for r, got in enumerate(ranks):
+        check(got["launches"] == len(CP_SHAPES),
+              f"mesh rank {r} launched flash_attention {got['launches']} "
+              f"times, not {len(CP_SHAPES)}")
+        for shape, e in got["cp"].items():
+            check(e["bitwise"], f"mesh rank {r}: context-parallel attention "
+                  f"at {shape} differs from one launch over all rows")
+            extra = (f", plain {e['plain_ms']:.4f} ms, SDPA (lower-right "
+                     f"causal) {e['library_ms']:.4f} ms"
+                     if "plain_ms" in e else "")
+            print(f"mesh rank {r} (data {got['data']}, model {got['model']})"
+                  f" context-parallel attention at {shape}: one launch of "
+                  f"Sq {e['sq']}, Sk {e['sk']} in {e['ms']:.4f} ms (one "
+                  f"launch over the shard's rows {e['full_ms']:.4f} ms; "
+                  f"bound {e['bound_ms']:.4f} "
+                  f"ms, {e['bound_by']}{extra}); held against the plain "
+                  f"version, max |kernel - plain| {e['max_abs_err']:.4g}; "
+                  f"gathered rows == the full launch bit for bit")
+        print(f"mesh rank {r}: expert-parallel MoE in {got['ep_s']:.3f} s, "
+              f"capacity {got['ep_cap']}, {got['ep_kept']} kept assignments "
+              f"== the dense path's on its experts; output within "
+              f"{got['ep_ratio']:.4g} of its bar ({EP_ROUNDINGS} bf16 "
+              f"roundings of |shared| + Σ g|y|), max |ep - dense| "
+              f"{got['ep_max_abs']:.4g}; aux {got['aux'][0]:.8g} vs the "
+              f"dense shards' mean {got['aux'][1]:.8g}; row-parallel wo "
+              f"within {got['row_ratio']:.4g} of its bar ({ROW_ROUNDINGS} "
+              f"bf16 roundings of |x|·|w|), max |row-parallel - whole| "
+              f"{got['row_vs_whole']:.4g}; launches {{'flash_attention': "
+              f"{got['launches']}}} in the main path; steps (s) "
+              + ", ".join(f"{k} {v:.2f}" for k, v in got["steps_s"].items())
+              + f" ({card})")
+    print(f"mesh ranks: {MESH_RANKS} gloo ranks on CUDA tensors as a "
+          f"{MESH_SHAPE} mesh, started, run and joined in {wall:.2f} s")
+    # the kernels line's times: the longest piece at smollm-360m's shape
+    # (the last model rank's), here in the main process
+    q, k, v = attention_inputs(FA_PREFILL, torch.bfloat16, torch.Generator(
+        device=DEVICE).manual_seed(seed + 61))
+    s, m_size = FA_PREFILL[1], MESH_SHAPE[1]
+    e = cp_piece_row(q, k, v, s - s // m_size, s, True)
+    print(f"context-parallel attention at {FA_PREFILL}, the last model "
+          f"rank's launch (Sq {e['sq']}, Sk {e['sk']}) in the main process: "
+          f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, SDPA "
+          f"(lower-right causal) {e['library_ms']:.4f} ms, bound "
+          f"{e['bound_ms']:.4f} ms ({e['bound_by']}) ({card})")
+    del q, k, v
+    return {"launches": sum(got["launches"] for got in ranks),
+            "max_abs_err": max(e["max_abs_err"] for got in ranks
+                               for e in got["cp"].values()),
+            **{key: e[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}}
+
+def cp_kernel_row(cp_row: dict) -> dict:
+    """The kernels line's row of context-parallel attention (phase 23)."""
+    return {"name": "flash_attention_cp", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:94 (a rank's query rows against "
+                        "the keys up to its last row, Sk > Sq)", **cp_row}
+
 
 class Phases:
     """Wall time of each phase, printed as it ends and summed at the end."""
@@ -4297,6 +4707,7 @@ class Phases:
         print(f"-- phase {name}: {self.walls[name]:.1f} s")
 
     def total(self) -> str:
+        """Every phase's wall time and their sum, on one line."""
         return ("phase wall s: " + ", ".join(
             f"{k} {v:.1f}" for k, v in self.walls.items())
             + f"; total {sum(self.walls.values()):.1f}")
@@ -4466,7 +4877,10 @@ def main() -> None:
         with phase(proxy_name):
             bwd_launches = proxy_phase(args.seed, card, random_init,
                                        root / "proxy")
-    for name in (bwd_name, music_name, proxy_name):
+    mesh_name = "23 launch and sharding on a DeviceMesh"
+    with phase(mesh_name):
+        cp_row = mesh_phase(args.seed, card)
+    for name in (bwd_name, music_name, proxy_name, mesh_name):
         print(f"phase {name.split()[0]} wall: {phase.walls[name]:.3f} s "
               f"({card})")
     print(phase.total())
@@ -4518,6 +4932,7 @@ def main() -> None:
                              "attention)",
                  "launches": bwd_launches, "max_abs_err": bwd_err,
                  **bwd_row})
+    rows.append(cp_kernel_row(cp_row))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

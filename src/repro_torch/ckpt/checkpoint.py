@@ -21,8 +21,14 @@ layout; bf16 arrays are written as numpy writes the reference's, raw
 2-byte words (``|V2``). A manager that knows the model's config (given,
 or taken from the model it saved) restores the port's model and
 optimizer state on its device; without one, the saved tree comes back
-with its leaves as tensors. Elastic restore onto a mesh (``mesh``,
-``specs``) waits for the mesh slice (ROADMAP §1).
+with its leaves as tensors. An elastic restore onto a ``DeviceMesh``
+(``mesh``, ``specs``: `launch.sharding.param_specs` of the model, or a
+tree of specs like the saved one) brings each parameter back as a DTensor
+placed by its spec; every rank reads the whole file and keeps its block,
+so nothing is sent, and each leaf's ``full_tensor()`` is the plain
+restore's, bit for bit (the reference's ``device_put`` onto
+``NamedSharding``). The optimizer state comes back whole, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.durable.atomic import publish_dir
+from repro_torch.launch import sharding
 from repro_torch.models import model as modellib
 from repro_torch.optim.adamw import AdamWState
 
@@ -81,10 +88,14 @@ class CheckpointManager:
         """(params, opt_state, step, extra) of `step` (the latest if None):
         the port's model and `AdamWState` where the manager knows the
         config, else the saved tree with tensors for leaves, on `device`
-        (the manager's if None; ``cuda`` if neither names one)."""
-        if mesh is not None or specs is not None:
-            raise NotImplementedError(
-                "restoring onto a mesh waits for the mesh slice (ROADMAP §1)")
+        (the manager's if None; ``cuda`` if neither names one). With a
+        ``DeviceMesh`` `mesh` and `specs` ({parameter name: spec} for a
+        model, else a tree of specs like the saved params; None or a
+        missing name: whole), everything is on the mesh's device type and
+        the parameters are DTensors placed by their specs."""
+        if (mesh is None) != (specs is None):
+            raise ValueError("a restore onto a mesh needs both mesh and "
+                             "specs")
         self._wait_async()
         step = self.latest_step() if step is None else step
         if step is None:
@@ -97,7 +108,14 @@ class CheckpointManager:
         leaves = iter([data[f"arr_{i}"]
                        for i in range(manifest["num_leaves"])])
         params, opt_state = _unflatten(manifest["treedef_repr"], leaves)
-        dev = resolve_device(self.device if device is None else device)
+        named = self.device if device is None else device
+        if mesh is None:
+            dev = resolve_device(named)
+        else:
+            dev = resolve_device(mesh.device_type)
+            if named is not None and torch.device(named).type != dev.type:
+                raise ValueError(f"a restore onto a {dev.type} mesh cannot "
+                                 f"put its leaves on {named}")
         if self.cfg is not None:
             params = modellib.params_from_reference(params, self.cfg,
                                                     device=dev)
@@ -112,6 +130,8 @@ class CheckpointManager:
         else:
             params, opt_state = (_to_tensors(t, dev)
                                  for t in (params, opt_state))
+        if mesh is not None:
+            params = _onto_mesh(params, specs, mesh)
         return params, opt_state, step, manifest.get("extra", {})
 
     def latest_step(self) -> Optional[int]:
@@ -207,6 +227,31 @@ def _to_tensors(tree, device):
         return type(tree)(*vals) if hasattr(tree, "_fields") \
             else type(tree)(vals)
     return modellib._tensor(tree, device)
+
+
+def _onto_mesh(params, specs, mesh):
+    """`params` (a model, or a tree of tensors) with each leaf a DTensor
+    on `mesh` placed by its spec in `specs`."""
+    if isinstance(params, nn.Module):
+        for name, p in list(params.named_parameters()):
+            owner, _, leaf = name.rpartition(".")
+            module = params.get_submodule(owner) if owner else params
+            spec = specs.get(name) or (None,) * p.ndim
+            setattr(module, leaf, nn.Parameter(
+                sharding.distribute(p.detach(), spec, mesh),
+                requires_grad=False))
+        return params
+    if isinstance(params, dict):
+        return {k: _onto_mesh(v, (specs or {}).get(k), mesh)
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        vals = [_onto_mesh(v, None if specs is None else specs[i], mesh)
+                for i, v in enumerate(params)]
+        return type(params)(*vals) if hasattr(params, "_fields") \
+            else type(params)(vals)
+    if params is None:
+        return None
+    return sharding.distribute(params, specs or (None,) * params.ndim, mesh)
 
 
 def _skeleton_repr(tree, leaves: list):

@@ -7,7 +7,16 @@
 // key >= S || (causal && key > row) at -1e30, an online softmax in log2
 // units with float32 (m, l, acc) state, and 1/max(l, 1e-30) at the end; o
 // is written in q's dtype. Layout is the model stack's: q (B,S,H,dh), k
-// (B,S,KV,dh), v (B,S,KV,dv) and o (B,S,H,dv). The TPU kernel takes
+// (B,Sk,KV,dh), v (B,Sk,KV,dv) and o (B,S,H,dv). k and v may have Sk >= S
+// rows (context parallelism: a rank's query rows against every key up to
+// its last row); query row i then sits at position Sk - S + i, aligned
+// bottom-right as FlashAttention 2 aligns it, so the causal mask is
+// key > Sk - S + row; the bf16 kernel asks (Sk - S) % 128 == 0 when
+// causal, so its diagonal tile stays the only masked one besides the
+// ragged last, and each row reads the same key tiles, in the same order,
+// as in a launch over all Sk rows (so the same bits). Launches with
+// Sk = S run an instance of their own in which the offset is 0 at compile
+// time, the code they ran before. The TPU kernel takes
 // dv = dh; (dh, dv) = (192, 128) is MLA's prefill (deepseek-v2: q·k over
 // 128 latent-decompressed and 64 rotary dims, v of 128), which the
 // reference's model computes in `chunked_causal_attention` with the same
@@ -226,20 +235,21 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 // rows row0 and row1: the row maxima m and sums l move on, s becomes
 // exp2(s · scale - m), and (c0, c1) are the factors the running output
 // must be scaled by (`rescale_pack`, once the product that reads it has
-// finished). With `mask` (the last tile, uniform), keys past S, or past
-// the row when causal, score -inf (weight 0); k0 is the tile's first key.
-// Every row keeps at least one key in every tile it reads.
+// finished). With `mask` (the last tile, uniform), keys past seq_k, or
+// past the row's position pos0 / pos1 when causal, score -inf (weight 0);
+// k0 is the tile's first key. Every row keeps at least one key in every
+// tile it reads.
 __device__ __forceinline__ void softmax_scores(
     float (&s)[64], float& m0, float& m1, float& l0, float& l1, float& c0,
-    float& c1, bool mask, int k0, int row0, int row1, int seq, int causal,
+    float& c1, bool mask, int k0, int pos0, int pos1, int seq_k, int causal,
     float scale_log2) {
   if (mask) {
     const int key0 = k0 + 2 * (threadIdx.x & 3);
 #pragma unroll
     for (int r = 0; r < 64; ++r) {
       const int key = key0 + 8 * (r >> 2) + (r & 1);
-      const int row = (r & 2) ? row1 : row0;
-      if (key >= seq || (causal && key > row)) s[r] = -CUDART_INF_F;
+      const int pos = (r & 2) ? pos1 : pos0;
+      if (key >= seq_k || (causal && key > pos)) s[r] = -CUDART_INF_F;
     }
   }
   float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
@@ -329,34 +339,43 @@ __device__ __forceinline__ void pv_product(float (&o)[DV / 2],
 
 // One work tile: 128 query rows of one head and batch. Tiles are numbered
 // query tile fastest, longest (highest) first, so the CTAs in flight share
-// a few heads' k and v in L2 and the short causal tiles come last.
+// a few heads' k and v in L2 and the short causal tiles come last. With
+// seq_k = seq + offset keys (offset a multiple of kTileK when causal),
+// query row i sits at position offset + i: a causal tile reads offset /
+// kTileK more key tiles, the last of them still its diagonal.
 struct WorkTile {
   int q0, h, b, kvh, n_tiles;
 };
 
 __device__ __forceinline__ WorkTile work_tile(int w, int q_tiles, int heads,
-                                              int kv_heads, int seq,
-                                              int causal) {
+                                              int kv_heads, int seq_k,
+                                              int offset, int causal) {
   const int qt = q_tiles - 1 - w % q_tiles, hb = w / q_tiles;
   WorkTile t;
   t.q0 = qt * kTileQ;
   t.h = hb % heads;
   t.b = hb / heads;
   t.kvh = t.h / (heads / kv_heads);
-  t.n_tiles = causal ? qt + 1 : (seq + kTileK - 1) / kTileK;
+  t.n_tiles = causal ? qt + 1 + offset / kTileK
+                     : (seq_k + kTileK - 1) / kTileK;
   return t;
 }
 
 // kLse: store each row's logsumexp into `lse` (an instance of its own,
-// so the launches that store none run the code they ran before).
-template <int DQK, int DV, bool kLse>
+// so the launches that store none run the code they ran before). kLong:
+// seq_k > seq keys, or any seq_k != seq; without it the offset is the
+// constant 0 and the key bound seq, so launches with as many keys as
+// queries run the code they ran before keys could be longer (a runtime
+// offset cost those 3-5% at the prefill shapes in a side-by-side run).
+template <int DQK, int DV, bool kLse, bool kLong>
 __global__ void __launch_bounds__(kThreadsBf16, 1)
 flash_bf16(const __grid_constant__ CUtensorMap q_map,
            const __grid_constant__ CUtensorMap k_map,
            const __grid_constant__ CUtensorMap v_map,
            __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-           int lse_stride, int* __restrict__ sched, int seq, int batch,
-           int heads, int kv_heads, int causal, float scale_log2) {
+           int lse_stride, int* __restrict__ sched, int seq, int seq_k,
+           int batch, int heads, int kv_heads, int causal,
+           float scale_log2) {
   using L = Layout<DQK, DV>;
   constexpr int kStages = L::kStages, kQStages = L::kQStages;
   extern __shared__ uint8_t smem_raw[];
@@ -372,6 +391,8 @@ flash_bf16(const __grid_constant__ CUtensorMap q_map,
   const uint32_t empty = smem_u32(&bars[4 + 2 * kStages]);
   const int q_tiles = (seq + kTileQ - 1) / kTileQ;
   const int work = q_tiles * heads * batch;
+  const int offset = kLong ? seq_k - seq : 0;   // query row i at offset + i
+  const int keys = kLong ? seq_k : seq;
 
   if (threadIdx.x == 0) {
     for (int qs = 0; qs < kQStages; ++qs) {
@@ -409,7 +430,7 @@ flash_bf16(const __grid_constant__ CUtensorMap q_map,
           break;
         }
         const WorkTile t =
-            work_tile(w, q_tiles, heads, kv_heads, seq, causal);
+            work_tile(w, q_tiles, heads, kv_heads, keys, offset, causal);
         const uint32_t q_dst = base + qs * L::kQBytes;
         mbar_expect_tx(qf, L::kQBytes);
         for (int c = 0; c < L::kQKBlocks; ++c)
@@ -462,9 +483,11 @@ flash_bf16(const __grid_constant__ CUtensorMap q_map,
       if (w >= work) break;
       const uint32_t q_rows = base + qs * L::kQBytes + wg * 64 * kRowBytes;
       const WorkTile t =
-          work_tile(w, q_tiles, heads, kv_heads, seq, causal);
-      // This thread's two rows (the accumulator fragment's g and g + 8).
+          work_tile(w, q_tiles, heads, kv_heads, keys, offset, causal);
+      // This thread's two rows (the accumulator fragment's g and g + 8),
+      // and their positions among the keys.
       const int row0 = t.q0 + wg * 64 + warp * 16 + g4, row1 = row0 + 8;
+      const int pos0 = row0 + offset, pos1 = row1 + offset;
 #pragma unroll
       for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
       float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, c0, c1;
@@ -479,8 +502,8 @@ flash_bf16(const __grid_constant__ CUtensorMap q_map,
       named_arrive(theirs);
       wgmma_wait<0>();
       fence_regs(s);
-      softmax_scores(s, m0, m1, l0, l1, c0, c1, t.n_tiles == 1, 0, row0,
-                     row1, seq, causal, scale_log2);
+      softmax_scores(s, m0, m1, l0, l1, c0, c1, t.n_tiles == 1, 0, pos0,
+                     pos1, keys, causal, scale_log2);
       rescale_pack<DV>(acc, p, s, c0, c1);
 
       // Steady state, one burst on the tensor cores a key tile: q·kᵀ of
@@ -502,7 +525,7 @@ flash_bf16(const __grid_constant__ CUtensorMap q_map,
         wgmma_wait<1>();                              // s of tile j + 1
         fence_regs(s);
         softmax_scores(s, m0, m1, l0, l1, c0, c1, j + 2 == t.n_tiles,
-                       (j + 1) * kTileK, row0, row1, seq, causal,
+                       (j + 1) * kTileK, pos0, pos1, keys, causal,
                        scale_log2);
         wgmma_wait<0>();                              // p·v of tile j
         fence_regs(acc);
@@ -555,10 +578,12 @@ flash_bf16(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// Keys a float32 query tile reads: up to the diagonal when causal.
-__device__ __forceinline__ int key_tiles(int qt, int seq, int causal,
-                                         int bk) {
-  const int last = causal ? min(seq - 1, (qt + 1) * kBQ - 1) : seq - 1;
+// Keys a float32 query tile reads: up to the diagonal when causal (query
+// row i at position offset + i).
+__device__ __forceinline__ int key_tiles(int qt, int seq_k, int offset,
+                                         int causal, int bk) {
+  const int last = causal ? min(seq_k - 1, (qt + 1) * kBQ - 1 + offset)
+                          : seq_k - 1;
   return last / bk + 1;
 }
 
@@ -566,8 +591,8 @@ template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads32)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ o,
-          float* __restrict__ lse, int lse_stride, int seq, int heads,
-          int kv_heads, int causal, float scale_log2) {
+          float* __restrict__ lse, int lse_stride, int seq, int seq_k,
+          int heads, int kv_heads, int causal, float scale_log2) {
   constexpr int kPerQ = DQK / 4;        // dims a thread holds: part + 4*i
   constexpr int kPerV = DV / 4;
   __shared__ float ks[kBK32 * DQK];     // 40 KB at (192, 128)
@@ -576,6 +601,8 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
   const long long batch_off = static_cast<long long>(blockIdx.z) * seq;
+  const long long kv_off = static_cast<long long>(blockIdx.z) * seq_k;
+  const int offset = seq_k - seq;         // query row i's position: + i
   const int kvh = h / (heads / kv_heads);
   const int part = threadIdx.x & 3;
   const int row = qt * kBQ + (threadIdx.x >> 2);
@@ -584,8 +611,8 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   const long long v_stride = static_cast<long long>(kv_heads) * DV;
   const long long o_stride = static_cast<long long>(heads) * DV;
   const float* qb = q + batch_off * q_stride + h * DQK;
-  const float* kb = k + batch_off * k_stride + kvh * DQK;
-  const float* vb = v + batch_off * v_stride + kvh * DV;
+  const float* kb = k + kv_off * k_stride + kvh * DQK;
+  const float* vb = v + kv_off * v_stride + kvh * DV;
   float* ob = o + batch_off * o_stride + h * DV;
 
   float qr[kPerQ], acc[kPerV];
@@ -596,25 +623,25 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < kPerV; ++i) acc[i] = 0.f;
   float m = kNegInf, l = 0.f;
 
-  const int n_tiles = key_tiles(qt, seq, causal, kBK32);
+  const int n_tiles = key_tiles(qt, seq_k, offset, causal, kBK32);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBK32;
     __syncthreads();
     if constexpr (DQK == DV) {
       for (int i = threadIdx.x; i < kBK32 * DQK; i += kThreads32) {
         const int r = i / DQK, c = i % DQK;
-        const bool in = k0 + r < seq;
+        const bool in = k0 + r < seq_k;
         ks[i] = in ? kb[(k0 + r) * k_stride + c] : 0.f;
         vs[i] = in ? vb[(k0 + r) * v_stride + c] : 0.f;
       }
     } else {
       for (int i = threadIdx.x; i < kBK32 * DQK; i += kThreads32) {
         const int r = i / DQK, c = i % DQK;
-        ks[i] = k0 + r < seq ? kb[(k0 + r) * k_stride + c] : 0.f;
+        ks[i] = k0 + r < seq_k ? kb[(k0 + r) * k_stride + c] : 0.f;
       }
       for (int i = threadIdx.x; i < kBK32 * DV; i += kThreads32) {
         const int r = i / DV, c = i % DV;
-        vs[i] = k0 + r < seq ? vb[(k0 + r) * v_stride + c] : 0.f;
+        vs[i] = k0 + r < seq_k ? vb[(k0 + r) * v_stride + c] : 0.f;
       }
     }
     __syncthreads();
@@ -629,7 +656,7 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
       d += __shfl_xor_sync(kFull, d, 1);
       d += __shfl_xor_sync(kFull, d, 2);
       const int key = k0 + j;
-      const bool masked = key >= seq || (causal && key > row);
+      const bool masked = key >= seq_k || (causal && key > row + offset);
       s[j] = masked ? kNegInf : d * scale_log2;
       mx = fmaxf(mx, s[j]);
     }
@@ -667,15 +694,21 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         const long long* v_geom, int causal, float scale_log2,
                         int ctas, int* sched, int smem_bytes,
                         cudaStream_t stream) {
+  const long long seq = q_geom[2], seq_k = k_geom[2];
   if (smem_bytes != Layout<DQK, DV>::kBytes || q_geom[0] != DQK
-      || k_geom[0] != DQK || v_geom[0] != DV)
+      || k_geom[0] != DQK || v_geom[0] != DV || v_geom[2] != seq_k
+      || (causal && (seq_k < seq || (seq_k - seq) % kTileK != 0)))
     return cudaErrorInvalidValue;
   CUtensorMap q_map, k_map, v_map;
   cudaError_t err = encode_map(&q_map, q, q_geom, kTileQ);
   if (err == cudaSuccess) err = encode_map(&k_map, k, k_geom, kTileK);
   if (err == cudaSuccess) err = encode_map(&v_map, v, v_geom, kTileK);
-  const auto kernel = lse != nullptr ? flash_bf16<DQK, DV, true>
-                                     : flash_bf16<DQK, DV, false>;
+  const bool with_lse = lse != nullptr, long_keys = seq_k != seq;
+  const auto kernel =
+      with_lse ? (long_keys ? flash_bf16<DQK, DV, true, true>
+                            : flash_bf16<DQK, DV, true, false>)
+               : (long_keys ? flash_bf16<DQK, DV, false, true>
+                            : flash_bf16<DQK, DV, false, false>);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -683,8 +716,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   kernel<<<ctas, kThreadsBf16, smem_bytes, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), lse, lse_stride,
-      sched,
-      static_cast<int>(q_geom[2]), static_cast<int>(q_geom[3]),
+      sched, static_cast<int>(seq), static_cast<int>(seq_k),
+      static_cast<int>(q_geom[3]),
       static_cast<int>(q_geom[1]), static_cast<int>(k_geom[1]), causal,
       scale_log2);
   return cudaGetLastError();
@@ -700,7 +733,9 @@ extern "C" {
 // CTAs take the work tiles from `sched`, two ints that are 0 before the
 // launch and 0 again after it (the last CTA resets them); `smem_bytes` is
 // the dynamic shared memory, which must be the kernel's layout for
-// (`head_dim`, `v_dim`): (64, 64), (128, 128) or (192, 128). A non-null
+// (`head_dim`, `v_dim`): (64, 64), (128, 128) or (192, 128). k and v may
+// have more rows than q (k_geom's S): query row i then sits at position
+// S_k - S_q + i, which must be a multiple of 128 when causal. A non-null
 // `lse` (batch, heads, lse_stride) float32, lse_stride S rounded up to 128,
 // receives each row's logsumexp in natural units.
 int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
@@ -725,12 +760,14 @@ int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
 }
 
 // float32 o = attention(q, k, v): q (batch, seq, heads, head_dim), k
-// (batch, seq, kv_heads, head_dim), v (batch, seq, kv_heads, v_dim), o
-// (batch, seq, heads, v_dim), contiguous; (head_dim, v_dim) is (64, 64),
-// (128, 128) or (192, 128); `lse` as for the bf16 launch (null: none).
+// (batch, seq_k, kv_heads, head_dim), v (batch, seq_k, kv_heads, v_dim), o
+// (batch, seq, heads, v_dim), contiguous; query row i sits at position
+// seq_k - seq + i (seq_k >= seq when causal); (head_dim, v_dim) is (64,
+// 64), (128, 128) or (192, 128); `lse` as for the bf16 launch (null:
+// none).
 int flash_attention_f32_launch(const void* q, const void* k, const void* v,
                                void* o, float* lse, int lse_stride,
-                               int batch, int seq, int heads,
+                               int batch, int seq, int seq_k, int heads,
                                int kv_heads, int head_dim, int v_dim,
                                int causal, float scale_log2,
                                cudaStream_t stream) {
@@ -738,12 +775,13 @@ int flash_attention_f32_launch(const void* q, const void* k, const void* v,
   if (head_dim == 64 && v_dim == 64) kernel = &flash_f32<64, 64>;
   else if (head_dim == 128 && v_dim == 128) kernel = &flash_f32<128, 128>;
   else if (head_dim == 192 && v_dim == 128) kernel = &flash_f32<192, 128>;
-  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (kernel == nullptr || (causal && seq_k < seq))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((seq + kBQ - 1) / kBQ, heads, batch);
   kernel<<<grid, kThreads32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, lse_stride,
-      seq, heads, kv_heads, causal, scale_log2);
+      seq, seq_k, heads, kv_heads, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,7 +15,12 @@ columns.
 Tensors are in the model stack's (B, S, H, dh) layout, as in the JAX
 package's ``kernels/flash_attention/ops.py``. v may have a head dim dv of
 its own (MLA's prefill: q·k at 192, v at 128), as the reference's
-``chunked_causal_attention`` allows; o then has dv.
+``chunked_causal_attention`` allows; o then has dv. k and v may have Sk >=
+S rows (context parallelism: one rank's query rows against the keys up to
+its last row): query row i then sits at position Sk - S + i, and the
+causal mask keeps the keys at or before it (bottom-right aligned, as
+FlashAttention 2 aligns it). The bf16 kernel asks (Sk - S) % 128 == 0
+when causal; the backward kernel takes Sk = S only.
 
 >>> import torch
 >>> q = torch.zeros(1, 3, 2, 64)
@@ -57,7 +62,7 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_float, i32, ptr, i32, ptr]
     lib.flash_attention_f32_launch.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32,
-        ctypes.c_float, ptr]
+        i32, ctypes.c_float, ptr]
     for fn in (lib.flash_attention_bf16_launch,
                lib.flash_attention_f32_launch):
         fn.restype = ctypes.c_int
@@ -114,18 +119,25 @@ def bf16_launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "v_geom": tensor_map_geometry(v)}
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool = True) -> None:
     """Raise on what the CUDA kernel does not take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
             or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"flash_attention takes q (B,S,H,dh), k (B,S,KV,dh)"
-                         f" and v (B,S,KV,dv), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+                         f" and v (B,S,KV,dv), k and v with any S >= 1 "
+                         f"rows, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, s, h, dh = q.shape
-    kv = k.shape[2]
-    if k.shape[:2] != (b, s) or k.shape[3] != dh or h % kv:
+    sk, kv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != dh or h % kv or sk < 1:
         raise ValueError(f"k and v must be (B,S,KV,dh) with H % KV == 0 "
                          f"for q {tuple(q.shape)}, got {tuple(k.shape)}")
+    if causal and (sk < s or (q.dtype == torch.bfloat16
+                              and (sk - s) % TILE_K)):
+        raise ValueError(f"causal attention takes Sk >= S keys (and, in "
+                         f"bf16, Sk - S a multiple of {TILE_K}), got S={s}, "
+                         f"Sk={sk}")
     if (dh, v.shape[3]) not in HEAD_DIMS:
         raise ValueError(f"(head_dim, v_dim) must be one of {HEAD_DIMS}, "
                          f"got {(dh, v.shape[3])}")
@@ -199,7 +211,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if with_lse:
             return out[0].transpose(1, 2), out[1]
         return out.transpose(1, 2)
-    _check(q, k, v)
+    _check(q, k, v, causal)
     b, s, h, dh = q.shape
     dv = v.shape[3]
     lib = _lib()
@@ -223,7 +235,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else:
             status = lib.flash_attention_f32_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse_ptr, stride, b, s, h, k.shape[2], dh, dv, int(causal),
+                lse_ptr, stride, b, s, k.shape[1], h, k.shape[2], dh, dv,
+                int(causal),
                 scale_log2, stream)
     _build.check(status, lib.flash_attention_error_string,
                  "flash_attention")
@@ -256,14 +269,20 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def check_backward(head_dim: int, v_dim: int) -> None:
+def check_backward(head_dim: int, v_dim: int, s: int = 1,
+                   s_k: int = 1) -> None:
     """Raise ValueError unless the backward kernel takes (`head_dim`,
-    `v_dim`)."""
+    `v_dim`) with `s_k` keys for `s` queries (it takes Sk = S only)."""
     if (head_dim, v_dim) not in BWD_HEAD_DIMS:
         raise ValueError(
             f"the flash_attention backward kernel takes (head_dim, v_dim) "
             f"in {BWD_HEAD_DIMS}, got {(head_dim, v_dim)}: the other pairs "
             f"are queued in ROADMAP.md")
+    if s_k != s:
+        raise ValueError(
+            f"the flash_attention backward kernel takes as many keys as "
+            f"queries, got S={s}, Sk={s_k}: the backward at Sk > S is "
+            f"queued in ROADMAP.md")
 
 
 # The bf16 backward's two persistent launches (csrc/flash_attention_bwd.cu):
@@ -310,16 +329,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradient of `flash_attention`: (dq, dk, dv) in the inputs'
     dtype, given its output o (B,S,H,dv), its rows' logsumexp `lse`
     (B,H,S) from `flash_attention_fwd`, and dL/do. The backward kernel on
-    CUDA tensors ((dh, dv) = (64, 64); bf16: two launches on one stream,
-    float32: three; counted once), where a missing or mis-shaped lse
-    raises; `ref.attention_bwd_ref` on CPU ones (with `lse` if given)."""
+    CUDA tensors ((dh, dv) = (64, 64) and Sk = S; bf16: two launches on
+    one stream, float32: three; counted once), where a missing or
+    mis-shaped lse raises; `ref.attention_bwd_ref` on CPU ones (with `lse`
+    if given, and any Sk)."""
     if not _on_card(q, k, v, o, do):
         dq, dk, dv = ref.attention_bwd_ref(*_heads_first(q, k, v, o, do),
                                            causal, lse=lse)
         return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
-    _check(q, k, v)
+    _check(q, k, v, causal)
     b, s, h, dh = q.shape
-    check_backward(dh, v.shape[3])
+    check_backward(dh, v.shape[3], s, k.shape[1])
     do = do.contiguous()
     for name, t in (("o", o), ("do", do)):
         if t.shape != (b, s, h, v.shape[3]) or t.dtype != q.dtype \
@@ -377,9 +397,10 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q: (B,S,H,dh); k: (B,S,KV,dh); v: (B,S,KV,dv) -> (B,S,H,dv) in q's
-    dtype: softmax(q·kᵀ/√dh)·v with float32 accumulation, query head h
-    reading KV head h // (H/KV), and the mask q_pos >= k_pos if `causal`.
+    """q: (B,S,H,dh); k: (B,Sk,KV,dh); v: (B,Sk,KV,dv) -> (B,S,H,dv) in
+    q's dtype: softmax(q·kᵀ/√dh)·v with float32 accumulation, query head h
+    reading KV head h // (H/KV), and the mask q_pos >= k_pos if `causal`,
+    query row i at position Sk - S + i (Sk >= S when causal).
     Differentiable: where autograd records it, its gradient is
     `flash_attention_bwd`."""
     return _FlashAttention.apply(q, k, v, causal)

@@ -15,11 +15,14 @@ are the last microbatch's. The metrics (``ce``, ``aux``, ``loss``,
 ``grad_norm``, ``lr``) are 0-d tensors: nothing in a step reads the device
 back.
 
-Sharding (the reference's ``shardings_for_train``, ``input_specs_train``,
-ZeRO-1) waits for the mesh slice (ROADMAP §1). A config whose training
-path has no backward kernel raises NotImplementedError: Mamba2 and RWKV6
-blocks (linear_scan has no backward kernel yet), and on the card attention
-at head dims other than flash_attention_bwd's (64, 64).
+`shardings_for_train` places a step's parameters, AdamW moments (ZeRO-1:
+each moment's parameter spec plus the data axes) and batch on a mesh, and
+`input_specs_train` gives a shape's batch as ``meta`` tensors. The step
+itself runs on one process: its gradients are not reduced over a mesh.
+A config whose training path has no backward kernel raises
+NotImplementedError: Mamba2 and RWKV6 blocks (linear_scan has no backward
+kernel yet), and on the card attention at head dims other than
+flash_attention_bwd's (64, 64).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.launch import sharding as shardlib
 from repro_torch.models import model as modellib
 from repro_torch.optim import adamw
 
@@ -35,8 +39,8 @@ from repro_torch.optim import adamw
 @dataclasses.dataclass(frozen=True)
 class TrainOptions:
     """Microbatches a step (``grad_accum``) and AdamW's settings. The
-    reference's ``zero1`` (optimizer-state sharding) comes with the mesh
-    slice (ROADMAP §1)."""
+    reference's ``zero1`` is `shardings_for_train`'s argument here: the
+    step runs on one process."""
 
     grad_accum: int = 1
     adamw: adamw.AdamWConfig = adamw.AdamWConfig()
@@ -124,3 +128,38 @@ def make_train_step(cfg, options: TrainOptions = TrainOptions()):
         return model, opt_state, metrics
 
     return train_step
+
+
+def shardings_for_train(cfg, params, opt_state, mesh, batch_ndim=2,
+                        zero1=True, fsdp=False, batch_size=None):
+    """(in, out) `launch.sharding.Sharding`s of a train step on `mesh`:
+    ((params, AdamWState(step, mu, nu), {"tokens", "labels"}), (params,
+    opt_state, None)). Under ``cfg.train_parallelism`` "dp" the parameters
+    and moments are split over every axis and the batch too; under "tp"
+    the moments get ZeRO-1's specs where `zero1`. `params` is the model or
+    its {name: tensor}; `opt_state` is not read."""
+    strategy = cfg.train_parallelism
+    pspecs = shardlib.param_specs(cfg, params, mesh, fsdp=fsdp,
+                                  strategy=strategy)
+    ospecs = pspecs if strategy == "dp" or not zero1 else \
+        shardlib.zero1_specs(cfg, params, mesh, fsdp=fsdp)
+
+    def to_shard(specs):
+        return {n: shardlib.Sharding(mesh, s) for n, s in specs.items()}
+    p_shard = to_shard(pspecs)
+    opt_shard = adamw.AdamWState(step=shardlib.Sharding(mesh, ()),
+                                 mu=to_shard(ospecs), nu=to_shard(ospecs))
+    bspec = shardlib.Sharding(mesh, shardlib.batch_spec(
+        mesh, batch_ndim - 1, batch=batch_size,
+        axes="all" if strategy == "dp" else "data"))
+    batch_shard = {"tokens": bspec, "labels": bspec}
+    return (p_shard, opt_shard, batch_shard), (p_shard, opt_shard, None)
+
+
+def input_specs_train(cfg, shape):
+    """{"tokens", "labels"}: one global batch, (B, S) int32 or (B, S, K)
+    with K codebooks, on meta."""
+    b, s = shape.global_batch, shape.seq_len
+    tok = (b, s, cfg.num_codebooks) if cfg.num_codebooks > 1 else (b, s)
+    return {k: torch.empty(tok, dtype=torch.int32, device="meta")
+            for k in ("tokens", "labels")}

@@ -2,7 +2,8 @@
 prefill and decode: the JAX package's ``models/attention.py``
 ``init_gqa``, ``_gqa_qkv``, ``gqa_prefill``, ``decode_attention``,
 ``gqa_decode``, ``gqa_cache_spec``, ``init_mla``, ``_mla_q``,
-``_mla_latent``, ``mla_prefill``, ``mla_decode`` and ``mla_cache_spec``.
+``_mla_latent``, ``mla_prefill``, ``mla_decode``, ``mla_cache_spec``,
+``context_parallel_attention`` and ``_attention_dispatch``.
 
 Where the reference's prefill runs ``chunked_causal_attention`` (its jnp
 analogue of the Pallas kernel), the port calls the hand-written
@@ -21,18 +22,31 @@ every head] (q·k over dn + dr = 192 dims at deepseek-v2's widths) and v
 `flash_attention` kernel at (dh, dv) = (192, 128). Its decode is the
 reference's absorbed form in plain PyTorch: scores and outputs in the
 latent space of the (B, S, r_kv) cache, which holds r_kv + dr numbers a
-token whatever the number of heads. Context-parallel attention waits
-for launch and sharding (ROADMAP §1); ``chunked_causal_attention`` has no
+token whatever the number of heads. ``chunked_causal_attention`` has no
 port, since the prefills call the kernel where the reference calls it.
+
+Context parallelism (`context_parallel_attention`): under a mesh with
+``cfg.shard_activations`` and a "model" axis of m > 1 ranks, where m·128
+divides S, the prefills split the query rows over the model group as the
+reference shards its query chunks: rank r owns rows [r·S/m, (r+1)·S/m)
+and attends them against every key up to its last row, in one launch of
+the kernel with keys longer than queries; an all-gather over the group in
+rank order rebuilds (B, S, H, dv). On the card each row then reads the
+same key tiles in the same order as in one launch over all S rows, so the
+output is that launch's, bit for bit. It is head-count agnostic: the
+reason the reference has it (smollm-360m's 15 heads do not divide a
+model axis of 16). The wo projection after attention is
+`layers.matmul_rowparallel`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models import layers
-from repro_torch.models.layers import dense_init, matmul
+from repro_torch.kernels.flash_attention.ops import TILE_Q, flash_attention
+from repro_torch.models import layers, meshctx
+from repro_torch.models.layers import dense_init, matmul, matmul_rowparallel
 
 NEG_INF = -1e30
 # float32 elements of K or V that decode attention casts at a time (a block
@@ -81,13 +95,45 @@ def _gqa_qkv(p, cfg, x, positions):
     return q, k, v
 
 
+def context_parallel_attention(q, k, v, *, m_size):
+    """Causal attention with the query rows split over the "model" axis of
+    the current mesh, m_size ranks: q (B,S,H,dh), k
+    (B,S,KV,dh) and v (B,S,KV,dv), whole on every rank of the group ->
+    (B,S,H,dv), whole on every rank. Rank r launches the kernel once on
+    query rows [r·S/m, (r+1)·S/m) against keys [0, (r+1)·S/m); one
+    all-gather over the group, in rank order, rebuilds the rows."""
+    group, r, m = meshctx.model_group(meshctx.current_mesh())
+    b, s = q.shape[:2]
+    if m != m_size or s % m:
+        raise ValueError(f"{s} query rows over a model group of {m} ranks "
+                         f"(m_size {m_size})")
+    rows = s // m
+    lo, hi = r * rows, (r + 1) * rows
+    o = flash_attention(q[:, lo:hi].contiguous(), k[:, :hi].contiguous(),
+                        v[:, :hi].contiguous(), causal=True)
+    parts = [torch.empty_like(o) for _ in range(m)]
+    dist.all_gather(parts, o, group=group)
+    return torch.cat(parts, dim=1)
+
+
+def _attention_dispatch(cfg, q, k, v):
+    """Context-parallel attention where ``cfg.shard_activations``, the
+    current mesh has a "model" axis of m > 1 ranks and m·128 divides S
+    (the reference's condition); else one causal launch over all rows."""
+    if cfg.shard_activations:
+        m = meshctx.model_size(meshctx.current_mesh())
+        if m > 1 and q.shape[1] % (m * TILE_Q) == 0:
+            return context_parallel_attention(q, k, v, m_size=m)
+    return flash_attention(q, k, v, causal=True)
+
+
 def gqa_prefill(p, cfg, x, positions):
     """Causal GQA self-attention over the whole sequence: (B,S,d) ->
     (B,S,d)."""
     b, s, _ = x.shape
     q, k, v = _gqa_qkv(p, cfg, x, positions)
-    o = flash_attention(q, k, v, causal=True)
-    return matmul(o.reshape(b, s, -1), p.wo)
+    o = _attention_dispatch(cfg, q, k, v)
+    return matmul_rowparallel(o.reshape(b, s, -1), p.wo, cfg)
 
 
 def decode_attention(q, cache_k, cache_v, pos):
@@ -215,8 +261,8 @@ def mla_prefill(p, cfg, x, positions):
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
                   dim=-1)
-    o = flash_attention(q, k, v, causal=True)
-    return matmul(o.reshape(b, s, -1), p.wo)
+    o = _attention_dispatch(cfg, q, k, v)
+    return matmul_rowparallel(o.reshape(b, s, -1), p.wo, cfg)
 
 
 def mla_decode(p, cfg, x, cache, pos):

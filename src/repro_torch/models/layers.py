@@ -10,6 +10,11 @@ gradients, for scoring; the trainer (`launch.train`) turns them on.
 dtype policy, as in the reference: parameters are stored in cfg.dtype (bf16
 in production configs); matmuls accumulate in float32 and return x's
 dtype; norms, activations and softmax run in float32.
+
+Under a mesh (`meshctx.mesh_context`) with ``cfg.shard_activations`` and a
+"model" axis of more than one rank, `matmul_rowparallel` splits its product
+over that axis: each rank multiplies its rows of w by its columns of x and
+one all-reduce adds the parts.
 """
 from __future__ import annotations
 
@@ -17,8 +22,11 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.models import meshctx
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -58,6 +66,29 @@ def matmul(x, w):
     """x @ w over the last dim of x, in x's dtype (cuBLAS accumulates bf16
     products in float32)."""
     return torch.matmul(x, w)
+
+
+def matmul_rowparallel(x, w, cfg):
+    """x @ w as a row-parallel (partial-sum) product: under a mesh whose
+    model group has m > 1 ranks, with ``cfg.shard_activations`` (the
+    reference's condition for its parallel paths) and m dividing w's rows,
+    rank r multiplies its block r of w's rows by the matching columns of x
+    in x's dtype, and one all-reduce over the group adds the m parts in
+    x's dtype (the reference emits the local product in the model dtype so
+    that its all-reduce moves bf16: each local product still accumulates
+    in float32, only the sum of the m parts rounds in bf16). Otherwise,
+    and where m does not divide the rows (the reference's spec then keeps
+    w whole), it is `matmul`. x and w are whole on every rank."""
+    mesh = meshctx.current_mesh()
+    m = meshctx.model_size(mesh)
+    if cfg is None or not cfg.shard_activations or m <= 1 \
+            or w.shape[0] % m:
+        return matmul(x, w)
+    group, r, _ = meshctx.model_group(mesh)
+    n = w.shape[0] // m
+    part = matmul(x[..., r * n:(r + 1) * n], w[r * n:(r + 1) * n])
+    dist.all_reduce(part, group=group)
+    return part
 
 
 # --------------------------------------------------------------------------
@@ -125,9 +156,10 @@ def init_mlp(generator, d, d_ff, dtype, device):
                   w_down=dense_init(generator, d_ff, d, dtype, device))
 
 
-def mlp(p, x, act="silu"):
+def mlp(p, x, act="silu", cfg=None):
     """down(act(gate(x)) · up(x)); the activation in float32, cast back.
-    gelu is the tanh form, as ``jax.nn.gelu``'s default."""
+    gelu is the tanh form, as ``jax.nn.gelu``'s default. The down
+    projection is `matmul_rowparallel` under `cfg`."""
     g = matmul(x, p.w_gate)
     u = matmul(x, p.w_up)
     if act == "silu":
@@ -136,7 +168,7 @@ def mlp(p, x, act="silu"):
         h = F.gelu(g.float(), approximate="tanh").to(x.dtype) * u
     else:
         raise ValueError(act)
-    return matmul(h, p.w_down)
+    return matmul_rowparallel(h, p.w_down, cfg)
 
 
 # --------------------------------------------------------------------------

@@ -84,7 +84,7 @@ def _ffn(p, cfg, xn, ffn):
     """The block's feed-forward half: (output, the MoE's aux loss or None
     for an MLP)."""
     if ffn == "mlp":
-        return layers.mlp(p.mlp, xn, cfg.act), None
+        return layers.mlp(p.mlp, xn, cfg.act, cfg), None
     return moe.moe_apply(p.moe, cfg, xn, gate_fn_of(cfg))
 
 

@@ -8,6 +8,7 @@ the same weights as an uninterrupted run.
 
 Checkpoints hold exact copies, so every comparison here is exact.
 """
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -224,11 +225,69 @@ def test_missing_checkpoint_raises(tmp_path):
         CheckpointManager(tmp_path, device="cpu").restore()
 
 
+@contextlib.contextmanager
+def _one_rank_mesh(root):
+    """A (1, 1) ("data", "model") DeviceMesh of one gloo rank on the CPU."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(root / "store"), 1), rank=0, world_size=1)
+    try:
+        yield make_test_mesh((1, 1), device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
 def test_mesh_restore_waits_for_the_mesh_slice(tmp_path):
-    mgr = CheckpointManager(tmp_path, device="cpu")
-    mgr.save(1, _params())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mgr.restore(mesh=object(), specs={})
+    """The port's counterpart of tests/test_ckpt.py's elastic restore
+    onto a mesh: a saved tree and a saved model restored onto a one-rank
+    (1, 1) DeviceMesh come back as DTensors whose full tensors are the
+    plain restore's and the reference's restore onto its
+    `make_test_mesh((1, 1))`, bit for bit."""
+    from jax.sharding import PartitionSpec as P
+    from repro.launch import sharding as jshard
+    from repro.launch.mesh import make_test_mesh as jmesh
+    from repro_torch.launch import sharding
+    from torch.distributed.tensor import DTensor
+
+    tree_dir, model_dir = tmp_path / "tree", tmp_path / "model"
+    CheckpointManager(tree_dir, device="cpu").save(1, _params())
+    cfg, jcfg, m, _ = _trained("smollm-360m", steps=1)
+    CheckpointManager(model_dir, device="cpu").save(1, m)
+    want, _, _, _ = JManager(tree_dir).restore(
+        mesh=jmesh((1, 1)), specs={"layer": {"w": P(None, None),
+                                             "b": P(None)}})
+    jparams = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0),
+                                                   jcfg))
+    jspecs = jshard.param_specs(jcfg, jparams, jmesh((1, 1)))
+    jwant, _, _, _ = JManager(model_dir).restore(mesh=jmesh((1, 1)),
+                                                 specs=jspecs)
+    plain, _, _, _ = CheckpointManager(model_dir, cfg=cfg,
+                                       device="cpu").restore()
+    with _one_rank_mesh(tmp_path) as mesh:
+        got, _, _, _ = CheckpointManager(tree_dir, device="cpu").restore(
+            mesh=mesh, specs={"layer": {"w": (None, None), "b": (None,)}})
+        for k in ("w", "b"):
+            assert isinstance(got["layer"][k], DTensor)
+            np.testing.assert_array_equal(
+                got["layer"][k].full_tensor().numpy(),
+                np.asarray(want["layer"][k]))
+        specs = sharding.param_specs(cfg, m, mesh)
+        m2, _, _, _ = CheckpointManager(model_dir, cfg=cfg).restore(
+            mesh=mesh, specs=specs)
+        plain_named = dict(plain.named_parameters())
+        for name, p in m2.named_parameters():
+            assert isinstance(p.data, DTensor), name
+            full = p.full_tensor()
+            assert torch.equal(full, plain_named[name]), name
+            keys, index = model.reference_path(name)
+            ref = jwant
+            for key in keys:
+                ref = ref[key]
+            np.testing.assert_array_equal(
+                full.numpy(), np.asarray(ref)[index])
+        with pytest.raises(ValueError, match="both"):
+            CheckpointManager(model_dir, cfg=cfg).restore(mesh=mesh)
 
 
 def test_restore_without_a_device_needs_cuda(tmp_path):

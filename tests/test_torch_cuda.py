@@ -699,6 +699,64 @@ def test_flash_attention_refuses_other_head_dim_pairs_on_the_card(
     assert fa_ops.launches.count == before
 
 
+# Sk >= Sq: (B, Sk, H, KV, dh, dv) and the query rows [lo, Sk) of each
+# case; in bf16 Sk - Sq = lo is a multiple of 128 when causal.
+_LONG_KEYS = [(2, 1024, 6, 2, 64, 64, (256, 512, 768)),
+              (1, 2048, 8, 4, 128, 128, (1024,)),
+              (1, 1024, 8, 8, 192, 128, (512, 896)),
+              (2, 1000, 15, 5, 64, 64, (128, 512))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sk,h,kv,dh,dv,cuts", _LONG_KEYS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_keys_longer_than_queries(card, b, sk, h, kv, dh,
+                                                  dv, cuts, dtype):
+    """Query rows [lo, Sk) against all Sk keys, causal (row i at position
+    lo + i) and not: within the bars above of the plain version, and the
+    same bits as those rows of one launch over all Sk rows (the same key
+    tiles, in the same order, for each row). float32 takes any offset,
+    bf16 causal refuses one that is not a multiple of 128."""
+    g = torch.Generator(device=card).manual_seed(sk + dh)
+    q = torch.randn(b, sk, h, dh, generator=g, device=card).to(dtype)
+    k = torch.randn(b, sk, kv, dh, generator=g, device=card).to(dtype)
+    v = torch.randn(b, sk, kv, dv, generator=g, device=card).to(dtype)
+    for causal in (True, False):
+        full = fa_ops.flash_attention(q, k, v, causal=causal)
+        for lo in cuts:
+            part = q[:, lo:].contiguous()
+            got = fa_ops.flash_attention(part, k, v, causal=causal)
+            plain = _plain_attention(part, k, v, causal)
+            assert torch.equal(got, full[:, lo:]), (causal, lo)
+            if dtype == torch.bfloat16:
+                plain = plain.float()
+                torch.testing.assert_close(got.float(), plain,
+                                           atol=BF16_ATOL, rtol=BF16_RTOL)
+            else:
+                torch.testing.assert_close(got, plain, atol=2e-5, rtol=2e-5)
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="multiple of 128"):
+            fa_ops.flash_attention(q[:, 100:].contiguous(), k, v)
+    else:
+        got = fa_ops.flash_attention(q[:, 100:].contiguous(), k, v)
+        assert torch.equal(got, fa_ops.flash_attention(q, k, v)[:, 100:])
+
+
+@pytest.mark.cuda
+def test_backward_kernel_raises_on_keys_longer_than_queries(card):
+    """The backward kernel takes Sk = S only: at Sk > S it raises before
+    any launch (the CPU's plain backward takes the offset)."""
+    q = torch.randn(1, 128, 4, 64, device=card, dtype=torch.bfloat16)
+    k = torch.randn(1, 256, 4, 64, device=card, dtype=torch.bfloat16)
+    o, lse = fa_ops.flash_attention_fwd(q, k, k)
+    before = fa_ops.bwd_launches.count
+    with pytest.raises(ValueError, match="as many keys as queries"):
+        fa_ops.flash_attention_bwd(q, k, k, o, o, lse=lse)
+    with pytest.raises(ValueError, match="as many keys as queries"):
+        fa_ops.check_backward(64, 64, 128, 256)
+    assert fa_ops.bwd_launches.count == before
+
+
 @pytest.mark.cuda
 def test_narrow_mla_model_logits_through_the_kernel_match_plain(
         card, monkeypatch):

@@ -551,3 +551,34 @@ def test_flash_check_rejects_strided_views(which):
     with pytest.raises(ValueError, match="contiguous"):
         fa_ops._check(t["q"], t["k"], t["v"])
     fa_ops._check(*(x.contiguous() for x in (t["q"], t["k"], t["v"])))
+
+
+# -- keys longer than queries (context parallelism) --------------------------
+
+@pytest.mark.parametrize("dh,dv", [(64, 64), (128, 128), (192, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_ref_with_longer_keys_matches_the_full_rows(dh, dv,
+                                                              causal):
+    """`ref.attention_ref` on query rows [lo, S) against all S keys (row i
+    at position lo + i) equals those rows of the call over all S rows,
+    its lse too, within 1e-6 (float32 sums over a different count of
+    masked zeros); so does the plain backward's dq. It is the plain
+    version the card's check of context-parallel attention uses."""
+    g = torch.Generator().manual_seed(dh + causal)
+    q = torch.randn(2, 4, 300, dh, generator=g)
+    k = torch.randn(2, 2, 300, dh, generator=g)
+    v = torch.randn(2, 2, 300, dv, generator=g)
+    do = torch.randn(2, 4, 300, dv, generator=g)
+    o, lse = fa_ref.attention_ref(q, k, v, causal, return_lse=True)
+    dq = fa_ref.attention_bwd_ref(q, k, v, o, do, causal)[0]
+    for lo in (0, 1, 128, 299):
+        got, got_lse = fa_ref.attention_ref(q[:, :, lo:], k, v, causal,
+                                            return_lse=True)
+        assert (got - o[:, :, lo:]).abs().max() <= 1e-6
+        assert (got_lse - lse[:, :, lo:]).abs().max() <= 1e-6
+        got_dq = fa_ref.attention_bwd_ref(q[:, :, lo:], k, v, got,
+                                          do[:, :, lo:], causal)[0]
+        assert (got_dq - dq[:, :, lo:]).abs().max() <= 1e-6
+    if causal:
+        with pytest.raises(ValueError, match="Sk >= S"):
+            fa_ref.attention_ref(q, k[:, :, :100], v[:, :, :100], causal)
