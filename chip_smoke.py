@@ -317,19 +317,25 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     call) and one RT query selected as in phase 7 (score_hist and
     threshold_select on the path).
 20. flash_attention's backward kernel (``csrc/flash_attention_bwd.cu``:
-    bf16 on wgmma with TMA in two launches, float32 on the CUDA cores)
-    against its plain backward (float32 from the same inputs): dq, dk and
-    dv at smollm-360m's (4, 4096, 15/5, 64) and musicgen-medium's (4,
-    4096, 24/24, 64), causal, at a ragged (2, 1000, 15/5, 64) causal and
-    not and a ragged (2, 1000, 12/2, 64), in bf16 (`BWD_BF16_ATOL` +
-    2^-7 |plain| each, `BWD_BF16_FRO_TOL` of each tensor's norm) and
-    float32 (F32_TOL abs + rel), each from the lse the forward kernel
-    kept, which is held against the plain lse (`LSE_TOL`); two calls
-    bitwise equal. Its time at both training shapes beside its operations
-    bound (the five products of the gradient: 2.5 times the forward's)
-    and the seven its design runs, the plain backward and the backward of
+    bf16 on wgmma with TMA in two launches, three at the wider pairs;
+    float32 on the CUDA cores) against its plain backward (float32 from
+    the same inputs): dq, dk and dv at smollm-360m's (4, 4096, 15/5, 64)
+    and musicgen-medium's (4, 4096, 24/24, 64), causal, at a ragged (2,
+    1000, 15/5, 64) causal and not and a ragged (2, 1000, 12/2, 64); at
+    (128, 128) yi-6b's (4, 4096, 32/4) and llama4's (4, 4096, 40/8), at
+    (192, 128) deepseek-v2's (4, 4096, 128/128), causal, and a ragged (2,
+    1000, 12/2) causal and not at each (past `PLAIN_WHOLE_HEADS` heads
+    the plain versions run by groups of KV heads); in bf16
+    (`BWD_BF16_ATOL`, `BWD_BF16_ATOL_WIDE` at the wider pairs, + 2^-7
+    |plain| each, `BWD_BF16_FRO_TOL` of each tensor's norm) and float32
+    (F32_TOL abs + rel), each from the lse the forward kernel kept, which
+    is held against the plain lse (`LSE_TOL`); two calls bitwise equal,
+    each counted once. Its time at the five training shapes beside its
+    operations bound (the five products of the gradient, B·H·S²·(3 dh +
+    2 dv)) and the products its design runs (seven, eight at the wider
+    pairs), the plain backward and the backward of
     `scaled_dot_product_attention` by each fused backend (library_ms is
-    the fastest).
+    the fastest; PyTorch's flash backend refuses dv != dh).
 21. musicgen-medium at full width (48 layers, d 1536, four codebooks,
     bf16): a (4, 4096, 4) prefill (48 flash_attention launches) with its
     four heads' logits against plain attention and its float32 copy
@@ -378,6 +384,14 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     float32. Then, in this process, the longest piece's launch at
     smollm's shape beside its bound, the plain version and SDPA with a
     lower-right causal mask (the kernels line's row).
+24. Training at the backward kernel's wider pairs: yi-6b at full width
+    cut to 8 of 32 layers (attention at (128, 128)) and deepseek-v2-236b
+    at full width cut to its first, dense block (MLA at (192, 128)),
+    bf16, `TRAIN_WIDE_STEPS` steps after a warm-up step each through phase
+    21's `train_cell` (`make_train_step` at (4, 4096), grad_accum 2,
+    remat="block"): flash_attention exactly twice and its backward once a
+    layer a microbatch, loss and grad_norm finite, each step's wall,
+    tokens/s, train mfu and peak memory.
 
 Each phase prints its wall time as it ends, and the line before the
 kernels line sums them.
@@ -386,8 +400,11 @@ The line before the last is ``{"kernels": [...]}`` (a row for each kernel:
 linear_scan's chunked kernel and its channel kernel each have one,
 flash_attention's dh-128 path one of its own at llama4's shape and its
 (192, 128) path one at deepseek-v2's, its backward kernel one at
-smollm's shape, its launches phase 22's, and its context-parallel
-launches at Sk > Sq one, its launches phase 23's ranks'); the last line is
+smollm's shape, its launches phase 22's, its context-parallel launches
+at Sk > Sq one, its launches phase 23's ranks', and its backward at
+yi-6b's (128, 128) and deepseek-v2's (192, 128) shapes one each,
+`flash_attention_bwd_dh128` and `flash_attention_bwd_mla`, their launches
+phase 24's); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -455,6 +472,7 @@ from repro_torch.data.synthetic import lm_batches  # noqa: E402
 from repro_torch.launch.fault import (LoopConfig,  # noqa: E402
                                       RestartRequired, TrainLoop)
 from repro_torch.launch.train import TrainOptions  # noqa: E402
+from repro_torch.launch.train import attention_head_dims  # noqa: E402
 from repro_torch.launch.train import make_train_step  # noqa: E402
 from repro_torch.launch import sharding as shardlib  # noqa: E402
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
@@ -3908,7 +3926,15 @@ FA_MUSICGEN = (4, 4096, 24, 24, 64)    # musicgen-medium's prefill attention
 # smollm's and musicgen's training shapes and a ragged S, causal and not.
 FA_BWD_CASES = ((FA_PREFILL, True), (FA_MUSICGEN, True),
                 ((2, 1000, 15, 5, 64), True), ((2, 1000, 15, 5, 64), False),
-                ((2, 1000, 12, 2, 64), True))
+                ((2, 1000, 12, 2, 64), True),
+                # the wider pairs: yi-6b's and llama4's training attention
+                # at (128, 128), deepseek-v2's MLA at (192, 128) (held by
+                # groups of KV heads, as phase 19 holds the forward), and a
+                # ragged S at each, causal and not
+                (FA_YI, True), (FA_LLAMA4, True), (FA_DSV2, True),
+                ((2, 1000, 12, 2, 128), True), ((2, 1000, 12, 2, 128), False),
+                ((2, 1000, 12, 2, 192, 128), True),
+                ((2, 1000, 12, 2, 192, 128), False))
 # The kernel sums in float32 and rounds dq, dk and dv once; in bf16 it
 # rounds P and dS to bf16 before the products that take them, as the
 # forward rounds p before p·v. The plain backward computes in float32 from
@@ -3926,6 +3952,14 @@ FA_BWD_CASES = ((FA_PREFILL, True), (FA_MUSICGEN, True),
 # over one rounding: their excess was the float32 sums' alone.
 BWD_BF16_ATOL = 2e-2
 BWD_BF16_FRO_TOL = 5e-3
+# The wider pairs' bar on |err| - 2^-7 |plain| (the norm's bar stays
+# BWD_BF16_FRO_TOL). Their readings over FA_BWD_CASES' wider cases at
+# --seed 0, 1 and 2 on an H100 80GB HBM3 at 700 W: at most 1.444e-2 (dv at
+# yi-6b's shape, seed 2; 1.314e-2 and 1.278e-2 at seeds 0 and 1), so
+# 2.08 times the largest; ||err|| / ||plain|| 2.287e-3 to 2.366e-3. The
+# excess grows with the GQA group (8 query heads a KV head at yi-6b's
+# shape, 3 at smollm's): dv sums P·dO over all of them.
+BWD_BF16_ATOL_WIDE = 3e-2
 # The forward kernel's lse against the plain lse of the same inputs (abs +
 # rel): both sum the same products in float32 in other orders, and the
 # kernel's exp2 is the hardware's approximation. Over FA_BWD_CASES at
@@ -3941,34 +3975,73 @@ def plain_attention_bwd(q, k, v, o, do, causal=True):
         *(x.float().transpose(1, 2) for x in (q, k, v, o, do)), causal)]
 
 
+# Attention with more query heads than this is held against its plain
+# versions by groups of whole KV heads of at most DSV2_PLAIN_HEADS query
+# heads (phase 20): yi-6b's 32 heads would hold 8.6 GB of float32 scores
+# a copy, deepseek-v2's 128 heads 34 GB.
+PLAIN_WHOLE_HEADS = 24
+
+
+def by_kv_groups(fn, q, k, v, *rest, causal=True):
+    """`fn(q, k, v, *rest, causal)` over groups of whole KV heads (the
+    rest laid out as q), its outputs joined on the heads axis: one call
+    where q has at most PLAIN_WHOLE_HEADS heads. `fn` returns a list of
+    tensors, each (B,S,heads,d) (query heads, or KV heads where it is
+    k's or v's size)."""
+    h, kv = q.shape[2], k.shape[2]
+    if h <= PLAIN_WHOLE_HEADS:
+        return fn(q, k, v, *rest, causal)
+    g = h // kv
+    n = max(1, DSV2_PLAIN_HEADS // g)
+    parts = [fn(q[:, :, j * g:(j + n) * g], k[:, :, j:j + n],
+                v[:, :, j:j + n],
+                *(x[:, :, j * g:(j + n) * g] for x in rest), causal)
+             for j in range(0, kv, n)]
+    return [torch.cat(ts, dim=2) for ts in zip(*parts)]
+
+
+def plain_lse(q, k, v, causal=True):
+    """The plain lse (B,S,H,1) of (q, k, v) from the same inputs in
+    float32."""
+    _, lse = fa_ref.attention_ref(
+        *(x.float().transpose(1, 2) for x in (q, k, v)), causal,
+        return_lse=True)
+    return [lse.transpose(1, 2)[..., None]]
+
+
 def hold_flash_bwd(shape, dtype, causal: bool, g) -> float:
     """The forward kernel's lse and dq, dk and dv of the backward kernel
     (given that lse) on standard normal q, k, v and dO at `shape` against
-    the plain lse and backward: the lse within LSE_TOL abs + rel; in bf16
-    each output within BWD_BF16_ATOL + BF16_RTOL |plain| and each tensor
-    within BWD_BF16_FRO_TOL of its norm, in float32 within F32_TOL abs +
-    rel; two calls equal bit for bit. Returns the largest |kernel -
-    plain| of dq, dk and dv."""
+    the plain lse and backward (by groups of KV heads past
+    PLAIN_WHOLE_HEADS heads): the lse within LSE_TOL abs + rel; in bf16
+    each output within BWD_BF16_ATOL (BWD_BF16_ATOL_WIDE at the wider
+    pairs) + BF16_RTOL |plain| and each tensor within BWD_BF16_FRO_TOL of
+    its norm, in float32 within F32_TOL abs + rel; two calls equal bit for
+    bit, each counted once. Returns the largest |kernel - plain| of dq,
+    dk and dv."""
     q, k, v = attention_inputs(shape, dtype, g)
     o, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal)
     do = torch.randn(o.shape, generator=g, device=DEVICE).to(dtype)
+    before = fa_ops.bwd_launches.count
     got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
     again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                        lse=lse)
-    _, plain_lse = fa_ref.attention_ref(
-        *(x.float().transpose(1, 2) for x in (q, k, v)), causal,
-        return_lse=True)
-    torch.cuda.synchronize()
     what = f"flash_attention_bwd {shape} {dtype} causal={causal}"
-    lse_err = float((lse - plain_lse).abs().max())
-    check(bool(((lse - plain_lse).abs()
-                <= LSE_TOL + LSE_TOL * plain_lse.abs()).all()),
+    check(fa_ops.bwd_launches.count == before + 2,
+          f"{what}: two calls counted {fa_ops.bwd_launches.count - before}")
+    want_lse = by_kv_groups(plain_lse, q, k, v, causal=causal)[0]
+    want_lse = want_lse[..., 0].transpose(1, 2)
+    torch.cuda.synchronize()
+    lse_err = float((lse - want_lse).abs().max())
+    check(bool(((lse - want_lse).abs()
+                <= LSE_TOL + LSE_TOL * want_lse.abs()).all()),
           f"{what}: the forward's lse {lse_err:.4g} from the plain lse")
-    del plain_lse
-    plain = plain_attention_bwd(q, k, v, o, do, causal)
+    del want_lse
+    plain = by_kv_groups(plain_attention_bwd, q, k, v, o, do, causal=causal)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"{what}: two calls differ")
+    atol = BWD_BF16_ATOL if q.shape[3] == 64 else BWD_BF16_ATOL_WIDE
     worst, readings = 0.0, []
     for name, a, w in zip(("dq", "dk", "dv"), got, plain):
         err = (a.float() - w).abs()
@@ -3976,9 +4049,9 @@ def hold_flash_bwd(shape, dtype, causal: bool, g) -> float:
         if dtype == torch.bfloat16:
             excess = float((err - BF16_RTOL * w.abs()).max())
             fro = float(err.norm() / w.norm())
-            check(excess <= BWD_BF16_ATOL and fro <= BWD_BF16_FRO_TOL,
+            check(excess <= atol and fro <= BWD_BF16_FRO_TOL,
                   f"{what} {name}: |err| - 2^-7 |plain| up to {excess:.4g} "
-                  f"(tol {BWD_BF16_ATOL}), ||err|| / ||plain|| {fro:.4g} "
+                  f"(tol {atol}), ||err|| / ||plain|| {fro:.4g} "
                   f"(tol {BWD_BF16_FRO_TOL})")
             readings.append(f"{name} excess {excess:.4g} fro {fro:.4g}")
         else:
@@ -4018,57 +4091,73 @@ def fused_sdpa_bwd_ms(qt, kt, vt, dot) -> float:
 
 
 def flash_bwd_row(shape, seed: int) -> dict:
-    """The backward kernel's time at `shape`, bf16 causal, from the
-    forward's lse, beside its bound (the gradient's five products, 2.5
-    times the forward's: q·kᵀ again, dO·vᵀ, Pᵀ·dO, dSᵀ·q and dS·k over
-    the causal half; q, k, v, o, dO and the lse read, dq, dk and dv
-    written once) and the time of the seven products its design runs at
-    the card's peak, the plain backward's time and the backward of
-    `scaled_dot_product_attention` by its fastest fused backend."""
-    b, s, h, kv, dh = shape
+    """The backward kernel's time at `shape` ((B, S, H, KV, dh) or (B, S,
+    H, KV, dh, dv)), bf16 causal, from the forward's lse, beside its bound
+    (the gradient's five products, q·kᵀ again, dO·vᵀ, Pᵀ·dO, dSᵀ·q and
+    dS·k over the causal half: B·H·S²·(3 dh + 2 dv), 2.5 times the
+    forward's where dv = dh; q, k, v, o, dO and the lse read, dq, dk and dv
+    written once) and the time of the products its design runs at the
+    card's peak (seven at (64, 64), eight at the wider pairs), the plain
+    backward's time (by groups of KV heads past PLAIN_WHOLE_HEADS heads)
+    and the backward of `scaled_dot_product_attention` by its fastest
+    fused backend."""
+    b, s, h, kv, dh = shape[:5]
+    dv = shape[5] if len(shape) > 5 else dh
     g = torch.Generator(device=DEVICE).manual_seed(seed + 17)
     q, k, v = attention_inputs(shape, torch.bfloat16, g)
     o, lse = fa_ops.flash_attention_fwd(q, k, v)
     do = torch.randn(o.shape, generator=g, device=DEVICE).to(q.dtype)
     ms = cuda_ms(lambda: fa_ops.flash_attention_bwd(q, k, v, o, do,
                                                     lse=lse), 10)
-    plain_ms = cuda_ms(lambda: plain_attention_bwd(q, k, v, o, do), 2)
+    plain_ms = cuda_ms(lambda: by_kv_groups(plain_attention_bwd, q, k, v, o,
+                                            do), 2)
     group = h // kv
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in
                        (q, k.repeat_interleave(group, dim=2),
                         v.repeat_interleave(group, dim=2), do))
     lib_ms = fused_sdpa_bwd_ms(qt, kt, vt, dot)
-    ops = 2.5 * b * h * s * s * (dh + dh)
-    moved = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    del qt, kt, vt, dot
+    ops = b * h * s * s * (3 * dh + 2 * dv)
+    extra = dh if fa_ops.BWD_DKDV_LAUNCHES[dh] > 1 else 0
+    design = b * h * s * s * (4 * dh + 3 * dv + extra)
+    n_products = 7 + (extra > 0)
+    moved = 2 * 2 * (q.numel() + k.numel() + v.numel() + o.numel()) \
+        + 4 * lse.numel()
     t_ops = ops / BF16_OPS_PER_S * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes \
         else (t_bytes, "bytes")
     row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": lib_ms}
-    print(f"flash_attention_bwd at (B, S, H, KV, dh) = {shape}, bf16 causal: "
-          f"{json.dumps(row)}; its seven products at the card's peak "
-          f"{7 / 5 * t_ops:.4f} ms ({7 / 5 * t_ops / ms:.3f} of its time), "
-          f"the five of the bound {t_ops / ms:.3f}")
+    t_design = design / BF16_OPS_PER_S * 1e3
+    print(f"flash_attention_bwd at (B, S, H, KV, dh, dv) = "
+          f"{(b, s, h, kv, dh, dv)}, bf16 causal: {json.dumps(row)}; its "
+          f"{n_products} products at "
+          f"the card's peak {t_design:.4f} ms ({t_design / ms:.3f} of its "
+          f"time), the five of the bound {t_ops / ms:.3f}; "
+          f"{ms / lib_ms:.3f}x the library's")
+    del q, k, v, o, lse, do
     return row
 
 
 def flash_bwd_phase(seed: int) -> tuple:
-    """Phase 20: the backward kernel against its plain backward, and its
-    times at smollm's and musicgen's shapes; returns (the largest |kernel -
-    plain| at smollm's shape in bf16, the row at smollm's shape)."""
+    """Phase 20: the backward kernel against its plain backward over
+    FA_BWD_CASES, and its times at the training shapes; returns ({shape:
+    the largest |kernel - plain| in bf16}, {shape: the row of times}) at
+    smollm's, musicgen's, yi-6b's, llama4's and deepseek-v2's shapes."""
     g = torch.Generator(device=DEVICE).manual_seed(seed + 19)
-    err = 0.0
+    errs = {}
     for shape, causal in FA_BWD_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             e = hold_flash_bwd(shape, dtype, causal, g)
-            if shape == FA_PREFILL and dtype == torch.bfloat16:
-                err = e
+            if dtype == torch.bfloat16 and causal:
+                errs[shape] = e
             torch.cuda.empty_cache()
-    row = flash_bwd_row(FA_PREFILL, seed)
-    flash_bwd_row(FA_MUSICGEN, seed)
-    torch.cuda.empty_cache()
-    return err, row
+    rows = {}
+    for shape in (FA_PREFILL, FA_MUSICGEN, FA_YI, FA_LLAMA4, FA_DSV2):
+        rows[shape] = flash_bwd_row(shape, seed)
+        torch.cuda.empty_cache()
+    return errs, rows
 
 
 # -- phase 21 ------------------------------------------------------------------
@@ -4105,14 +4194,17 @@ def same_tensors(a: dict, b: dict) -> bool:
         a[n].dtype == b[n].dtype and torch.equal(a[n], b[n]) for n in a)
 
 
-def train_cell(model, cfg, seed: int, card: str) -> dict:
-    """Phase 21's training: `make_train_step` with remat and accumulation
-    on `lm_batches`; per step its wall, tokens/s, mfu by
+def train_cell(model, cfg, seed: int, card: str, steps: int = TRAIN_STEPS,
+               profile: bool = True) -> dict:
+    """Phases 21 and 24's training: `make_train_step` with remat and
+    accumulation on `lm_batches` (by codebook where cfg has several); one
+    untimed step, then `steps`; per step its wall, tokens/s, mfu by
     `train_flops_analytic`, peak device memory and flash_attention's
-    forward and backward launches (a microbatch runs each layer's forward,
-    its recompute and its backward once); then one more step under the
-    profiler. Returns the optimizer state and the last timed step's
-    numbers."""
+    forward and backward launches, exactly (a microbatch runs each
+    layer's forward, its recompute and its backward once); then, with
+    `profile`, one more step under the profiler. Returns the optimizer
+    state and the last timed step's numbers, with the backward's launches
+    over every step it ran before the profiled one (`bwd_launches`)."""
     opts = TrainOptions(grad_accum=TRAIN_ACCUM, adamw=adamw.AdamWConfig(
         lr=1e-4, warmup_steps=2, total_steps=100))
     step = make_train_step(cfg, opts)
@@ -4121,9 +4213,11 @@ def train_cell(model, cfg, seed: int, card: str) -> dict:
     want = {"flash_attention": 2 * TRAIN_ACCUM * cfg.num_layers,
             "flash_attention_bwd": TRAIN_ACCUM * cfg.num_layers}
     flops = modellib.train_flops_analytic(cfg, b, s)
-    out = {}
-    for i, batch in enumerate(codebook_batches(cfg, seed, TRAIN_STEPS + 1,
-                                               TRAIN_SHAPE)):
+    batches = (codebook_batches(cfg, seed, steps + 1, TRAIN_SHAPE)
+               if cfg.num_codebooks > 1
+               else lm_batches(seed, steps + 1, b, s, cfg.vocab_size))
+    out, bwd = {}, 0
+    for i, batch in enumerate(batches):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(want)
@@ -4134,6 +4228,7 @@ def train_cell(model, cfg, seed: int, card: str) -> dict:
         launches = {name: COUNTERS[name].count for name in want}
         check(launches == want, f"{cfg.name} train step {i} launched "
               f"{launches}, expected {want}")
+        bwd += launches["flash_attention_bwd"]
         loss, gnorm = float(met["loss"]), float(met["grad_norm"])
         check(math.isfinite(loss) and math.isfinite(gnorm),
               f"{cfg.name} train step {i}: loss {loss}, grad_norm {gnorm}")
@@ -4141,14 +4236,19 @@ def train_cell(model, cfg, seed: int, card: str) -> dict:
                "mfu": flops / wall / BF16_OPS_PER_S,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                "loss": loss, "grad_norm": gnorm}
+        books = (f" x {cfg.num_codebooks} codebooks"
+                 if cfg.num_codebooks > 1 else "")
         print(f"{cfg.name} train step {i}{' (warm-up)' if i == 0 else ''}: "
-              f"({b}, {s}) x {cfg.num_codebooks} codebooks, grad_accum "
+              f"({b}, {s}){books}, grad_accum "
               f"{TRAIN_ACCUM}, remat {cfg.remat}: loss {loss:.5f}, ce "
               f"{float(met['ce']):.5f}, grad_norm {gnorm:.5f}, lr "
               f"{float(met['lr']):.3g}; wall {wall:.4f} s, "
               f"{out['tokens_s']:.1f} tokens/s, mfu {out['mfu']:.4f} "
               f"(train_flops_analytic {flops:.4g}), peak "
               f"{out['peak_gb']:.2f} GB, launches {launches} ({card})")
+    out["bwd_launches"] = bwd
+    if not profile:
+        return opt, out
     state = [opt]
 
     def profiled():
@@ -4692,6 +4792,58 @@ def cp_kernel_row(cp_row: dict) -> dict:
                         "the keys up to its last row, Sk > Sq)", **cp_row}
 
 
+# -- phase 24 ------------------------------------------------------------------
+
+# Training at the backward kernel's wider pairs, at full width, cut in
+# depth to what one card holds beside AdamW's float32 moments and the
+# float32 gradient sums of two microbatches: yi-6b (attention at (128,
+# 128)) cut to 8 of its 32 layers, 1.91e9 parameters; deepseek-v2-236b
+# (MLA at (192, 128)) cut to its first block, the dense one (MLA and a
+# dense MLP), 1.39e9 parameters with the embeddings and the head (one MoE
+# block would add about 4.0e9, 48 GB with its moments). TRAIN_WIDE_STEPS
+# timed steps each after one warm-up step, no profile.
+TRAIN_WIDE = {"yi-6b": 8, DSV2: 1}
+TRAIN_WIDE_STEPS = 1
+
+
+def wide_train_phase(seed: int, card: str) -> dict:
+    """Phase 24: `make_train_step` with remat="block" and grad_accum
+    TRAIN_ACCUM at TRAIN_SHAPE for each config of TRAIN_WIDE, through
+    phase 21's `train_cell`: flash_attention exactly twice and its
+    backward once a layer a microbatch, loss and grad_norm finite, each
+    step's wall, tokens/s, train mfu and peak memory printed. Returns
+    {arch: flash_attention_bwd launches over its steps}."""
+    launches = {}
+    for arch, depth in TRAIN_WIDE.items():
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config(arch), num_layers=depth,
+                                  remat="block")
+        dims = attention_head_dims(cfg)
+        print(f"{arch} cut to {depth} of {get_config(arch).num_layers} "
+              f"layers at full width: {modellib.count_params_analytic(cfg)} "
+              f"parameters, attention at (dh, dv) = {dims}")
+        model = init_model(cfg, seed)
+        _, out = train_cell(model, cfg, seed, card, steps=TRAIN_WIDE_STEPS,
+                            profile=False)
+        launches[arch] = out["bwd_launches"]
+        print(f"phase 24 {arch}: {json.dumps(out)} ({card})")
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
+def bwd_kernel_row(name: str, shape, launches: int, errs: dict,
+                   rows: dict) -> dict:
+    """A row of the kernels line for the backward kernel at `shape`."""
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:94 (its gradient, which "
+                        "the JAX package takes by autodiff of jnp "
+                        "attention)",
+            "launches": launches, "max_abs_err": errs[shape], **rows[shape]}
+
+
 class Phases:
     """Wall time of each phase, printed as it ends and summed at the end."""
 
@@ -4869,7 +5021,7 @@ def main() -> None:
         root = pathlib.Path(tmpdir)
         bwd_name = "20 flash_attention backward"
         with phase(bwd_name):
-            bwd_err, bwd_row = flash_bwd_phase(args.seed)
+            bwd_errs, bwd_rows = flash_bwd_phase(args.seed)
         music_name = "21 musicgen-medium: prefill, decode, train, checkpoint"
         with phase(music_name):
             musicgen_phase(args.seed, card, root / "musicgen")
@@ -4880,7 +5032,10 @@ def main() -> None:
     mesh_name = "23 launch and sharding on a DeviceMesh"
     with phase(mesh_name):
         cp_row = mesh_phase(args.seed, card)
-    for name in (bwd_name, music_name, proxy_name, mesh_name):
+    wide_name = "24 train at head dim 128 and MLA"
+    with phase(wide_name):
+        wide_launches = wide_train_phase(args.seed, card)
+    for name in (bwd_name, music_name, proxy_name, mesh_name, wide_name):
         print(f"phase {name.split()[0]} wall: {phase.walls[name]:.3f} s "
               f"({card})")
     print(phase.total())
@@ -4924,15 +5079,13 @@ def main() -> None:
                  "source": "src/repro_torch/csrc/flash_attention.cu",
                  "replaces": "src/repro/kernels/flash_attention/"
                              "flash_attention.py:94", **mla_row})
-    rows.append({"name": "flash_attention_bwd", "route": "cuda",
-                 "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
-                 "replaces": "src/repro/kernels/flash_attention/"
-                             "flash_attention.py:94 (its gradient, which "
-                             "the JAX package takes by autodiff of jnp "
-                             "attention)",
-                 "launches": bwd_launches, "max_abs_err": bwd_err,
-                 **bwd_row})
+    rows.append(bwd_kernel_row("flash_attention_bwd", FA_PREFILL,
+                               bwd_launches, bwd_errs, bwd_rows))
     rows.append(cp_kernel_row(cp_row))
+    rows.append(bwd_kernel_row("flash_attention_bwd_dh128", FA_YI,
+                               wide_launches["yi-6b"], bwd_errs, bwd_rows))
+    rows.append(bwd_kernel_row("flash_attention_bwd_mla", FA_DSV2,
+                               wide_launches[DSV2], bwd_errs, bwd_rows))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

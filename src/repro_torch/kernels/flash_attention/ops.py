@@ -1,7 +1,8 @@
 """Wrapper of the flash attention kernels: the CUDA kernels
 ``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
-(its gradient, at (dh, dv) = (64, 64)) for CUDA tensors, the plain
-versions (`ref.attention_ref`, `ref.attention_bwd_ref`) for CPU ones.
+(its gradient) for CUDA tensors, both at (dh, dv) = (64, 64), (128, 128)
+and (192, 128), the plain versions (`ref.attention_ref`,
+`ref.attention_bwd_ref`) for CPU ones.
 `flash_attention` is a `torch.autograd.Function`: its backward is the
 backward kernel on the card and the plain backward on the CPU.
 
@@ -43,7 +44,7 @@ from repro_torch.kernels.flash_attention import ref
 # (q·k head dim, v head dim) pairs the CUDA kernels take: the forward's,
 # and the backward's
 HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
-BWD_HEAD_DIMS = ((64, 64),)
+BWD_HEAD_DIMS = HEAD_DIMS
 DTYPES = (torch.bfloat16, torch.float32)
 _MAX_GRID = 65_535         # the launch grids' y and z dimensions
 
@@ -260,9 +261,9 @@ def _bwd_lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     geom = ctypes.POINTER(ctypes.c_longlong)
     lib.flash_attention_bwd_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, geom, geom, i32,
-        i32, i32, i32, i32, i32, i32, ctypes.c_float, ctypes.c_float, i32,
-        i32, ptr, ptr]
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, geom, geom, geom,
+        geom, i32, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float,
+        ctypes.c_float, i32, i32, i32, i32, i32, ptr, ptr]
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -276,8 +277,8 @@ def check_backward(head_dim: int, v_dim: int, s: int = 1,
     if (head_dim, v_dim) not in BWD_HEAD_DIMS:
         raise ValueError(
             f"the flash_attention backward kernel takes (head_dim, v_dim) "
-            f"in {BWD_HEAD_DIMS}, got {(head_dim, v_dim)}: the other pairs "
-            f"are queued in ROADMAP.md")
+            f"in {BWD_HEAD_DIMS}, the forward kernel's pairs, got "
+            f"{(head_dim, v_dim)}")
     if s_k != s:
         raise ValueError(
             f"the flash_attention backward kernel takes as many keys as "
@@ -285,26 +286,79 @@ def check_backward(head_dim: int, v_dim: int, s: int = 1,
             f"queued in ROADMAP.md")
 
 
-# The bf16 backward's two persistent launches (csrc/flash_attention_bwd.cu):
-# dq over work tiles of BWD_DQ_ROWS query rows of one head, dk and dv over
-# work tiles of BWD_DKDV_KEYS keys of one KV head; each one CTA an SM up to
-# its work, with the forward's 384 threads.
+# The bf16 backward's persistent launches (csrc/flash_attention_bwd.cu,
+# `BwdLayout` and `KvLayout`), each one CTA an SM up to its work, with the
+# forward's 384 threads. `dq_wgmma` takes work tiles of BWD_DQ_ROWS query
+# rows of one head, streams k and v in stages of BWD_DQ_KEYS[head_dim]
+# keys through a ring of BWD_DQ_STAGES stages and buffers q and dO
+# BWD_DQ_QBUFS deep. `dkdv_wgmma` takes work tiles of BWD_DKDV_KEYS keys
+# of one KV head and streams q, dO, lse and D through a ring: once for dk
+# and dv at head dim 64, and at the wider pairs once for dv and once for
+# dk (a consumer thread holds 168 registers), in stages of
+# BWD_KV_ROWS[head_dim] = (dv's, dk's) query rows. Tiles are 64-column
+# blocks of 128-byte rows, as the forward's.
 BWD_DQ_ROWS = 128
 BWD_DKDV_KEYS = 128
+BWD_DQ_KEYS = {64: 64, 128: 64, 192: 32}
+BWD_DQ_STAGES = {64: 4, 128: 3, 192: 6}
+BWD_DQ_QBUFS = {64: 2, 128: 2, 192: 1}
+BWD_KV_ROWS = {64: (64, 64), 128: (64, 64), 192: (64, 32)}
+BWD_DKDV_LAUNCHES = {64: 1, 128: 2, 192: 2}
+_SMEM = 232_448 - 128       # a CTA's dynamic shared memory beside its bars
 
 
-def bwd_launch_plan(q: torch.Tensor, k: torch.Tensor, sms: int) -> dict:
+def _kv_smem(head_dim: int, v_dim: int, rows: int, with_v: bool) -> int:
+    """Dynamic shared memory of a `dkdv_wgmma` launch: k (and v) of 128
+    keys and as many stages of `rows` rows of q and dO and `rows` floats
+    of lse and D, each padded to 1024 bytes, as fit (4 at head dim 64),
+    plus 1024 bytes of alignment."""
+    ring = 2 * BWD_DKDV_KEYS * (head_dim + (v_dim if with_v else 0))
+    stage = -(-(2 * rows * (head_dim + v_dim) + 2 * 4 * rows) // 1024) * 1024
+    stages = 4 if head_dim == 64 else (_SMEM - 1024 - ring) // stage
+    return ring + stages * stage + 1024
+
+
+def bwd_smem_bytes(head_dim: int, v_dim: int) -> Tuple[int, int, int]:
+    """Dynamic shared memory of the `dq_wgmma`, dv and dk launches at
+    (`head_dim`, `v_dim`), 2 bytes an element (dv's and dk's are the one
+    dk/dv launch's at head dim 64): dq's q and dO buffers and its ring of
+    k and v stages, plus 1024 bytes to align the base to the swizzle's
+    1024-byte pattern; `_kv_smem` for the others (the dv launch holds no
+    v)."""
+    width = head_dim + v_dim
+    dq = 2 * (BWD_DQ_QBUFS[head_dim] * BWD_DQ_ROWS * width
+              + BWD_DQ_STAGES[head_dim] * BWD_DQ_KEYS[head_dim] * width) \
+        + 1024
+    dv_rows, dk_rows = BWD_KV_ROWS[head_dim]
+    both = head_dim == 64
+    return (dq, _kv_smem(head_dim, v_dim, dv_rows, both),
+            _kv_smem(head_dim, v_dim, dk_rows, True))
+
+
+def bwd_launch_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    sms: int) -> dict:
     """The bf16 backward's launches on a card of `sms` SMs: each kernel's
-    work tiles and persistent CTAs, the columns of its lse and D buffers,
-    and the tensor maps of q (and dO, laid out as q) and of k (and v)."""
-    b, s, h, _ = q.shape
+    work tiles and persistent CTAs, the dynamic shared memory of the dq,
+    dv and dk launches, dq's keys and dv's and dk's query rows a stage,
+    how many dk/dv launches (1, or 2 at the wider pairs), the columns of
+    the lse and D buffers, and the tensor maps of q, k, v and dO
+    (contiguous (B, S, H, dv), as the wrapper makes it)."""
+    b, s, h, dh = q.shape
+    dv = v.shape[3]
     dq_work = -(-s // BWD_DQ_ROWS) * h * b
     dkdv_work = -(-s // BWD_DKDV_KEYS) * k.shape[2] * b
+    dq_smem, dv_smem, dk_smem = bwd_smem_bytes(dh, dv)
     return {"dq_work": dq_work, "dq_ctas": min(dq_work, sms),
             "dkdv_work": dkdv_work, "dkdv_ctas": min(dkdv_work, sms),
             "threads": BF16_THREADS, "s_pad": lse_rows(s),
+            "dq_smem_bytes": dq_smem, "dv_smem_bytes": dv_smem,
+            "dk_smem_bytes": dk_smem, "dq_keys": BWD_DQ_KEYS[dh],
+            "kv_rows": BWD_KV_ROWS[dh],
+            "dkdv_launches": BWD_DKDV_LAUNCHES[dh],
             "q_geom": tensor_map_geometry(q),
-            "k_geom": tensor_map_geometry(k)}
+            "k_geom": tensor_map_geometry(k),
+            "v_geom": tensor_map_geometry(v),
+            "do_geom": (dv, h, s, b, 2 * dv, 2 * h * dv, 2 * s * h * dv)}
 
 
 def _check_lse(lse, b: int, h: int, s: int, device) -> None:
@@ -329,10 +383,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradient of `flash_attention`: (dq, dk, dv) in the inputs'
     dtype, given its output o (B,S,H,dv), its rows' logsumexp `lse`
     (B,H,S) from `flash_attention_fwd`, and dL/do. The backward kernel on
-    CUDA tensors ((dh, dv) = (64, 64) and Sk = S; bf16: two launches on
-    one stream, float32: three; counted once), where a missing or
-    mis-shaped lse raises; `ref.attention_bwd_ref` on CPU ones (with `lse`
-    if given, and any Sk)."""
+    CUDA tensors ((dh, dv) in `BWD_HEAD_DIMS` and Sk = S; bf16: two
+    launches on one stream, three at the wider pairs; float32: three;
+    counted once), where a missing or mis-shaped lse raises;
+    `ref.attention_bwd_ref` on CPU ones (with `lse` if given, and any
+    Sk)."""
     if not _on_card(q, k, v, o, do):
         dq, dk, dv = ref.attention_bwd_ref(*_heads_first(q, k, v, o, do),
                                            causal, lse=lse)
@@ -349,9 +404,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{t.dtype}")
     _check_lse(lse, b, h, s, q.device)
     lib = _bwd_lib()
-    plan = bwd_launch_plan(q, k, _sm_count(q.device.index))
+    plan = bwd_launch_plan(q, k, v, _sm_count(q.device.index))
     geoms = [(ctypes.c_longlong * 7)(*plan[name])
-             for name in ("q_geom", "k_geom")]
+             for name in ("q_geom", "k_geom", "v_geom", "do_geom")]
     with torch.cuda.device(q.device):
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         delta = torch.empty((b, h, plan["s_pad"]), dtype=torch.float32,
@@ -361,9 +416,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), delta.data_ptr(), *geoms, b, s, h, k.shape[2],
-            plan["s_pad"], int(causal), int(q.dtype == torch.bfloat16),
+            dh, v.shape[3], plan["s_pad"], int(causal),
+            int(q.dtype == torch.bfloat16),
             math.log2(math.e) / math.sqrt(dh), 1.0 / math.sqrt(dh),
-            plan["dq_ctas"], plan["dkdv_ctas"],
+            plan["dq_ctas"], plan["dkdv_ctas"], plan["dq_smem_bytes"],
+            plan["dv_smem_bytes"], plan["dk_smem_bytes"],
             _work_counter(q.device, stream).data_ptr(), stream)
     _build.check(status, lib.flash_attention_bwd_error_string,
                  "flash_attention_bwd")

@@ -21,8 +21,9 @@ each moment's parameter spec plus the data axes) and batch on a mesh, and
 itself runs on one process: its gradients are not reduced over a mesh.
 A config whose training path has no backward kernel raises
 NotImplementedError: Mamba2 and RWKV6 blocks (linear_scan has no backward
-kernel yet), and on the card attention at head dims other than
-flash_attention_bwd's (64, 64).
+kernel yet), and on the card attention at head dims flash_attention_bwd
+does not take (it takes the forward kernel's (64, 64), (128, 128) and
+(192, 128)).
 """
 from __future__ import annotations
 
@@ -54,10 +55,10 @@ def attention_head_dims(cfg):
 
 
 def check_trainable(cfg, device=None) -> None:
-    """Raise NotImplementedError, naming ROADMAP.md, where cfg's training
-    path on `device` has no backward kernel: Mamba2 and RWKV6 blocks on any
-    device, and on a CUDA device attention at head dims the flash_attention
-    backward kernel does not take."""
+    """Raise NotImplementedError where cfg's training path on `device`
+    has no backward kernel: Mamba2 and RWKV6 blocks on any device (queued
+    in ROADMAP.md), and on a CUDA device attention at head dims the
+    flash_attention backward kernel does not take."""
     if cfg.block in ("mamba", "rwkv"):
         raise NotImplementedError(
             f"{cfg.name}: training {cfg.block} blocks needs a linear_scan "
@@ -67,8 +68,7 @@ def check_trainable(cfg, device=None) -> None:
         if dims not in fa_ops.BWD_HEAD_DIMS:
             raise NotImplementedError(
                 f"{cfg.name}: the flash_attention backward kernel takes "
-                f"(head_dim, v_dim) in {fa_ops.BWD_HEAD_DIMS}, not {dims}; "
-                f"the other pairs are queued in ROADMAP.md")
+                f"(head_dim, v_dim) in {fa_ops.BWD_HEAD_DIMS}, not {dims}")
 
 
 def make_loss_fn(cfg):

@@ -1518,23 +1518,26 @@ def test_flash_attention_forward_lse_matches_plain(card, b, s, h, kv, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dh,dv", [(64, 64), (128, 128), (192, 128)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,s,h,kv", [(2, 200, 4, 2), (1, 333, 3, 3),
                                       (2, 64, 6, 1), (1, 130, 6, 6),
                                       (1, 257, 12, 2)])
 def test_flash_attention_bwd_kernel_matches_plain(card, b, s, h, kv, causal,
-                                                  dtype):
+                                                  dtype, dh, dv):
     """dq, dk and dv of the backward kernel, given the forward's lse,
     against the plain backward in float32 from the same inputs (bf16
     within BWD_BF16_ATOL + 2^-7 |plain|, float32 within 2e-5 abs + rel);
     two calls bitwise equal. The shapes reach the grid's edges: S not a
-    multiple of the 64- and 128-row tiles, H/KV of 1, 2, 3 and 6."""
-    g = torch.Generator(device=card).manual_seed(s + h)
-    q = torch.randn(b, s, h, 64, generator=g, device=card).to(dtype)
-    k = torch.randn(b, s, kv, 64, generator=g, device=card).to(dtype)
-    v = torch.randn(b, s, kv, 64, generator=g, device=card).to(dtype)
-    do = torch.randn(b, s, h, 64, generator=g, device=card).to(dtype)
+    multiple of the 32-, 64- and 128-row tiles, H/KV of 1, 2, 3 and 6, at
+    each (dh, dv) pair of the kernel; every column block of dq and dk (the
+    MN-major operands span dh/64 swizzle atoms) is held."""
+    g = torch.Generator(device=card).manual_seed(s + h + dh)
+    q = torch.randn(b, s, h, dh, generator=g, device=card).to(dtype)
+    k = torch.randn(b, s, kv, dh, generator=g, device=card).to(dtype)
+    v = torch.randn(b, s, kv, dv, generator=g, device=card).to(dtype)
+    do = torch.randn(b, s, h, dv, generator=g, device=card).to(dtype)
     o, lse = fa_ops.flash_attention_fwd(q, k, v, causal=causal)
     before = fa_ops.bwd_launches.count
     got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
@@ -1556,6 +1559,25 @@ def test_flash_attention_bwd_kernel_matches_plain(card, b, s, h, kv, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dh,dv", [(128, 128), (192, 128)])
+def test_flash_attention_bwd_repeats_bitwise_at_the_wide_pairs(card, dh, dv):
+    """Three bf16 calls of the backward kernel at a wider pair (its three
+    launches, dq then dv then dk, over many work tiles and CTAs) give the
+    same bits: no sum depends on which CTA takes which tile."""
+    g = torch.Generator(device=card).manual_seed(dh)
+    b, s, h, kv = 2, 1000, 12, 2
+    q, k = (torch.randn(b, s, n, dh, generator=g, device=card)
+            .to(torch.bfloat16) for n in (h, kv))
+    v = torch.randn(b, s, kv, dv, generator=g, device=card).to(torch.bfloat16)
+    o, lse = fa_ops.flash_attention_fwd(q, k, v)
+    do = torch.randn(o.shape, generator=g, device=card).to(torch.bfloat16)
+    first = fa_ops.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    for _ in range(2):
+        again = fa_ops.flash_attention_bwd(q, k, v, o, do, lse=lse)
+        assert all(torch.equal(a, c) for a, c in zip(first, again))
+
+
+@pytest.mark.cuda
 def test_flash_attention_bwd_on_the_card_needs_the_lse(card):
     """A missing lse, or one not laid out as the forward keeps it, raises
     before any launch."""
@@ -1574,8 +1596,8 @@ def test_flash_attention_bwd_on_the_card_needs_the_lse(card):
 @pytest.mark.cuda
 def test_flash_attention_gradient_on_the_card_is_the_kernel(card):
     """Autograd through `flash_attention` on CUDA tensors runs the backward
-    kernel once, from the lse its forward kept; other head dims raise,
-    naming ROADMAP.md."""
+    kernel once, from the lse its forward kept, at (64, 64) and at the
+    wider pairs (128, 128) and (192, 128)."""
     q, k, v = (torch.randn(1, 128, 2, 64, device=card, requires_grad=True)
                for _ in range(3))
     before = fa_ops.bwd_launches.count
@@ -1586,24 +1608,35 @@ def test_flash_attention_gradient_on_the_card_is_the_kernel(card):
     lse = bwd.call_args.kwargs["lse"]
     _, want = fa_ops.flash_attention_fwd(*(x.detach() for x in (q, k, v)))
     assert torch.equal(lse, want)
-    q, k, v = (torch.randn(1, 128, 2, 128, device=card, dtype=torch.bfloat16,
-                           requires_grad=True) for _ in range(3))
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        fa_ops.flash_attention(q, k, v).sum().backward()
+    for dh, dv in ((128, 128), (192, 128)):
+        q, k = (torch.randn(1, 200, 2, dh, device=card, dtype=torch.bfloat16,
+                            requires_grad=True) for _ in range(2))
+        v = torch.randn(1, 200, 2, dv, device=card, dtype=torch.bfloat16,
+                        requires_grad=True)
+        before = fa_ops.bwd_launches.count
+        fa_ops.flash_attention(q, k, v).float().sum().backward()
+        assert fa_ops.bwd_launches.count == before + 1
+        assert q.grad.shape == q.shape and v.grad.shape == v.shape
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch,accum", [("smollm-360m", 2),
-                                        ("musicgen-medium", 1)])
-def test_train_steps_on_the_card_match_cpu(card, arch, accum):
-    """Three float32 train steps of a narrow model at head dim 64 (remat
-    on) on the card against the same weights and batches on the CPU: the
-    metrics within 1e-5 relative, the weights within lr (as the CPU test
-    holds the port to the reference), one backward launch a layer a
-    microbatch."""
+@pytest.mark.parametrize("arch,accum,change", [
+    ("smollm-360m", 2, dict(head_dim=64)),
+    ("musicgen-medium", 1, dict(head_dim=64)),
+    ("yi-6b", 2, dict(head_dim=128)),
+    ("deepseek-v2-236b", 1, dict(num_layers=1, qk_nope_head_dim=128,
+                                 qk_rope_head_dim=64, v_head_dim=128))],
+    ids=["smollm-64", "musicgen-64", "yi-128", "deepseek-v2-mla-192-128"])
+def test_train_steps_on_the_card_match_cpu(card, arch, accum, change):
+    """Three float32 train steps of a narrow model (remat on) at each head
+    dim pair of the backward kernel, (64, 64), (128, 128) and MLA's
+    (128 + 64, 128) (deepseek-v2 cut to its dense MLA block), on the card
+    against the same weights and batches on the CPU: the metrics within
+    1e-5 relative, the weights within lr (as the CPU test holds the port to
+    the reference), one backward launch a layer a microbatch."""
     cfg = dataclasses.replace(configs.get_smoke_config(arch), d_model=128,
-                              num_heads=2, num_kv_heads=2, head_dim=64,
-                              remat="block")
+                              num_heads=2, num_kv_heads=2, remat="block",
+                              **change)
     opts = train.TrainOptions(grad_accum=accum, adamw=adamw.AdamWConfig(
         lr=1e-3, warmup_steps=1, total_steps=10))
     runs = {}

@@ -477,28 +477,55 @@ def test_flash_bf16_launch_plan(b, s, h, kv, dh):
                for x in plan[name][4:])
 
 
-@pytest.mark.parametrize("b,s,h,kv", [
-    (4, 4096, 15, 5),      # smollm-360m training
-    (4, 4096, 24, 24),     # musicgen-medium training
-    (2, 1000, 12, 2),      # ragged S, GQA 6
-    (1, 1, 2, 1)])
-def test_flash_bwd_launch_plan(b, s, h, kv):
-    """The bf16 backward's two launches: dq over 128-row query tiles of
-    every head and batch, dk and dv over 128-key tiles of every KV head
-    and batch, each one CTA an SM up to its work, 384 threads; lse and D
-    in rows of S rounded up to 128; tensor maps of q and k from their
-    strides."""
-    q = torch.empty(b, s, h, 64, dtype=torch.bfloat16, device="meta")
-    k = torch.empty(b, s, kv, 64, dtype=torch.bfloat16, device="meta")
-    plan = fa_ops.bwd_launch_plan(q, k, sms=132)
+@pytest.mark.parametrize("b,s,h,kv,dh,dv", [
+    (4, 4096, 15, 5, 64, 64),      # smollm-360m training
+    (4, 4096, 24, 24, 64, 64),     # musicgen-medium training
+    (2, 1000, 12, 2, 64, 64),      # ragged S, GQA 6
+    (1, 1, 2, 1, 64, 64),
+    (4, 4096, 32, 4, 128, 128),    # yi-6b training
+    (2, 1000, 12, 2, 128, 128),
+    (4, 4096, 128, 128, 192, 128),  # deepseek-v2's MLA training
+    (1, 200, 4, 2, 192, 128)])
+def test_flash_bwd_launch_plan(b, s, h, kv, dh, dv):
+    """The bf16 backward's launches: dq over 128-row query tiles of every
+    head and batch, dk and dv over 128-key tiles of every KV head and batch
+    (one launch for both at head dim 64, one each at the wider pairs), each
+    one CTA an SM up to its work, 384 threads; dq's key stages (64 keys,
+    32 at dh 192) and dv's and dk's query stages (64 rows, 32 for dk at dh
+    192) with the dynamic shared memory of their rings, within a CTA's
+    227 KB less its barriers; lse and D in rows of S rounded up to 128;
+    tensor maps of q, k and v from their strides and of dO as a contiguous
+    (B, S, H, dv), each stride a multiple of 16 bytes."""
+    q = torch.empty(b, s, h, dh, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(b, s, kv, dh, dtype=torch.bfloat16, device="meta")
+    v = torch.empty(b, s, kv, dv, dtype=torch.bfloat16, device="meta")
+    plan = fa_ops.bwd_launch_plan(q, k, v, sms=132)
     assert plan["dq_work"] == -(-s // 128) * h * b
     assert plan["dkdv_work"] == -(-s // 128) * kv * b
     assert plan["dq_ctas"] == min(plan["dq_work"], 132)
     assert plan["dkdv_ctas"] == min(plan["dkdv_work"], 132)
     assert plan["threads"] == 384
     assert plan["s_pad"] == fa_ops.lse_rows(s) == -(-s // 128) * 128
+    assert plan["dkdv_launches"] == (1 if dh == 64 else 2)
+    assert plan["dq_keys"] == {64: 64, 128: 64, 192: 32}[dh]
+    assert plan["kv_rows"] == {64: (64, 64), 128: (64, 64),
+                               192: (64, 32)}[dh]
+    smem = (plan["dq_smem_bytes"], plan["dv_smem_bytes"],
+            plan["dk_smem_bytes"])
+    assert smem == {64: (132_096, 103_424, 103_424),
+                    128: (230_400, 202_752, 201_728),
+                    192: (205_824, 218_112, 211_968)}[dh]
+    assert max(smem) <= 232_448 - 128
     assert plan["q_geom"] == fa_ops.tensor_map_geometry(q)
-    assert plan["k_geom"] == (64, kv, s, b, 128, 128 * kv, 128 * s * kv)
+    assert plan["k_geom"] == (dh, kv, s, b, 2 * dh, 2 * kv * dh,
+                              2 * s * kv * dh)
+    assert plan["v_geom"] == (dv, kv, s, b, 2 * dv, 2 * kv * dv,
+                              2 * s * kv * dv)
+    assert plan["do_geom"] == fa_ops.tensor_map_geometry(
+        torch.empty(b, s, h, dv, dtype=torch.bfloat16, device="meta"))
+    assert all(x % 16 == 0 for name in ("q_geom", "k_geom", "v_geom",
+                                        "do_geom")
+               for x in plan[name][4:])
 
 
 def test_check_lse_takes_only_the_forwards_layout():

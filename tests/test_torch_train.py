@@ -349,26 +349,35 @@ def test_linear_scan_families_cannot_train_yet(arch):
 
 @pytest.mark.parametrize("arch,ok", [("smollm-360m", True),
                                      ("musicgen-medium", True),
-                                     ("yi-6b", False),
-                                     ("deepseek-v2-236b", False)])
+                                     ("yi-6b", True),
+                                     ("deepseek-v2-236b", True),
+                                     ("yi-6b-smoke", False)])
 def test_card_training_needs_the_backward_kernels_head_dims(arch, ok):
-    """On the card only attention at (64, 64) trains (the backward
-    kernel's pair); on the CPU the plain backward takes any."""
-    cfg = configs.get_config(arch)
+    """On the card attention trains at the backward kernel's pairs: (64,
+    64) for smollm and musicgen, (128, 128) for yi-6b, (192, 128) for
+    deepseek-v2's MLA; a smoke config's (16, 16) is refused there. On the
+    CPU the plain backward takes any."""
+    cfg = (configs.get_smoke_config(arch[:-len("-smoke")])
+           if arch.endswith("-smoke") else configs.get_config(arch))
     train.check_trainable(cfg, "cpu")
     if ok:
         train.check_trainable(cfg, "cuda")
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(NotImplementedError, match="not \\(16, 16\\)"):
             train.check_trainable(cfg, "cuda")
 
 
 def test_backward_kernel_refuses_other_head_dims():
+    """The backward kernel takes the forward's three pairs and no other;
+    at Sk != S it raises, naming ROADMAP.md (queued there)."""
     from repro_torch.kernels.flash_attention import ops
-    ops.check_backward(64, 64)
-    for dims in ((128, 128), (192, 128)):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
+    for dims in ((64, 64), (128, 128), (192, 128)):
+        ops.check_backward(*dims)
+    for dims in ((16, 16), (128, 64), (64, 128), (192, 192)):
+        with pytest.raises(ValueError, match="forward kernel's pairs"):
             ops.check_backward(*dims)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        ops.check_backward(128, 128, 128, 256)
 
 
 # -- the plain backward --------------------------------------------------------------
@@ -460,6 +469,94 @@ def test_flash_attention_keeps_the_lse_only_for_a_gradient(monkeypatch,
         (q, k, v), do.transpose(1, 2))
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5)
+
+
+# -- the backward at the wider head dims -------------------------------------
+
+def _jax_attention_grads(q, k, v, do, causal):
+    """dq, dk, dv of the JAX package's attention, by `jax.grad` of
+    <o, do>: causal through ``chunked_causal_attention`` (the reference
+    model's prefill attention, chunks of 100 queries and 40 keys), not
+    causal through its kernel's plain version ``attention_ref`` with v
+    padded by zero columns to q's head dim (it takes dv = dh; the padded
+    columns of o are zero and take a zero cotangent). numpy (B,S,·,d) in,
+    numpy out."""
+    from repro.kernels.flash_attention import ref as jref
+    from repro.models import attention as jattention
+    dv = v.shape[-1]
+
+    def inner(q, k, v):
+        if causal:
+            return jattention.chunked_causal_attention(
+                q, k, v, q_chunk=100, kv_chunk=40)
+        pad = jnp.pad(v, ((0, 0), (0, 0), (0, 0),
+                          (0, q.shape[-1] - dv)))
+        o = jref.attention_ref(*(x.transpose(0, 2, 1, 3) for x in (q, k, pad)),
+                               causal=False)
+        return o.transpose(0, 2, 1, 3)[..., :dv]
+
+    grads = jax.grad(lambda q, k, v: jnp.sum(inner(q, k, v) * do),
+                     argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    return [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dims", [(128, 128), (192, 128)])
+def test_attention_bwd_ref_matches_jax_at_the_wide_head_dims(dims, causal):
+    """The plain backward (the backward kernel's plain version) at the two
+    wider pairs of the kernel, GQA (H 4, KV 2) at a ragged S of 200, given
+    the forward's lse, and `flash_attention`'s gradient on CPU tensors,
+    against ``jax.grad`` of the JAX package's attention from the same numpy
+    inputs: each of dq, dk, dv within 2e-5 of its largest |value|."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    b, s, h, kv = 1, 200, 4, 2
+    dh, dv = dims
+    rng = np.random.default_rng(dh + causal)
+    q, k, v, do = (rng.standard_normal(sh).astype(np.float32) for sh in (
+        (b, s, h, dh), (b, s, kv, dh), (b, s, kv, dv), (b, s, h, dv)))
+    want = _jax_attention_grads(q, k, v, do, causal)
+    qt, kt, vt, dot = (torch.from_numpy(x).transpose(1, 2)
+                       for x in (q, k, v, do))
+    o, lse = ref.attention_ref(qt, kt, vt, causal, return_lse=True)
+    plain = [g.transpose(1, 2) for g in
+             ref.attention_bwd_ref(qt, kt, vt, o, dot, causal, lse=lse)]
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=causal)
+    via_op = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    for name, a, c, w in zip(("dq", "dk", "dv"), plain, via_op, want):
+        assert a.shape == w.shape, name
+        bar = GRAD_TOL * np.abs(w).max()
+        assert np.abs(a.numpy() - w).max() <= bar, name
+        assert np.abs(c.numpy() - w).max() <= bar, name
+
+
+@pytest.mark.parametrize("arch,change", [
+    ("yi-6b", dict(head_dim=128)),
+    ("deepseek-v2-236b", dict(qk_nope_head_dim=128, qk_rope_head_dim=64,
+                              v_head_dim=128))])
+def test_loss_and_gradient_at_the_wide_head_dims_match_reference(arch,
+                                                                 change):
+    """A narrow smoke model at the backward kernel's wider pairs, yi-6b's
+    GQA at head dim 128 and deepseek-v2's MLA at (128 + 64, 128): the
+    loss and every gradient leaf against ``jax.value_and_grad`` (as
+    `test_loss_and_every_gradient_leaf_match_reference`, 2e-5 of each
+    leaf's largest |value|)."""
+    cfg, jcfg = _pair(arch, **change)
+    assert train.attention_head_dims(cfg) in ((128, 128), (192, 128))
+    arrays = _reference_arrays(jcfg)
+    batch = _batch(cfg, 12)
+    (jl, (jce, jaux)), jg = jax.value_and_grad(
+        lambda p: jmodel.loss_fn(p, jcfg, batch["tokens"], batch["labels"]),
+        has_aux=True)(jax.tree.map(jnp.asarray, arrays))
+    m = model.params_from_reference(arrays, cfg, device="cpu")
+    loss, ce, aux, grads = _grads(m, batch["tokens"], batch["labels"])
+    for got, want in ((loss, jl), (ce, jce), (aux, jaux)):
+        np.testing.assert_allclose(float(got), float(want), rtol=SCALAR_RTOL)
+    want, got = _leaves(jg), _leaves(model.to_reference(grads))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        assert g.shape == w.shape, path
+        assert np.abs(g - w).max() <= GRAD_TOL * np.abs(w).max(), path
 
 
 # -- lm_batches ----------------------------------------------------------------------
