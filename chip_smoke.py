@@ -392,6 +392,26 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
     remat="block"): flash_attention exactly twice and its backward once a
     layer a microbatch, loss and grad_norm finite, each step's wall,
     tokens/s, train mfu and peak memory.
+25. linear_scan's backward kernel (``csrc/linear_scan_bwd.cu``: both
+    reads, step by step on the CUDA cores from states kept every 64
+    steps). (a) Against the plain backward in float64 from the same inputs
+    (`SCAN_BWD_CASES`): zamba2-1.2b's prefill views (4, 64, 4096, 64, 64)
+    (Mamba2's read: bf16 B and C and the decay as stride-0 views, float32
+    v) and rwkv6-7b's prefill layout at the same shape (bf16 r, k, v and
+    dL/do, float32 w, the bonus u), a ragged S = 1000 and S = 1 in each:
+    dq, dk, dv, dw and du within one rounding to their dtype plus
+    `SCAN_BWD_REL` of their largest |value|, two launches bitwise equal,
+    each counted on its read. (b) Its time at both prefill shapes beside
+    its bound (the least bytes, each gradient at its leaf's shape, or
+    twice the forward's least operations, whichever is larger) and the
+    plain backward's; no library call computes it. (c) zamba2-1.2b at full width and depth and rwkv6-7b at
+    full width cut to 8 of 32 layers (`TRAIN_SCAN`), bf16, a warm-up and
+    `TRAIN_WIDE_STEPS` timed steps through phase 21's `train_cell`
+    (grad_accum 2, remat="block"): every kernel's launches exactly
+    (`train_launches`: linear_scan twice and its backward once a block a
+    microbatch; zamba2's shared block on flash_attention twice and its
+    backward once a super-block a microbatch), loss and grad_norm
+    finite, each step's wall, tokens/s, train mfu and peak memory.
 
 Each phase prints its wall time as it ends, and the line before the
 kernels line sums them.
@@ -404,7 +424,10 @@ smollm's shape, its launches phase 22's, its context-parallel launches
 at Sk > Sq one, its launches phase 23's ranks', and its backward at
 yi-6b's (128, 128) and deepseek-v2's (192, 128) shapes one each,
 `flash_attention_bwd_dh128` and `flash_attention_bwd_mla`, their launches
-phase 24's); the last line is
+phase 24's, and linear_scan's backward one a read,
+`linear_scan_bwd_mamba2` at zamba2's and `linear_scan_bwd_rwkv6` at
+rwkv6's prefill shape, their launches phase 25's training); the last
+line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -776,6 +799,7 @@ SCAN_REL = 1e-6
 COUNTERS = {"flash_attention": fa_ops.launches,
             "flash_attention_bwd": fa_ops.bwd_launches,
             "linear_scan": ls_ops.launches,
+            "linear_scan_bwd": ls_ops.bwd_launches,
             "score_hist": sh_ops.launches,
             "threshold_select": ts_ops.launches}
 
@@ -856,9 +880,10 @@ def device_line() -> str:
     return out.stdout.strip()
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call of `fn` on the card (CUDA events)."""
-    for _ in range(3):
+def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean milliseconds per call of `fn` on the card (CUDA events), after
+    `warmup` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -4194,29 +4219,47 @@ def same_tensors(a: dict, b: dict) -> bool:
         a[n].dtype == b[n].dtype and torch.equal(a[n], b[n]) for n in a)
 
 
+def train_launches(cfg) -> dict:
+    """The kernels a train step launches, by counter, exactly: a
+    microbatch runs each block's forward, its recompute (remat="block")
+    and its backward once. Attention runs once a layer, zamba2's shared
+    block once a super-block; the Mamba2 and RWKV6 blocks' scans once a
+    block."""
+    if cfg.block == "mamba":
+        n_attn, n_scan = transformer.zamba_layout(cfg)[0], cfg.num_layers
+    elif cfg.block == "rwkv":
+        n_attn, n_scan = 0, cfg.num_layers
+    else:
+        n_attn, n_scan = cfg.num_layers, 0
+    want = {"flash_attention": 2 * TRAIN_ACCUM * n_attn,
+            "flash_attention_bwd": TRAIN_ACCUM * n_attn}
+    if n_scan:
+        want.update({"linear_scan": 2 * TRAIN_ACCUM * n_scan,
+                     "linear_scan_bwd": TRAIN_ACCUM * n_scan})
+    return want
+
+
 def train_cell(model, cfg, seed: int, card: str, steps: int = TRAIN_STEPS,
                profile: bool = True) -> dict:
-    """Phases 21 and 24's training: `make_train_step` with remat and
+    """Phases 21, 24 and 25's training: `make_train_step` with remat and
     accumulation on `lm_batches` (by codebook where cfg has several); one
     untimed step, then `steps`; per step its wall, tokens/s, mfu by
-    `train_flops_analytic`, peak device memory and flash_attention's
-    forward and backward launches, exactly (a microbatch runs each
-    layer's forward, its recompute and its backward once); then, with
+    `train_flops_analytic`, peak device memory and the kernels' forward
+    and backward launches, exactly (`train_launches`); then, with
     `profile`, one more step under the profiler. Returns the optimizer
-    state and the last timed step's numbers, with the backward's launches
-    over every step it ran before the profiled one (`bwd_launches`)."""
+    state and the last timed step's numbers, with each counter's launches
+    over every step it ran before the profiled one (`launch_totals`)."""
     opts = TrainOptions(grad_accum=TRAIN_ACCUM, adamw=adamw.AdamWConfig(
         lr=1e-4, warmup_steps=2, total_steps=100))
     step = make_train_step(cfg, opts)
     opt = adamw.init(model)
     b, s = TRAIN_SHAPE
-    want = {"flash_attention": 2 * TRAIN_ACCUM * cfg.num_layers,
-            "flash_attention_bwd": TRAIN_ACCUM * cfg.num_layers}
+    want = train_launches(cfg)
     flops = modellib.train_flops_analytic(cfg, b, s)
     batches = (codebook_batches(cfg, seed, steps + 1, TRAIN_SHAPE)
                if cfg.num_codebooks > 1
                else lm_batches(seed, steps + 1, b, s, cfg.vocab_size))
-    out, bwd = {}, 0
+    out, totals = {}, dict.fromkeys(want, 0)
     for i, batch in enumerate(batches):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4228,7 +4271,8 @@ def train_cell(model, cfg, seed: int, card: str, steps: int = TRAIN_STEPS,
         launches = {name: COUNTERS[name].count for name in want}
         check(launches == want, f"{cfg.name} train step {i} launched "
               f"{launches}, expected {want}")
-        bwd += launches["flash_attention_bwd"]
+        for name in totals:
+            totals[name] += launches[name]
         loss, gnorm = float(met["loss"]), float(met["grad_norm"])
         check(math.isfinite(loss) and math.isfinite(gnorm),
               f"{cfg.name} train step {i}: loss {loss}, grad_norm {gnorm}")
@@ -4246,7 +4290,7 @@ def train_cell(model, cfg, seed: int, card: str, steps: int = TRAIN_STEPS,
               f"{out['tokens_s']:.1f} tokens/s, mfu {out['mfu']:.4f} "
               f"(train_flops_analytic {flops:.4g}), peak "
               f"{out['peak_gb']:.2f} GB, launches {launches} ({card})")
-    out["bwd_launches"] = bwd
+    out["launch_totals"] = totals
     if not profile:
         return opt, out
     state = [opt]
@@ -4825,7 +4869,7 @@ def wide_train_phase(seed: int, card: str) -> dict:
         model = init_model(cfg, seed)
         _, out = train_cell(model, cfg, seed, card, steps=TRAIN_WIDE_STEPS,
                             profile=False)
-        launches[arch] = out["bwd_launches"]
+        launches[arch] = out["launch_totals"]["flash_attention_bwd"]
         print(f"phase 24 {arch}: {json.dumps(out)} ({card})")
         del model
         torch.cuda.empty_cache()
@@ -4842,6 +4886,197 @@ def bwd_kernel_row(name: str, shape, launches: int, errs: dict,
                         "the JAX package takes by autodiff of jnp "
                         "attention)",
             "launches": launches, "max_abs_err": errs[shape], **rows[shape]}
+
+
+# -- phase 25 ------------------------------------------------------------------
+
+# linear_scan's backward kernel (`csrc/linear_scan_bwd.cu`) against its
+# plain backward in float64 from the same inputs: zamba2-1.2b's prefill
+# views (Mamba2's read) and rwkv6-7b's prefill layout (RWKV6's, bonus u),
+# each at its prefill shape, a ragged S and S = 1.
+SCAN_BWD_CASES = (("mamba2", LS_PREFILL), ("rwkv6", LS_RWKV),
+                  ("mamba2", (2, 8, 1000, 64, 64)),
+                  ("rwkv6", (2, 8, 1000, 64, 64)),
+                  ("mamba2", (2, 8, 1, 64, 64)), ("rwkv6", (2, 8, 1, 64, 64)))
+# The kernel computes in float32 and rounds dq, dk and dv once to their
+# dtype (bf16 for rwkv6's r, k and v and for Mamba2's B and C). So each
+# gradient lies within one rounding to its dtype (a bf16 ulp of the float64
+# value) plus SCAN_BWD_REL of its largest |value|. Over SCAN_BWD_CASES at
+# --seed 0, 1 and 2 (`hold_scan_bwd`, on an H100 80GB HBM3 at 700 W) the
+# largest excess was 1.727e-6 of the largest |value| (du at rwkv6's
+# prefill shape, a sum over B·S = 16384 steps; 1.517e-6 and 1.663e-6 at
+# the other seeds), every other gradient at most 5.489e-7: SCAN_BWD_REL is
+# 2.9 times the largest. A step dropped or a decay read at the wrong step
+# moves a gradient by far more.
+SCAN_BWD_REL = 5e-6
+# zamba2-1.2b trains at full depth; rwkv6-7b cut to 8 of its 32 layers:
+# at full depth its bf16 weights, float32 gradient sums and AdamW moments
+# need about 106 GB.
+TRAIN_SCAN = {ZAMBA: None, RWKV: 8}
+
+
+def scan_bwd_inputs(read: str, shape, g):
+    """(q, k, v, w, u, dL/do) on the card: Mamba2's as `mamba_block` hands
+    them over (`scan_inputs`: bf16 B and C and the decay as stride-0
+    views, float32 v and dL/do) or RWKV6's (`rwkv_scan_inputs`: bf16 r, k,
+    v and dL/do, float32 w, the bonus u); dL/do standard normal."""
+    if read == "mamba2":
+        q, k, v, w, u = scan_inputs(shape, g)
+    else:
+        q, k, v, w, u = rwkv_scan_inputs(shape, g)
+    do = torch.randn(v.shape, generator=g, device=DEVICE).to(v.dtype)
+    return q, k, v, w, u, do
+
+
+def hold_scan_bwd(read: str, shape, g) -> tuple:
+    """The backward kernel on `read`'s inputs at `shape` against the
+    plain backward in float64: each gradient within one rounding to its
+    dtype plus SCAN_BWD_REL of its largest |value|, finite, two launches
+    bitwise equal and counted on `read`. Returns (the largest |kernel -
+    float64| over the gradients, the largest excess over one rounding as
+    a share of its gradient's largest |value|)."""
+    q, k, v, w, u, do = scan_bwd_inputs(read, shape, g)
+    what = f"linear_scan_bwd {read} {shape}"
+    before = ls_ops.bwd_launches.routes[read]
+    got = ls_ops.linear_scan_bwd(q, k, v, w, u, do)
+    again = ls_ops.linear_scan_bwd(q, k, v, w, u, do)
+    check(ls_ops.bwd_launches.routes[read] == before + 2,
+          f"{what}: two calls counted "
+          f"{ls_ops.bwd_launches.routes[read] - before} on {read}")
+    want = ls_ref.linear_scan_bwd_ref(
+        q.double(), k.double(), v.double(), w,
+        None if u is None else u.double(), do.double(),
+        compute_dtype=torch.float64)
+    torch.cuda.synchronize()
+    check(all(a is None or torch.equal(a, b) for a, b in zip(got, again)),
+          f"{what}: two calls differ")
+    worst, share, readings = 0.0, 0.0, []
+    for name, a, x in zip(("dq", "dk", "dv", "dw", "du"), got, want):
+        if x is None:
+            continue
+        err = (a.double() - x).abs()
+        if a.dtype == torch.bfloat16:
+            err_over = err - torch.pow(2.0, torch.floor(torch.log2(
+                x.abs().clamp_min(1e-30))) - 7)
+        else:
+            err_over = err
+        scale = float(x.abs().max())
+        excess = float(err_over.max())
+        check(bool(torch.isfinite(a).all())
+              and excess <= SCAN_BWD_REL * scale,
+              f"{what} {name}: {excess:.4g} beyond one rounding, largest "
+              f"|value| {scale:.4g} (bar {SCAN_BWD_REL} of it)")
+        worst = max(worst, float(err.max()))
+        if scale > 0:
+            share = max(share, excess / scale)
+        readings.append(f"{name} {excess / scale if scale else 0.0:.4g}")
+    print(f"{what}: max |kernel - float64| {worst:.6g}; beyond one rounding "
+          f"as a share of the largest |value| (bar {SCAN_BWD_REL}): "
+          + ", ".join(readings) + "; two calls bitwise equal")
+    del q, k, v, w, u, do, got, again, want
+    return worst, share
+
+
+def scan_bwd_row(read: str, shape, seed: int) -> dict:
+    """The backward kernel's time at `read`'s prefill shape beside its
+    bound and the plain backward's time (one float32 call); no PyTorch
+    call computes a diagonal-decay scan's gradient, so the library time is
+    null. The bound is the larger of the least bytes over the HBM rate
+    (each distinct element of q, k, v, w, u and dL/do read once, and each
+    gradient written once at its leaf's shape: a stride-0 view's gradient
+    sums to the elements it views) and the least operations of the
+    chunked form's backward: each product of the forward's least form
+    (`chunked_ms` or `channel_ms` for Mamba2's read, `channel_ms` for
+    RWKV6's, as phases 9 and 16 bound the forward) differentiated in both
+    operands, twice its time."""
+    b, h, s, dk, dv = shape
+    q, k, v, w, u, do = scan_bwd_inputs(read, shape, torch.Generator(
+        device=DEVICE).manual_seed(seed + 29))
+    ms = cuda_ms(lambda: ls_ops.linear_scan_bwd(q, k, v, w, u, do), 10)
+    plain_ms = cuda_ms(lambda: ls_ref.linear_scan_bwd_ref(q, k, v, w, u,
+                                                          do), 1, warmup=0)
+    inputs = [t for t in (q, k, v, w, u) if t is not None]
+    moved = 2 * sum(distinct_bytes(t) for t in inputs) + distinct_bytes(do)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_channel = channel_ms(b, h, s, dk, dv, v.dtype == torch.bfloat16)
+    t_fwd = t_channel if read == "rwkv6" else min(
+        t_channel, chunked_ms(b, h, s, dk, dv, q.dtype == torch.bfloat16))
+    t_ops = 2 * t_fwd
+    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes \
+        else (t_bytes, "bytes")
+    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None}
+    print(f"linear_scan_bwd {read} at (B, H, S, dk, dv) = {shape}: "
+          f"{json.dumps(row)}; least bytes {moved / 1e6:.6g} MB "
+          f"({t_bytes:.6g} ms), the chunked backward's operations "
+          f"{t_ops:.6g} ms; share of the bound reached {b_ms / ms:.3f}; "
+          f"library call: none")
+    del q, k, v, w, u, do
+    return row
+
+
+def scan_train_phase(seed: int, card: str) -> dict:
+    """Phase 25 (c): `make_train_step` with remat="block" and grad_accum
+    TRAIN_ACCUM at TRAIN_SHAPE for each config of TRAIN_SCAN, through
+    phase 21's `train_cell`: each kernel's launches exactly
+    (`train_launches`), linear_scan's backward once a block a microbatch,
+    loss and grad_norm finite; each step's wall, tokens/s, train mfu and
+    peak memory. Returns {arch: linear_scan_bwd launches over its
+    steps}."""
+    launches = {}
+    for arch, depth in TRAIN_SCAN.items():
+        torch.cuda.empty_cache()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=depth or full.num_layers,
+                                  remat="block")
+        print(f"{arch} at {cfg.num_layers} of {full.num_layers} layers at "
+              f"full width: {modellib.count_params_analytic(cfg)} "
+              f"parameters")
+        model = init_model(cfg, seed)
+        _, out = train_cell(model, cfg, seed, card, steps=TRAIN_WIDE_STEPS,
+                            profile=False)
+        n = out["launch_totals"]["linear_scan_bwd"]
+        want = TRAIN_ACCUM * cfg.num_layers * (TRAIN_WIDE_STEPS + 1)
+        check(n == want, f"{arch}: linear_scan_bwd launched {n} times over "
+              f"{TRAIN_WIDE_STEPS + 1} steps, expected {want}")
+        launches[arch] = n
+        print(f"phase 25 {arch}: {json.dumps(out)} ({card})")
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
+def scan_bwd_phase(seed: int, card: str) -> tuple:
+    """Phase 25: (a) the backward kernel over SCAN_BWD_CASES
+    (`hold_scan_bwd`), (b) its times at both prefill shapes
+    (`scan_bwd_row`), (c) zamba2-1.2b and rwkv6-7b trained
+    (`scan_train_phase`). Returns ({read: the largest |kernel - float64|
+    at its prefill shape}, {read: its row of times}, {arch: backward
+    launches in training})."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 31)
+    errs, share = {}, 0.0
+    for read, shape in SCAN_BWD_CASES:
+        worst, part = hold_scan_bwd(read, shape, g)
+        share = max(share, part)
+        errs.setdefault(read, worst)
+        torch.cuda.empty_cache()
+    print(f"linear_scan_bwd: largest excess over one rounding {share:.4g} "
+          f"of its gradient's largest |value| (bar {SCAN_BWD_REL}) ({card})")
+    rows = {read: scan_bwd_row(read, shape, seed)
+            for read, shape in SCAN_BWD_CASES[:2]}
+    return errs, rows, scan_train_phase(seed, card)
+
+
+def scan_bwd_kernel_row(read: str, launches: int, errs: dict,
+                        rows: dict) -> dict:
+    """A row of the kernels line for the linear_scan backward's `read`."""
+    return {"name": f"linear_scan_bwd_{read}", "route": "cuda",
+            "source": "src/repro_torch/csrc/linear_scan_bwd.cu",
+            "replaces": "src/repro/kernels/linear_scan/linear_scan.py:108 "
+                        "(its gradient, which the JAX package takes by "
+                        "autodiff of scan_ops.linear_scan_chunked, "
+                        "src/repro/models/scan_ops.py:72)",
+            "launches": launches, "max_abs_err": errs[read], **rows[read]}
 
 
 class Phases:
@@ -5035,7 +5270,11 @@ def main() -> None:
     wide_name = "24 train at head dim 128 and MLA"
     with phase(wide_name):
         wide_launches = wide_train_phase(args.seed, card)
-    for name in (bwd_name, music_name, proxy_name, mesh_name, wide_name):
+    scan_name = "25 linear_scan backward, zamba2 and rwkv6 train"
+    with phase(scan_name):
+        scan_errs, scan_rows, scan_launches = scan_bwd_phase(args.seed, card)
+    for name in (bwd_name, music_name, proxy_name, mesh_name, wide_name,
+                 scan_name):
         print(f"phase {name.split()[0]} wall: {phase.walls[name]:.3f} s "
               f"({card})")
     print(phase.total())
@@ -5086,6 +5325,10 @@ def main() -> None:
                                wide_launches["yi-6b"], bwd_errs, bwd_rows))
     rows.append(bwd_kernel_row("flash_attention_bwd_mla", FA_DSV2,
                                wide_launches[DSV2], bwd_errs, bwd_rows))
+    rows.append(scan_bwd_kernel_row("mamba2", scan_launches[ZAMBA],
+                                    scan_errs, scan_rows))
+    rows.append(scan_bwd_kernel_row("rwkv6", scan_launches[RWKV],
+                                    scan_errs, scan_rows))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,6 +13,12 @@ per state row, bf16 v, any strides). Neither falls back to the other: a
 launch that fails raises. `launches` counts both kernels' launches,
 `launches.routes` each route's.
 
+`linear_scan` is differentiable: where autograd records it, its gradient
+is `linear_scan_bwd`, the backward kernel ``csrc/linear_scan_bwd.cu`` on
+CUDA tensors (one launch; `bwd_launches.routes` counts it by read,
+``"mamba2"`` or ``"rwkv6"``) and `ref.linear_scan_bwd_ref` on CPU ones.
+The final state carries no gradient: one that reaches it raises.
+
 Tensors are in the JAX package's (B,H,S,d) layout (``kernels/linear_scan``).
 The kernels read q, k, w and v through their strides, so broadcast views
 cost nothing: Mamba2 passes its B and C, shared by all heads, as
@@ -21,7 +27,9 @@ cost nothing: Mamba2 passes its B and C, shared by all heads, as
 neither is materialized. o is allocated in v's memory layout and dtype. On
 the card q and k share a dtype (bf16 or float32), v is bf16 or float32
 (Mamba2's v = dt·x is float32 in either model dtype; an RWKV6 block hands
-over its bf16 v, `models.rwkv.time_mix`) and w is float32.
+over its bf16 v, `models.rwkv.time_mix`) and w is float32. The backward
+returns the gradients of such views at the views' shapes (dense), and
+autograd's ``expand`` backward sums them.
 
 >>> import torch
 >>> one = torch.ones(1, 1, 3, 1)
@@ -43,6 +51,8 @@ MAX_DIM = 64               # dk and dv a block's state holds
 DTYPES = (torch.bfloat16, torch.float32)
 
 launches = _build.LaunchCounter(routes=("chunked", "channel"))
+bwd_launches = _build.LaunchCounter(routes=("mamba2", "rwkv6"))
+BWD_CHUNK = 64             # steps between the states the backward keeps
 # Each route's library, ``csrc/<name>.cu``, the pointers its launch takes
 # (q, k, v, w, o, state, and the channel kernel's u after w) and the ints
 # after them (batch, heads, seq, dk, dv, qk_bf16, and the channel kernel's
@@ -117,20 +127,24 @@ def _check(q, k, v, w, u) -> None:
                          f"{tuple(u.shape)}")
 
 
-def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                w: torch.Tensor, u: torch.Tensor | None = None):
-    """q, k, w: (B,H,S,dk); v: (B,H,S,dv); u: (H,dk) or None ->
-    (o (B,H,S,dv) in v's dtype, final state (B,H,dk,dv) float32): the
-    exact recurrence S_t = diag(w_t) S_{t-1} + k_tᵀ v_t from a zero state,
-    on w clipped to [1e-6, 1], read after the update (u None, Mamba2) or
-    before it with the bonus u (RWKV6)."""
-    tensors = (q, k, v, w) + (() if u is None else (u,))
+def _on_card(what: str, *tensors) -> bool:
+    """False where every tensor lies on the CPU, True where all lie on one
+    CUDA device; raises otherwise."""
     devices = {t.device.type for t in tensors}
     if devices == {"cpu"}:
-        return ref.linear_scan_ref(q, k, v, w, u)
+        return False
     if devices != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"linear_scan runs on cpu or on one cuda device, "
+        raise ValueError(f"{what} runs on cpu or on one cuda device, "
                          f"got {[str(t.device) for t in tensors]}")
+    return True
+
+
+def _forward(q, k, v, w, u):
+    """(o, final state) of the forward kernel its route picks, or of the
+    plain version on CPU tensors."""
+    tensors = (q, k, v, w) + (() if u is None else (u,))
+    if not _on_card("linear_scan", *tensors):
+        return ref.linear_scan_ref(q, k, v, w, u)
     _check(q, k, v, w, u)
     b, h, s, dk = q.shape
     dv = v.shape[-1]
@@ -155,3 +169,104 @@ def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(status, error_string, LIBS[which][0])
     launches.bump(which)
     return o, state
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry_points():
+    """The backward kernel's (launch, error_string), bound once."""
+    lib = _build.load("linear_scan_bwd")
+    launch = lib.linear_scan_bwd_launch
+    launch.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p, ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    err = lib.linear_scan_bwd_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return launch, err
+
+
+def linear_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    w: torch.Tensor, u: torch.Tensor | None,
+                    do: torch.Tensor):
+    """The gradient of `linear_scan`'s o, given dL/do (B,H,S,dv) in v's
+    dtype, with no gradient into the final state: (dq, dk, dv, dw, du),
+    dense, at the inputs' shapes and in their dtypes (du None where u is).
+    On CUDA tensors the backward kernel (one launch, counted by read in
+    `bwd_launches`); on CPU ones `ref.linear_scan_bwd_ref`."""
+    tensors = (q, k, v, w, do) + (() if u is None else (u,))
+    if not _on_card("linear_scan_bwd", *tensors):
+        return ref.linear_scan_bwd_ref(q, k, v, w, u, do)
+    _check(q, k, v, w, u)
+    if do.shape != v.shape or do.dtype != v.dtype:
+        raise ValueError(f"do must be v's shape and dtype "
+                         f"{tuple(v.shape)} {v.dtype}, got "
+                         f"{tuple(do.shape)} {do.dtype}")
+    b, h, s, dk = q.shape
+    dv = v.shape[-1]
+    n_chunks = -(-s // BWD_CHUNK)
+    launch, error_string = _bwd_entry_points()
+    with torch.cuda.device(q.device):
+        gq, gk, gv = (torch.empty(t.shape, dtype=t.dtype, device=q.device)
+                      for t in (q, k, v))
+        gw = torch.empty(w.shape, dtype=torch.float32, device=q.device)
+        gu = None if u is None else torch.empty(b, h, dk,
+                                                dtype=torch.float32,
+                                                device=q.device)
+        uf = None if u is None else u.float().contiguous()
+        # the state before every BWD_CHUNK steps, each in the kernel's own
+        # order of its 4096 floats
+        kept = torch.empty(b * h * n_chunks * MAX_DIM * MAX_DIM,
+                           dtype=torch.float32, device=q.device)
+        strides = (ctypes.c_longlong * 20)(
+            *(x for t in (q, k, v, w, do) for x in t.stride()))
+        status = launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            None if uf is None else uf.data_ptr(), do.data_ptr(),
+            gq.data_ptr(), gk.data_ptr(), gv.data_ptr(), gw.data_ptr(),
+            None if gu is None else gu.data_ptr(), kept.data_ptr(),
+            b, h, s, dk, dv, n_chunks, int(q.dtype == torch.bfloat16),
+            int(v.dtype == torch.bfloat16), ctypes.addressof(strides),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, error_string, "linear_scan_bwd")
+    bwd_launches.bump("mamba2" if u is None else "rwkv6")
+    if gu is not None:
+        gu = gu.sum(0).to(u.dtype)          # over the batch, in one order
+    return gq, gk, gv, gw, gu
+
+
+class _LinearScan(torch.autograd.Function):
+    """The scan with `linear_scan_bwd` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, w, u):
+        """(o, final state) of `_forward`; the inputs kept where one needs
+        a gradient."""
+        ctx.set_materialize_grads(False)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(q, k, v, w, u)
+        return _forward(q, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, do, dstate):
+        """dq, dk, dv, dw, du by `linear_scan_bwd`; raises where a
+        gradient reaches the final state."""
+        if dstate is not None:
+            raise RuntimeError(
+                "linear_scan: a gradient reached the final state, which "
+                "carries none (the backward starts from dL/dS_T = 0)")
+        if do is None:
+            return None, None, None, None, None
+        q, k, v, w, u = ctx.saved_tensors
+        return linear_scan_bwd(q, k, v, w, u, do.to(v.dtype))
+
+
+def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                w: torch.Tensor, u: torch.Tensor | None = None):
+    """q, k, w: (B,H,S,dk); v: (B,H,S,dv); u: (H,dk) or None ->
+    (o (B,H,S,dv) in v's dtype, final state (B,H,dk,dv) float32): the
+    exact recurrence S_t = diag(w_t) S_{t-1} + k_tᵀ v_t from a zero state,
+    on w clipped to [1e-6, 1], read after the update (u None, Mamba2) or
+    before it with the bonus u (RWKV6). Differentiable in q, k, v, w and u
+    through o (see `linear_scan_bwd`); the final state carries no
+    gradient."""
+    return _LinearScan.apply(q, k, v, w, u)

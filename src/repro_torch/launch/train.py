@@ -5,8 +5,8 @@ batch) -> (model, opt_state, metrics)``.
 One step takes ``batch["tokens"]`` and ``batch["labels"]`` (numpy or
 tensors, (B, S) or (B, S, K)), runs `models.model.loss_fn` forward and
 backward with autograd (attention's gradient is the flash_attention
-backward kernel on the card, activation checkpointing where ``cfg.remat
-== "block"``) and one `optim.adamw.apply`, which updates the model and the
+backward kernel on the card, linear_scan's the linear_scan backward
+kernel, activation checkpointing where ``cfg.remat == "block"``) and one `optim.adamw.apply`, which updates the model and the
 optimizer state in place. With ``grad_accum`` > 1 the batch's rows split
 into microbatches as the reference's reshape splits them (microbatch i is
 rows [i·B/n, (i+1)·B/n)); their gradients add up in float32 buffers and
@@ -20,10 +20,9 @@ each moment's parameter spec plus the data axes) and batch on a mesh, and
 `input_specs_train` gives a shape's batch as ``meta`` tensors. The step
 itself runs on one process: its gradients are not reduced over a mesh.
 A config whose training path has no backward kernel raises
-NotImplementedError: Mamba2 and RWKV6 blocks (linear_scan has no backward
-kernel yet), and on the card attention at head dims flash_attention_bwd
-does not take (it takes the forward kernel's (64, 64), (128, 128) and
-(192, 128)).
+NotImplementedError: on the card, attention at head dims
+flash_attention_bwd does not take (it takes the forward kernel's (64, 64),
+(128, 128) and (192, 128)). Mamba2 and RWKV6 blocks train on every device.
 """
 from __future__ import annotations
 
@@ -56,13 +55,12 @@ def attention_head_dims(cfg):
 
 def check_trainable(cfg, device=None) -> None:
     """Raise NotImplementedError where cfg's training path on `device`
-    has no backward kernel: Mamba2 and RWKV6 blocks on any device (queued
-    in ROADMAP.md), and on a CUDA device attention at head dims the
-    flash_attention backward kernel does not take."""
-    if cfg.block in ("mamba", "rwkv"):
-        raise NotImplementedError(
-            f"{cfg.name}: training {cfg.block} blocks needs a linear_scan "
-            f"backward kernel, queued in ROADMAP.md")
+    has no backward kernel: on a CUDA device, attention at head dims the
+    flash_attention backward kernel does not take. RWKV6 models have no
+    attention; Mamba2 and RWKV6 blocks' scans train through the
+    linear_scan backward on every device."""
+    if cfg.block == "rwkv":
+        return
     if device is not None and torch.device(device).type == "cuda":
         dims = attention_head_dims(cfg)
         if dims not in fa_ops.BWD_HEAD_DIMS:

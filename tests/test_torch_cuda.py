@@ -18,9 +18,10 @@ the card against the same models on the CPU, and the MoE layer's routing and
 dispatch on the card against the CPU's from the same router logits;
 flash_attention at MLA's (dh, dv) = (192, 128), a narrow MLA + MoE model
 through it and deepseek-v2's absorbed-latent decode on the card against
-the CPU; the flash_attention backward kernel against its plain backward,
-train steps of a narrow model on the card against the CPU, and a
-checkpoint restored onto the card.
+the CPU; the flash_attention and linear_scan backward kernels against
+their plain backwards, train steps of narrow models (zamba2 and rwkv6
+among them) on the card against the CPU, and a checkpoint restored onto
+the card.
 """
 import dataclasses
 import pathlib
@@ -1001,6 +1002,159 @@ def test_linear_scan_kernel_reads_mamba_broadcast_views(card, dtype):
     assert o.stride() == v.stride() and o.dtype == torch.float32
     torch.testing.assert_close(o, po, **SCAN_TOL)
     torch.testing.assert_close(st, pst, **SCAN_TOL)
+
+
+# linear_scan's backward kernel against its plain backward in float64 on
+# the same inputs: each gradient within one rounding to its dtype (a bf16
+# ulp for bf16 dq, dk and dv) plus SCAN_BWD_REL of its largest |value|,
+# the bar chip_smoke.py's phase 25 sets from its readings at seeds 0-2
+# (see the note there).
+SCAN_BWD_REL = 5e-6
+
+
+def _scan_bwd_inputs(card, layout, b, h, s, dk, dv, seed):
+    """(q, k, v, w, u, dL/do): Mamba2's views (bf16 B and C, float32 v and
+    do), RWKV6's layout (bf16 r, k, v and do, float32 w) or the
+    reference's law in float32."""
+    if layout == "mamba":
+        q, k, v, w, u = _mamba_scan_inputs(card, b, h, s, dk, dv, seed,
+                                           None, torch.bfloat16)
+    elif layout == "rwkv":
+        q, k, v, w, u = _rwkv_scan_inputs(card, b, h, s, dk, seed,
+                                          torch.bfloat16)
+    else:
+        q, k, v, w, u = _scan_inputs(card, b, h, s, dk, dv, seed)
+    g = torch.Generator(device=card).manual_seed(seed)
+    do = torch.randn(v.shape, generator=g, device=card).to(v.dtype)
+    return q, k, v, w, u, do
+
+
+def _hold_scan_bwd(got, want):
+    for name, a, x in zip(("dq", "dk", "dv", "dw", "du"), got, want):
+        if x is None:
+            assert a is None, name
+            continue
+        assert a.shape == x.shape and torch.isfinite(a).all(), name
+        bar = SCAN_BWD_REL * x.abs().max()
+        if a.dtype == torch.bfloat16:
+            bar = bar + _bf16_ulp(x)
+        assert bool(((a.double() - x).abs() <= bar).all()), (
+            name, float((a.double() - x).abs().max()), float(x.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,b,h,s,dk,dv", [
+    ("mamba", 2, 3, 200, 64, 64), ("mamba", 2, 3, 1, 64, 64),
+    ("mamba", 2, 3, 130, 16, 24), ("rwkv", 2, 4, 300, 64, 64),
+    ("rwkv", 1, 4, 1000, 64, 64), ("rwkv", 2, 4, 1, 64, 64),
+    ("plain", 2, 2, 130, 33, 40), ("plain", 1, 2, 64, 64, 64)])
+@pytest.mark.parametrize("bonus", [False, True])
+def test_linear_scan_bwd_kernel_matches_plain(card, layout, b, h, s, dk, dv,
+                                              bonus):
+    """Both reads: Mamba2's views (their gradients dense at the views'
+    shapes), RWKV6's bf16 layout, the reference's law at dk x dv = 33 x
+    40, ragged S, S = 1 and a chunk's edge; against the float64 plain
+    backward, bitwise across two launches, each counted on its read."""
+    q, k, v, w, u, do = _scan_bwd_inputs(card, layout, b, h, s, dk, dv,
+                                         s + dk)
+    uu = u if bonus else None
+    read = "rwkv6" if bonus else "mamba2"
+    before = ls_ops.bwd_launches.routes[read]
+    got = ls_ops.linear_scan_bwd(q, k, v, w, uu, do)
+    again = ls_ops.linear_scan_bwd(q, k, v, w, uu, do)
+    want = ls_ref.linear_scan_bwd_ref(
+        q.double(), k.double(), v.double(), w,
+        None if uu is None else uu.double(), do.double(),
+        compute_dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert ls_ops.bwd_launches.routes[read] == before + 2
+    for a, t in zip(got, (q, k, v, w, uu)):
+        assert (a is None) == (t is None)
+        if a is not None:
+            assert a.dtype == t.dtype and a.shape == t.shape
+    _hold_scan_bwd(got, want)
+    assert all(a is None or torch.equal(a, a2) for a, a2 in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bonus", [False, True])
+def test_linear_scan_gradient_on_the_card_is_the_kernel(card, bonus):
+    """Autograd through `linear_scan` on CUDA tensors launches the
+    backward kernel once (Mamba2's stride-0 views: their gradients summed
+    by autograd) and gives the plain backward's gradients; a gradient into
+    the final state raises."""
+    b, h, s, n, hd = 2, 3, 150, 64, 32
+    g = torch.Generator(device=card).manual_seed(5)
+    bc = torch.randn(b, s, 2 * n, generator=g, device=card).requires_grad_()
+    a = (torch.rand(b, h, s, generator=g, device=card) * 0.5
+         + 0.5).requires_grad_()
+    v = torch.randn(b, h, s, hd, generator=g, device=card).requires_grad_()
+    u = (0.3 * torch.randn(h, n, generator=g, device=card)).requires_grad_()
+    do = torch.randn(b, h, s, hd, generator=g, device=card)
+    leaves = [bc, a, v] + ([u] if bonus else [])
+
+    def run(fn):
+        q = bc[..., n:][:, None].expand(b, h, s, n)
+        k = bc[..., :n][:, None].expand(b, h, s, n)
+        w = a[..., None].expand(b, h, s, n)
+        return fn(q, k, v, w, u if bonus else None)[0]
+    before = ls_ops.bwd_launches.count
+    got = torch.autograd.grad(run(ls_ops.linear_scan), leaves, do)
+    assert ls_ops.bwd_launches.count == before + 1
+    want = torch.autograd.grad(run(ls_ref.linear_scan_ref), leaves, do)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
+    o, state = ls_ops.linear_scan(bc[:, None, :, :n].expand(b, h, s, n),
+                                  bc[:, None, :, n:].expand(b, h, s, n), v,
+                                  a[..., None].expand(b, h, s, n))
+    with pytest.raises(RuntimeError, match="final state"):
+        state.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,accum,change", [
+    ("zamba2-1.2b", 2, dict(d_model=128, num_heads=2, num_kv_heads=2,
+                            head_dim=64)),
+    ("rwkv6-7b", 1, dict(d_model=128))], ids=["zamba2", "rwkv6"])
+def test_scan_family_train_steps_on_the_card_match_cpu(card, arch, accum,
+                                                       change):
+    """Three float32 train steps of a narrow zamba2 (its shared block at
+    (64, 64)) and rwkv6 (remat on) on the card against the same weights
+    and batches on the CPU, as `test_train_steps_on_the_card_match_cpu`
+    holds the dense configs: the metrics within 1e-5 relative, the
+    weights within lr, one linear_scan backward launch a block a
+    microbatch."""
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), remat="block",
+                              **change)
+    opts = train.TrainOptions(grad_accum=accum, adamw=adamw.AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=10))
+    runs = {}
+    for dev in ("cpu", card):
+        m = model.init(cfg, generator=torch.Generator().manual_seed(3),
+                       device="cpu").to(dev)
+        m.cfg = cfg
+        o = adamw.init(m)
+        step = train.make_train_step(cfg, opts)
+        mets = []
+        for i in range(3):
+            rng = np.random.default_rng(i)
+            batch = {key: rng.integers(0, cfg.vocab_size, (4, 96))
+                     for key in ("tokens", "labels")}
+            before = ls_ops.bwd_launches.count
+            m, o, met = step(m, o, batch)
+            if dev != "cpu":
+                assert ls_ops.bwd_launches.count == before \
+                    + accum * cfg.num_layers
+            mets.append({key: float(v) for key, v in met.items()})
+        runs[str(dev)] = (m, mets)
+    (cpu_m, cpu_mets), (card_m, card_mets) = runs.values()
+    for a, b_ in zip(card_mets, cpu_mets):
+        for key in a:
+            assert a[key] == pytest.approx(b_[key], rel=1e-5, abs=1e-9), key
+    for (name, p), (_, p_cpu) in zip(card_m.named_parameters(),
+                                     cpu_m.named_parameters()):
+        assert float((p.detach().cpu() - p_cpu.detach()).abs().max()) \
+            <= 1e-3, name
 
 
 def _narrow_zamba(dtype):

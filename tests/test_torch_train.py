@@ -1,7 +1,7 @@
 """The port's trainer against the JAX package, on the CPU: the loss, every
 gradient leaf, activation checkpointing, AdamW, the train step with and
-without accumulation, ``lm_batches``, gradient compression and the
-families that cannot train yet.
+without accumulation, ``lm_batches`` and gradient compression, for the
+dense, MoE, hybrid Mamba2 and RWKV6 families.
 
 The reference's ``model.init(PRNGKey(0), cfg)`` weights (biases and norm
 scales perturbed with seeded noise, so that they are exercised) are
@@ -10,7 +10,11 @@ come from numpy seeds. Float32 throughout. Tolerances:
 * loss, ce, aux, grad_norm, lr: rtol 2e-6 (a few float32 ulps);
 * every gradient leaf: |port - ref| <= 2e-5 · max|ref| of the leaf, the
   port's logits bar (tests/test_torch_models.py); the largest reading over
-  the six configs is 1.25e-6 (deepseek-v2's MLA);
+  the six configs is 1.25e-6 (deepseek-v2's MLA). rwkv6's reference runs
+  its scan on its exact recurrence (patched in, as tests/test_torch_rwkv.py
+  does): its chunked form's float32 sums move rwkv6's gradient leaves by
+  up to 2.3e-5 of their largest value (batch seed 10), the port lies 9e-6
+  from the exact recurrence. zamba2 is held against the chunked scan;
 * AdamW alone from the same gradients: atol = rtol = 2e-6 (float32
   rounding of the same operations);
 * parameters after 3 train steps: every element within lr, and at most
@@ -19,8 +23,26 @@ come from numpy seeds. Float32 throughout. Tolerances:
   may move by up to lr either way in a step. The readings: at most 1.03e-4
   at lr 1e-3 (an attention projection of smollm's smoke model), and at
   most 6 of 147,776 elements (musicgen's) beyond 1e-6; the first moments
-  stay within 1e-7.
+  stay within 1e-7. rwkv6's smoke model does not meet these bars even
+  against itself: the reference's own eager evaluation
+  (``jax.disable_jit``) lies farther from its jitted one, over the same
+  three steps with accumulation 1, than they allow: grad_norm 2.84e-5,
+  the first moment of u 1.44e-6, 107 of 114,368 parameters beyond 1e-6
+  (the port: 1.91e-5, 8.5e-7, 59). Two causes, both in the model: the
+  per-head group norm after the scan divides by sqrt(var + eps) over 16
+  channels, and at the first token o_0 = (q_0 · u · k_0) v_0 cancels to
+  var 2.7e-6 < eps (batch seed 1), so the rounding of o there reaches
+  dL/do magnified about 280 times: dL/do lies 1e-6 to 5.3e-5 of its
+  largest value from a float64 evaluation over batch seeds 1, 2, 3, 10,
+  11 and 12 (at the second block the port's is the nearer in five of
+  the six, at the first the farther in all six, by 1.1 to 2.9 times);
+  and Adam's g / (|g| + eps) turns the rounding of gradient
+  elements near eps into parameter moves of up to 0.24 lr (maa_w2),
+  which the next steps carry. So rwkv6's chained steps are held, each
+  quantity, to the larger of the bar above and twice the reference's own
+  eager-to-jit spread, measured in the run (`reference_spread`).
 """
+import contextlib
 import dataclasses
 import pathlib
 import time
@@ -38,6 +60,7 @@ from repro.data import synthetic as jsynthetic  # noqa: E402
 from repro.launch import train as jtrain  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
+from repro.models import scan_ops as jscan_ops  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro.optim import grad_compress as jgc  # noqa: E402
 from repro_torch import configs  # noqa: E402
@@ -47,14 +70,19 @@ from repro_torch.models import layers, model  # noqa: E402
 from repro_torch.optim import adamw, grad_compress  # noqa: E402
 
 # smollm's smoke (dense, tied), yi's (GQA), qwen1.5's (QKV bias), musicgen's
-# (four codebooks), llama4's (interleaved MoE, sigmoid gate) and
-# deepseek-v2's (MLA with a dense-prefix MoE, softmax top-k)
+# (four codebooks), llama4's (interleaved MoE, sigmoid gate),
+# deepseek-v2's (MLA with a dense-prefix MoE, softmax top-k), zamba2's (Mamba2
+# blocks and a shared attention block) and rwkv6's (RWKV6 blocks)
 ARCHS = ("smollm-360m", "yi-6b", "qwen1.5-4b", "musicgen-medium",
-         "llama4-maverick-400b-a17b", "deepseek-v2-236b")
+         "llama4-maverick-400b-a17b", "deepseek-v2-236b", "zamba2-1.2b",
+         "rwkv6-7b")
+SCAN_ARCHS = ("zamba2-1.2b", "rwkv6-7b")
+EXACT_SCAN_ARCHS = ("rwkv6-7b",)
 SCALAR_RTOL = 2e-6
 GRAD_TOL = 2e-5
 ADAMW_TOL = dict(atol=2e-6, rtol=2e-6)
 STEP_LR = 1e-3
+STEP_OPT = dict(lr=STEP_LR, warmup_steps=2, total_steps=10)
 SPAWN_TIMEOUT_S = 240
 
 
@@ -130,21 +158,58 @@ def test_softmax_cross_entropy_mask_of_zeros_divides_by_one():
     assert float(got) == 0.0
 
 
+def _exact_scan(q, k, v, w, u=None, initial_state=None, chunk=64):
+    """The reference's exact recurrence on w clipped as its chunked scan
+    clips it (``scan_ops.py:93``)."""
+    return jscan_ops.linear_scan_recurrent(q, k, v, jnp.clip(w, 1e-6, 1.0),
+                                           u, initial_state)
+
+
+def _reference_patch(mp, arch):
+    """Put the reference's exact recurrence in place of its chunked scan
+    for the archs in EXACT_SCAN_ARCHS."""
+    if arch in EXACT_SCAN_ARCHS:
+        mp.setattr(jscan_ops, "linear_scan_chunked", _exact_scan)
+
+
+@pytest.fixture(scope="module")
+def reference_grads():
+    """``reference_grads(arch)``: the reference's loss, ce, aux and
+    gradient on `arch`'s perturbed init and batch seed 1 (rwkv6's scan on
+    its exact recurrence); each computed once a module."""
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            _, jcfg = _pair(arch)
+            batch = _batch(configs.get_smoke_config(arch), 1)
+            with pytest.MonkeyPatch.context() as mp:
+                _reference_patch(mp, arch)
+                (jl, (jce, jaux)), jg = jax.value_and_grad(
+                    lambda p: jmodel.loss_fn(p, jcfg, batch["tokens"],
+                                             batch["labels"]),
+                    has_aux=True)(jax.tree.map(jnp.asarray,
+                                               _reference_arrays(jcfg)))
+            cache[arch] = ((float(jl), float(jce), float(jaux)),
+                           _leaves(jg))
+        return cache[arch]
+    return get
+
+
 @pytest.mark.parametrize("arch", ARCHS)
-def test_loss_and_every_gradient_leaf_match_reference(arch):
+def test_loss_and_every_gradient_leaf_match_reference(arch, reference_grads):
     """`loss_fn` and its gradient, leaf by leaf in the reference's stacked
-    layout, against ``jax.value_and_grad(model.loss_fn)``."""
+    layout, against ``jax.value_and_grad(model.loss_fn)``; rwkv6's against
+    the reference on its exact recurrence."""
     cfg, jcfg = _pair(arch)
     arrays = _reference_arrays(jcfg)
     batch = _batch(cfg, 1)
-    (jl, (jce, jaux)), jg = jax.value_and_grad(
-        lambda p: jmodel.loss_fn(p, jcfg, batch["tokens"], batch["labels"]),
-        has_aux=True)(jax.tree.map(jnp.asarray, arrays))
     m = model.params_from_reference(arrays, cfg, device="cpu")
     loss, ce, aux, grads = _grads(m, batch["tokens"], batch["labels"])
-    for got, want in ((loss, jl), (ce, jce), (aux, jaux)):
-        np.testing.assert_allclose(float(got), float(want), rtol=SCALAR_RTOL)
-    want, got = _leaves(jg), _leaves(model.to_reference(grads))
+    scalars, want = reference_grads(arch)
+    for got, w in zip((loss, ce, aux), scalars):
+        np.testing.assert_allclose(float(got), w, rtol=SCALAR_RTOL)
+    got = _leaves(model.to_reference(grads))
     assert [p for p, _ in got] == [p for p, _ in want]
     for (path, g), (_, w) in zip(got, want):
         assert g.shape == w.shape, path
@@ -170,7 +235,8 @@ def test_masked_loss_gradient_matches_reference():
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "musicgen-medium",
-                                  "llama4-maverick-400b-a17b"])
+                                  "llama4-maverick-400b-a17b",
+                                  "zamba2-1.2b", "rwkv6-7b"])
 def test_remat_gives_the_same_gradient_bits(arch):
     """``remat="block"`` recomputes each block in the backward; on the CPU
     the loss and every gradient are the same bits as without it."""
@@ -284,41 +350,85 @@ def test_adamw_apply_matches_reference_over_five_steps():
 
 # -- the train step ----------------------------------------------------------------
 
+def _reference_steps(arch, accum, jit=True):
+    """The reference's three `make_train_step` steps from the perturbed
+    init on batch seeds 10, 11 and 12, jitted or eager: (each step's
+    metrics, the parameters, the first moments)."""
+    _, jcfg = _pair(arch)
+    jstep = jtrain.make_train_step(jcfg, jtrain.TrainOptions(
+        grad_accum=accum, adamw=jadamw.AdamWConfig(**STEP_OPT)))
+    jp = jax.tree.map(jnp.asarray, _reference_arrays(jcfg))
+    jo = jadamw.init(jp)
+    mets = []
+    with pytest.MonkeyPatch.context() as mp, \
+            contextlib.nullcontext() if jit else jax.disable_jit():
+        _reference_patch(mp, arch)
+        if jit:
+            jstep = jax.jit(jstep)
+        for i in range(3):
+            jp, jo, jm = jstep(jp, jo, _batch(jcfg, 10 + i))
+            mets.append({k: float(v) for k, v in jm.items()})
+    return mets, _leaves(jp), _leaves(jo.mu)
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b) if b else abs(a - b)
+
+
+def _offsets(got, want):
+    """|got - want| over every element of two lists of leaves."""
+    return np.concatenate([np.abs(a - b).ravel()
+                           for (_, a), (_, b) in zip(got, want)])
+
+
+@pytest.fixture(scope="module")
+def reference_spread():
+    """How far the reference's eager evaluation of rwkv6's three steps
+    (accumulation 1) lies from its jitted one: each metric's largest
+    relative difference over the steps, the parameters beyond 1e-6
+    ("beyond") and the largest first-moment difference ("mu")."""
+    jm, jp, jmu = _reference_steps("rwkv6-7b", 1)
+    em, ep, emu = _reference_steps("rwkv6-7b", 1, jit=False)
+    spread = {k: max(_rel(e[k], j[k]) for e, j in zip(em, jm))
+              for k in jm[0]}
+    spread["beyond"] = int((_offsets(ep, jp) > 1e-6).sum())
+    spread["mu"] = float(_offsets(emu, jmu).max())
+    return spread
+
+
 @pytest.mark.parametrize("accum", [1, 2])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_train_step_matches_reference(arch, accum):
+def test_train_step_matches_reference(arch, accum, request):
     """Three `make_train_step` steps against ``jax.jit(make_train_step)``
     from the same weights and batches: every metric, then the parameters
-    and moments."""
+    and moments. rwkv6's reference runs its exact recurrence, and each of
+    its bars is the larger of the others' and twice the reference's own
+    eager-to-jit spread (the module docstring says why)."""
     cfg, jcfg = _pair(arch)
-    arrays = _reference_arrays(jcfg)
-    opt = dict(lr=STEP_LR, warmup_steps=2, total_steps=10)
-    jstep = jax.jit(jtrain.make_train_step(jcfg, jtrain.TrainOptions(
-        grad_accum=accum, adamw=jadamw.AdamWConfig(**opt))))
+    jms, jp, jmu = _reference_steps(arch, accum)
     step = train.make_train_step(cfg, train.TrainOptions(
-        grad_accum=accum, adamw=adamw.AdamWConfig(**opt)))
-    jp = jax.tree.map(jnp.asarray, arrays)
-    jo = jadamw.init(jp)
-    m = model.params_from_reference(arrays, cfg, device="cpu")
+        grad_accum=accum, adamw=adamw.AdamWConfig(**STEP_OPT)))
+    m = model.params_from_reference(_reference_arrays(jcfg), cfg,
+                                    device="cpu")
     o = adamw.init(m)
-    for i in range(3):
-        batch = _batch(cfg, 10 + i)
-        jp, jo, jm = jstep(jp, jo, batch)
-        m, o, met = step(m, o, batch)
+    spread = (request.getfixturevalue("reference_spread")
+              if arch in EXACT_SCAN_ARCHS else {})
+    for i, jm in enumerate(jms):
+        m, o, met = step(m, o, _batch(cfg, 10 + i))
         assert set(met) == set(jm) == {"ce", "aux", "loss", "grad_norm",
                                        "lr"}
         for k in jm:
             assert met[k].shape == () and not met[k].requires_grad
-            np.testing.assert_allclose(float(met[k]), float(jm[k]),
-                                       rtol=SCALAR_RTOL, atol=1e-9)
-    off = [np.abs(a - b).ravel() for (_, a), (_, b) in zip(
-        _leaves(model.params_to_reference(m)), _leaves(jp))]
-    off = np.concatenate(off)
+            np.testing.assert_allclose(
+                float(met[k]), jm[k], atol=1e-9, err_msg=f"step {i} {k}",
+                rtol=max(SCALAR_RTOL, 2 * spread.get(k, 0.0)))
+    off = _offsets(_leaves(model.params_to_reference(m)), jp)
     assert off.max() <= STEP_LR
-    assert (off > 1e-6).sum() <= off.size / 5000
-    for (path, a), (_, b) in zip(_leaves(model.to_reference(o.mu)),
-                                 _leaves(jo.mu)):
-        assert np.abs(a - b).max() <= 1e-7, path
+    assert (off > 1e-6).sum() <= max(off.size / 5000,
+                                     2 * spread.get("beyond", 0))
+    mu_bar = max(1e-7, 2 * spread.get("mu", 0.0))
+    for (path, a), (_, b) in zip(_leaves(model.to_reference(o.mu)), jmu):
+        assert np.abs(a - b).max() <= mu_bar, path
 
 
 def test_accumulation_splits_rows_as_the_reference():
@@ -340,11 +450,17 @@ def test_accumulation_splits_rows_as_the_reference():
                                              rel=SCALAR_RTOL)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-7b"])
-def test_linear_scan_families_cannot_train_yet(arch):
-    cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train.make_train_step(cfg)
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("arch", SCAN_ARCHS)
+def test_linear_scan_families_train_on_every_device(arch, device):
+    """Mamba2 and RWKV6 blocks train through linear_scan's backward on
+    both devices, at full width (zamba2's shared block at the backward
+    kernel's (64, 64); rwkv6 has no attention) and at smoke width on the
+    CPU; `make_train_step` builds."""
+    train.check_trainable(configs.get_config(arch), device)
+    if device == "cpu":
+        train.check_trainable(configs.get_smoke_config(arch), device)
+    assert callable(train.make_train_step(configs.get_config(arch)))
 
 
 @pytest.mark.parametrize("arch,ok", [("smollm-360m", True),
